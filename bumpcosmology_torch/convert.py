@@ -1,0 +1,63 @@
+"""Carry the JAX package's parameters and data across into this package.
+
+Each function takes the JAX package's containers (or anything with the same
+field names) whose leaves convert with ``numpy.asarray`` — the JAX arrays
+themselves, or numpy arrays — and returns this package's container with
+torch tensors on ``device``.  Nothing here imports JAX: the tests hand both
+packages identical inputs through these functions.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bumpcosmology_torch.device import resolve_device
+from bumpcosmology_torch.inference.likelihoods import EventData, PopCosmoData, SelectionData
+from bumpcosmology_torch.inference.nuts import ChainState, WarmupResult
+from bumpcosmology_torch.models.parameters import (
+    CosmoParams,
+    MassParams,
+    PopulationParams,
+    RedshiftParams,
+)
+
+__all__ = ["tensor", "theta_batch", "population_params", "cosmo_params", "pop_cosmo_data",
+           "warmup_result"]
+
+
+def tensor(x, device=None, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), dtype=dtype, device=resolve_device(device))
+
+
+def theta_batch(theta, device=None) -> torch.Tensor:
+    """An unconstrained position batch ``(C, dim)`` (a single ``(dim,)`` becomes ``C=1``)."""
+    t = tensor(theta, device)
+    return t[None] if t.dim() == 1 else t
+
+
+def _leaves(cls, obj, device):
+    # scalar leaves become (1,): one chain
+    return cls(*(tensor(getattr(obj, f), device).reshape(-1) for f in cls._fields))
+
+
+def population_params(p, device=None) -> PopulationParams:
+    """``PopulationParams`` (mass + redshift leaves) → batched ``(C,)`` leaves."""
+    return PopulationParams(_leaves(MassParams, p.mass, device), _leaves(RedshiftParams, p.redshift, device))
+
+
+def cosmo_params(p, device=None) -> CosmoParams:
+    return _leaves(CosmoParams, p, device)
+
+
+def pop_cosmo_data(data, device=None) -> PopCosmoData:
+    """``PopCosmoData`` (events + selection) with every leaf cast to float32."""
+    ev = EventData(*(tensor(getattr(data.events, f), device) for f in EventData._fields))
+    sel = SelectionData(*(tensor(getattr(data.selection, f), device) for f in SelectionData._fields))
+    return PopCosmoData(ev, sel)
+
+
+def warmup_result(warm, device=None) -> WarmupResult:
+    """``WarmupResult`` (state + eps + cov + chol_cov)."""
+    st = warm.state
+    return WarmupResult(ChainState(tensor(st.theta, device), tensor(st.u, device), tensor(st.grad, device)),
+                        tensor(warm.eps, device), tensor(warm.cov, device), tensor(warm.chol_cov, device))

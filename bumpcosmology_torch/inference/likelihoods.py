@@ -1,0 +1,201 @@
+"""The joint population + flat-wCDM likelihood, PISN-bump family (L2);
+counterpart of the JAX package's ``inference/likelihoods.py``.
+
+    log L = Σ_events [ logsumexp_samples(log w) − log nsamp ]  −  nobs·log μ_sel
+    log μ_sel = logsumexp_injections(log w_sel) − log Ndraw
+
+batched over chains.  Every PE sample and injection is one row of a shared
+``(N, 4)`` query table; one kernel-B launch weighs all of them for all chains.
+
+This mirrors the JAX package's fused/Pallas route
+(``_cosmo_frame_logwts_fused``, ``likelihoods.py:339-361``): the log(dL)-keyed
+detector table is built at ``n_z`` points, as ``likelihoods.py:472`` does
+(the TPU bracket path's ``n_det`` has no counterpart here).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from bumpcosmology_torch.device import resolve_device
+from bumpcosmology_torch.inference.distributions import Normal, TruncatedNormal, Uniform
+from bumpcosmology_torch.inference.model import ModelSpec
+from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table
+from bumpcosmology_torch.models.mass import DEFAULT_N_GRID
+from bumpcosmology_torch.models.parameters import (
+    CosmoParams,
+    MassParams,
+    PopulationParams,
+    RedshiftParams,
+)
+from bumpcosmology_torch.models.population import build_population
+from bumpcosmology_torch.ops.cuda_logwts import cosmo_frame_logwts
+
+__all__ = [
+    "EventData",
+    "SelectionData",
+    "PopCosmoData",
+    "make_pop_cosmo_data",
+    "population_from_sites",
+    "cosmo_from_sites",
+    "dl_bounds_of",
+    "query_table",
+    "pop_cosmo_loglike",
+    "POP_COSMO_PRIORS",
+    "pop_cosmo_model_spec",
+]
+
+
+class EventData(NamedTuple):
+    """Per-event detector-frame PE samples, (nobs, nsamp) each."""
+
+    a: torch.Tensor  # m1_det
+    q: torch.Tensor
+    c: torch.Tensor  # dL [Gpc]
+    log_pdraw: torch.Tensor
+
+
+class SelectionData(NamedTuple):
+    """Detected injections (nsel,) and the log of the number drawn."""
+
+    a: torch.Tensor
+    q: torch.Tensor
+    c: torch.Tensor
+    log_pdraw: torch.Tensor
+    log_ndraw: torch.Tensor  # scalar
+
+
+class PopCosmoData(NamedTuple):
+    events: EventData
+    selection: SelectionData
+
+    def to(self, device) -> "PopCosmoData":
+        return PopCosmoData(
+            EventData(*(x.to(device) for x in self.events)),
+            SelectionData(*(x.to(device) for x in self.selection)),
+        )
+
+
+def _log_pdraw(pdraw, dtype, device):
+    """log(pdraw) in float64 *before* casting: weights below the float32
+    normal range must not flush to zero and become -inf."""
+    pdraw = np.asarray(pdraw, dtype=np.float64)
+    if np.any(pdraw <= 0) or not np.all(np.isfinite(pdraw)):
+        raise ValueError("pdraw must be strictly positive and finite")
+    return torch.as_tensor(np.log(pdraw), dtype=dtype, device=device)
+
+
+def make_pop_cosmo_data(m1s_det, qs, dls, pdraw, m1s_det_sel, qs_sel, dls_sel, pdraw_sel, ndraw,
+                        dtype=torch.float32, device=None) -> PopCosmoData:
+    """Assemble :class:`PopCosmoData` from raw arrays on ``device`` (``None`` means CUDA)."""
+    dev = resolve_device(device)
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)  # noqa: E731
+    ev = EventData(a=t(m1s_det), q=t(qs), c=t(dls), log_pdraw=_log_pdraw(pdraw, dtype, dev))
+    sel = SelectionData(
+        a=t(m1s_det_sel), q=t(qs_sel), c=t(dls_sel),
+        log_pdraw=_log_pdraw(pdraw_sel, dtype, dev),
+        log_ndraw=torch.log(torch.tensor(float(ndraw), dtype=dtype, device=dev)),
+    )
+    return PopCosmoData(events=ev, selection=sel)
+
+
+def population_from_sites(sites: Dict[str, torch.Tensor]) -> PopulationParams:
+    """mbhmax = mpisn + dmbhmax,  fpl = exp(log_fpl),  kappa = lam + dkappa."""
+    mass = MassParams(
+        a=sites["a"], b=sites["b"], c=sites["c"], mpisn=sites["mpisn"],
+        mbhmax=sites["mpisn"] + sites["dmbhmax"], sigma=sites["sigma"],
+        fpl=torch.exp(sites["log_fpl"]), beta=sites["beta"],
+    )
+    redshift = RedshiftParams(lam=sites["lam"], kappa=sites["lam"] + sites["dkappa"], zp=sites["zp"])
+    return PopulationParams(mass=mass, redshift=redshift)
+
+
+def cosmo_from_sites(sites: Dict[str, torch.Tensor]) -> CosmoParams:
+    return CosmoParams(h=sites["h"], Om=sites["Om"], w=sites["w"])
+
+
+def dl_bounds_of(data: PopCosmoData, margin: float = 0.05):
+    """(dl_lo, dl_hi) floats bracketing every event/selection dL."""
+    lo = min(float(data.events.c.min()), float(data.selection.c.min()))
+    hi = max(float(data.events.c.max()), float(data.selection.c.max()))
+    return lo * (1.0 - margin), hi * (1.0 + margin)
+
+
+def query_table(data: PopCosmoData) -> torch.Tensor:
+    """(N, 4) rows [m1_det, q, dL, log pdraw]: every PE sample, then every injection."""
+    ev, sel = data.events, data.selection
+    rows = [torch.stack([ev.a, ev.q, ev.c, ev.log_pdraw], dim=-1).reshape(-1, 4),
+            torch.stack([sel.a, sel.q, sel.c, sel.log_pdraw], dim=-1)]
+    return torch.cat(rows, dim=0).contiguous()
+
+
+def pop_cosmo_loglike(sites: Dict[str, torch.Tensor], data: PopCosmoData,
+                      n_grid: int = DEFAULT_N_GRID, n_z: int = 1024, dl_bounds=None,
+                      qry=None, plain: bool = False) -> torch.Tensor:
+    """Joint log-likelihood for sites of shape ``(C,)``; returns ``(C,)``.
+
+    ``qry`` is :func:`query_table` of ``data`` (computed if not given);
+    ``plain=True`` takes the kernels' plain twins whatever the device.
+    """
+    nobs, nsamp = data.events.a.shape
+    dl_lo, dl_hi = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
+    qry = query_table(data) if qry is None else qry
+    pop = build_population(population_from_sites(sites), n_grid, plain)
+    cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
+    det = build_detector_table(cosmo, dl_lo, dl_hi, n=n_z)
+    log_w = cosmo_frame_logwts(pop, det, qry, plain)  # (C, N)
+    n_ev = nobs * nsamp
+    log_like = torch.logsumexp(log_w[:, :n_ev].reshape(-1, nobs, nsamp), dim=-1) - math.log(nsamp)
+    log_mu_sel = torch.logsumexp(log_w[:, n_ev:], dim=-1) - data.selection.log_ndraw
+    return log_like.sum(-1) - nobs * log_mu_sel
+
+
+_MASS_PRIORS = {
+    "a": TruncatedNormal(2.35, 2.0, low=-1.65, high=6.35),
+    "b": TruncatedNormal(1.9, 2.0, low=-2.1, high=5.9),
+    "c": TruncatedNormal(4.0, 2.0, low=0.0, high=8.0),
+    "mpisn": TruncatedNormal(35.0, 5.0, low=20.0, high=50.0),
+    "dmbhmax": TruncatedNormal(5.0, 2.0, low=0.5, high=11.0),
+    "sigma": TruncatedNormal(2.0, 2.0, low=1.0),
+    "beta": Normal(0.0, 2.0),
+    "log_fpl": Uniform(math.log(1e-3), math.log(0.5)),
+}
+
+_REDSHIFT_PRIORS = {
+    "lam": TruncatedNormal(2.7, 2.0, low=-1.3, high=6.7),
+    "dkappa": TruncatedNormal(5.6 - 2.7, 2.0, low=1.0, high=9.6 - 2.7),
+    "zp": TruncatedNormal(1.9, 1.0, low=0.0, high=3.9),
+}
+
+_COSMO_PRIORS = {
+    "h": TruncatedNormal(0.7, 0.2, low=0.35, high=1.4),
+    "Om": TruncatedNormal(0.3, 0.15, low=0.0, high=1.0),
+    "w": TruncatedNormal(-1.0, 0.25, low=-1.5, high=-0.5),
+}
+
+_RATE_PRIORS = {"R_unit": Normal(0.0, 1.0)}
+
+POP_COSMO_PRIORS = {**_COSMO_PRIORS, **_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
+
+
+def pop_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
+                         device=None, plain: bool = False) -> ModelSpec:
+    """The joint model as a :class:`ModelSpec` (15 sites) with ``data`` on
+    ``device`` (``None`` means CUDA; raises without it).
+
+    The dL bounds and the query table are fixed here, once.  ``plain=True``
+    builds the same potential on the kernels' plain twins (the on-card
+    comparison uses it; the main path does not).
+    """
+    dev = resolve_device(device)
+    data = data.to(dev)
+    bounds = dl_bounds_of(data)
+    qry = query_table(data)
+    return ModelSpec(
+        priors=dict(POP_COSMO_PRIORS),
+        loglike=lambda sites: pop_cosmo_loglike(sites, data, n_grid, n_z, bounds, qry, plain),
+        device=dev,
+    )

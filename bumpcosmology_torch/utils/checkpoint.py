@@ -1,0 +1,29 @@
+"""Loading an adapted sampler state (L4); counterpart of
+the JAX package's ``utils/checkpoint.py::load_warmup``.
+
+The ``.npz`` holds ``theta u grad eps cov chol_cov`` with a leading chain axis.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bumpcosmology_torch.device import resolve_device
+from bumpcosmology_torch.inference.nuts import ChainState, WarmupResult
+
+__all__ = ["checkpoint_file", "load_warmup"]
+
+
+def checkpoint_file(path) -> str:
+    """``np.savez`` appends ``.npz`` to a path without it; readers must agree."""
+    path = str(path)
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def load_warmup(path, device=None, dtype=torch.float32) -> WarmupResult:
+    """The adapted state in ``path`` on ``device`` (``None`` means CUDA)."""
+    dev = resolve_device(device)
+    with np.load(checkpoint_file(path)) as d:
+        t = {k: torch.as_tensor(d[k], dtype=dtype, device=dev)
+             for k in ("theta", "u", "grad", "eps", "cov", "chol_cov")}
+    return WarmupResult(ChainState(t["theta"], t["u"], t["grad"]), t["eps"], t["cov"], t["chol_cov"])

@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``bumpcosmology_torch``).
+
+Run from the root of a checkout on a host with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+It drives the port's main path — the flagship joint population + flat-wCDM
+fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
+24,576 injections: 38,912 queries per chain), ``n_grid=256``, ``n_z=1024``,
+16 chains sampled with dense-mass NUTS from ``benchmarks/flagship_warmup16.npz``
+— and holds every CUDA kernel against its plain PyTorch twin:
+
+1. build both kernels from ``bumpcosmology_torch/csrc`` (one nvcc per source);
+2. kernel A (bump table) against its twin at C=16, G=256 on the warm thetas:
+   forward rtol 1e-4 / atol 5e-5, VJP to the 5 scalars rtol 2e-4 / atol 1e-5;
+3. kernel B (detector-frame log-weights) at full size, N=38,912, K=1024,
+   G=256, C=16: values rtol 2e-5 / atol 2e-5 (the same -inf rows), every
+   cotangent rtol 5e-4 with atol 5e-4 x the largest reference entry
+   (float32 atomics sum in another order);
+4. the 16-chain potential value+grad, kernels against twins:
+   |dU|/(1+|U|) < 2e-4 and |dgrad|/(1+|grad|) < 5e-3, timed with CUDA events;
+5. ``run_sampling`` for a few NUTS draws with every launch count set to 0
+   just before and read just after; each kernel must have launched.
+
+Any failure raises and exits non-zero.  The last two lines of stdout are
+the ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; the line
+before them is the card's name and power limit from nvidia-smi.  Exits
+non-zero, printing no result, when CUDA is absent or the package is not
+beside this script.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+CATALOG = ROOT / "benchmarks" / "flagship_catalog.npz"
+WARMUP16 = ROOT / "benchmarks" / "flagship_warmup16.npz"
+SEED = 20261016
+N_GRID, N_Z = 256, 1024
+N_DRAWS = 5
+MAX_DEPTH = 10
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+# FP32 operations per unit of work, tallied from the kernel sources (each
+# exp/log/log1p counted as one operation; the special-function unit runs
+# those at a quarter of the FMA rate, so these bounds are optimistic):
+#   A-fwd per cell: r (2), K (2), online log-sum-exp (compare, exp, add, ...) -> 8
+#   A-bwd per cell: r (2), w = exp(...) (4), ros, phi_j, dk/dmco (4), 5 accumulators (22) -> 32
+#   B-fwd per chain-query: bracket + two lerps (14), masses (3), two mass terms (2 x 26),
+#          rate and frame terms (16), sum (12) -> 97
+#   B-bwd per chain-query: the forward's 97 again + two mass-term VJPs (2 x 24),
+#          z/kappa/zp terms (26), 4 table scatters and the slope terms (14) -> 185
+OPS_A_FWD_PER_CELL = 8
+OPS_A_BWD_PER_CELL = 32
+OPS_B_FWD_PER_QUERY = 97
+OPS_B_BWD_PER_QUERY = 185
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``reps`` runs, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_close(name: str, got, ref, rtol: float, atol: float) -> float:
+    """Raise unless |got - ref| <= atol + rtol |ref| with the same non-finite entries."""
+    import torch
+
+    if not torch.equal(torch.isfinite(got), torch.isfinite(ref)) or not torch.equal(
+            torch.isneginf(got), torch.isneginf(ref)):
+        raise AssertionError(f"{name}: non-finite entries differ between kernel and plain twin")
+    fin = torch.isfinite(ref)
+    err = (got[fin] - ref[fin]).abs()
+    lim = atol + rtol * ref[fin].abs()
+    if bool((err > lim).any()):
+        worst = int((err - lim).argmax())
+        raise AssertionError(f"{name}: |kernel - plain| {float(err[worst]):.3e} exceeds "
+                             f"{float(lim[worst]):.3e} (rtol {rtol}, atol {atol:.3e})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        import bumpcosmology_torch  # noqa: F401
+    except ImportError as err:
+        print(f"chip_smoke: the port package is not beside this script ({err})", file=sys.stderr)
+        return 2
+
+    from bumpcosmology_torch.benchdata import load_pop_cosmo_data
+    from bumpcosmology_torch.inference.likelihoods import (
+        cosmo_from_sites,
+        dl_bounds_of,
+        pop_cosmo_model_spec,
+        population_from_sites,
+        query_table,
+    )
+    from bumpcosmology_torch.inference.model import constrain, make_potential, value_and_grad
+    from bumpcosmology_torch.inference.nuts import NutsConfig, run_sampling
+    from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table
+    from bumpcosmology_torch.models.population import build_population
+    from bumpcosmology_torch.ops import _build, cuda_bump, cuda_logwts
+    from bumpcosmology_torch.utils.checkpoint import load_warmup
+
+    card = card_line()
+    tag = f"[{card}]"
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_phase, 3)
+        t_phase = now
+
+    # ---- phase 1: build -------------------------------------------------
+    t0 = time.perf_counter()
+    reports = _build.build_kernels()
+    log(f"phase 1 build: {len(reports)} kernel source(s) compiled in "
+        f"{time.perf_counter() - t0:.2f} s (host wall clock)")
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    phase_done("1_build")
+
+    data = load_pop_cosmo_data(CATALOG)
+    warm = load_warmup(WARMUP16)
+    spec = pop_cosmo_model_spec(data, N_GRID, N_Z)
+    spec_plain = pop_cosmo_model_spec(data, N_GRID, N_Z, plain=True)
+    theta = warm.state.theta
+    c = theta.shape[0]
+    with torch.no_grad():
+        sites = constrain(spec, theta)
+        pop_params = population_from_sites(sites)
+    mp = pop_params.mass
+    p5 = torch.stack([mp.a, mp.b, mp.mpisn, mp.mbhmax, mp.sigma], dim=1).contiguous()
+    rows = {}
+
+    # ---- phase 2: kernel A ----------------------------------------------
+    g_a = torch.randn((c, N_GRID), generator=gen, device=dev)
+    res = []
+    for fn in (cuda_bump.bump_log_dn, cuda_bump.bump_log_dn_plain):
+        leaf = p5.clone().requires_grad_(True)
+        out = fn(leaf, N_GRID)
+        (out * g_a).sum().backward()
+        res.append((out.detach(), leaf.grad))
+    torch.cuda.synchronize()
+    err_af = check_close("A-fwd", res[0][0], res[1][0], rtol=1e-4, atol=5e-5)
+    err_ab = check_close("A-bwd", res[0][1], res[1][1], rtol=2e-4, atol=1e-5)
+    logdn = res[0][0]
+    a_fwd = cuda_ms(lambda: cuda_bump._bump_fwd_cuda(p5, N_GRID))
+    a_fwd_plain = cuda_ms(lambda: cuda_bump._bump_fwd_plain(p5, N_GRID))
+    a_bwd = cuda_ms(lambda: cuda_bump._bump_bwd_cuda(p5, logdn, g_a, N_GRID))
+    a_bwd_plain = cuda_ms(lambda: cuda_bump._bump_bwd_plain(p5, logdn, g_a, N_GRID))
+    cells = c * N_GRID * N_GRID
+    rows["bump_fwd"] = dict(ms=a_fwd, plain_ms=a_fwd_plain, max_abs_err=err_af,
+                            bound=bound_ms(c * 5 * 4 + c * N_GRID * 4, cells * OPS_A_FWD_PER_CELL))
+    rows["bump_bwd"] = dict(ms=a_bwd, plain_ms=a_bwd_plain, max_abs_err=err_ab,
+                            bound=bound_ms(c * 5 * 4 * 2 + 2 * c * N_GRID * 4, cells * OPS_A_BWD_PER_CELL))
+    log(f"{tag} phase 2 kernel A (C={c}, G={N_GRID}): forward max|err| {err_af:.3e}, "
+        f"VJP max|err| {err_ab:.3e}; fwd {a_fwd:.4f} ms (plain {a_fwd_plain:.4f}), "
+        f"bwd {a_bwd:.4f} ms (plain {a_bwd_plain:.4f})")
+    phase_done("2_kernel_a")
+
+    # ---- phase 3: kernel B at full size ---------------------------------
+    with torch.no_grad():
+        pop = build_population(pop_params, N_GRID)
+        det = build_detector_table(build_cosmology(cosmo_from_sites(sites), n=N_Z),
+                                   *dl_bounds_of(data), n=N_Z)
+        tables = (det.cols.contiguous(), pop.mass_table.log_bump.contiguous(),
+                  cuda_logwts.pack_scalars(pop, det).contiguous())
+    qry = query_table(data)
+    n = qry.shape[0]
+    g_b = torch.randn((c, n), generator=gen, device=dev)
+    res = []
+    for fn in (cuda_logwts.logwts, cuda_logwts.logwts_plain):
+        leaves = [x.clone().requires_grad_(True) for x in tables]
+        out = fn(*leaves, qry)
+        (out.nan_to_num(neginf=0.0) * g_b).sum().backward()
+        res.append((out.detach(), *(x.grad for x in leaves)))
+    torch.cuda.synchronize()
+    err_bf = check_close("B-fwd", res[0][0], res[1][0], rtol=2e-5, atol=2e-5)
+    err_bb = 0.0
+    for name, got, ref in zip(("d_det", "d_bump", "d_scal"), res[0][1:], res[1][1:]):
+        scale = float(ref.abs().max())
+        err_bb = max(err_bb, check_close(f"B-bwd {name}", got, ref, rtol=5e-4, atol=5e-4 * scale))
+    n_dead = int(torch.isneginf(res[0][0]).sum())
+    g_live = g_b * torch.isfinite(res[0][0])
+    b_fwd = cuda_ms(lambda: cuda_logwts._logwts_fwd_cuda(*tables, qry))
+    b_fwd_plain = cuda_ms(lambda: cuda_logwts._evaluate(*tables, qry)["out"])
+    b_bwd = cuda_ms(lambda: cuda_logwts._logwts_bwd_cuda(*tables, qry, g_live))
+    b_bwd_plain = cuda_ms(lambda: cuda_logwts._logwts_bwd_plain(*tables, qry, g_live))
+    k_det = tables[0].shape[1]
+    table_bytes = c * (k_det * 8 + N_GRID * 4 + 15 * 4)
+    rows["logwts_fwd"] = dict(ms=b_fwd, plain_ms=b_fwd_plain, max_abs_err=err_bf,
+                              bound=bound_ms(n * 16 + table_bytes + c * n * 4, c * n * OPS_B_FWD_PER_QUERY))
+    rows["logwts_bwd"] = dict(ms=b_bwd, plain_ms=b_bwd_plain, max_abs_err=err_bb,
+                              bound=bound_ms(n * 16 + table_bytes + c * n * 4 + table_bytes,
+                                             c * n * OPS_B_BWD_PER_QUERY))
+    log(f"{tag} phase 3 kernel B (C={c}, N={n}, K={k_det}, G={N_GRID}; {n_dead} -inf chain-queries): "
+        f"values max|err| {err_bf:.3e}, cotangents max|err| {err_bb:.3e}; fwd {b_fwd:.4f} ms "
+        f"(plain {b_fwd_plain:.4f}), bwd {b_bwd:.4f} ms (plain {b_bwd_plain:.4f})")
+    phase_done("3_kernel_b")
+
+    # ---- phase 4: potential value+grad ----------------------------------
+    pot, pot_plain = make_potential(spec), make_potential(spec_plain)
+    u_k, g_k = value_and_grad(pot, theta)
+    u_p, g_p = value_and_grad(pot_plain, theta)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(u_k).all() and torch.isfinite(g_k).all()):
+        raise AssertionError("potential: non-finite value or gradient at the warm thetas")
+    du = float(((u_k - u_p).abs() / (1.0 + u_p.abs())).max())
+    dg = float(((g_k - g_p).abs() / (1.0 + g_p.abs())).max())
+    if du >= 2e-4 or dg >= 5e-3:
+        raise AssertionError(f"potential: kernels vs plain |dU|/(1+|U|) {du:.3e}, "
+                             f"|dgrad|/(1+|grad|) {dg:.3e}")
+    vg_ms = cuda_ms(lambda: value_and_grad(pot, theta), reps=10)
+    vg_plain_ms = cuda_ms(lambda: value_and_grad(pot_plain, theta), reps=10)
+    log(f"{tag} phase 4 potential (C={c}, 15 sites): |dU|/(1+|U|) {du:.3e}, "
+        f"|dgrad|/(1+|grad|) {dg:.3e}; batched value+grad {vg_ms:.3f} ms with the kernels, "
+        f"{vg_plain_ms:.3f} ms with the plain twins (CUDA events, mean of 10)")
+    phase_done("4_potential")
+
+    # ---- phase 5: NUTS sampling through the kernels ----------------------
+    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES)
+    for cnt in counters:
+        for k in cnt:
+            cnt[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_sampling(pot, warm, N_DRAWS, NutsConfig(max_depth=MAX_DEPTH), seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for cnt in counters for k, v in cnt.items()}
+    if out.thetas.shape != (c, N_DRAWS, theta.shape[1]) or not bool(torch.isfinite(out.thetas).all()):
+        raise AssertionError(f"sampling: draws of shape {tuple(out.thetas.shape)} are not all finite")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"sampling: kernels never launched on the main path: {missing}")
+    if out.max_abs_du >= 0.05:
+        raise AssertionError(f"sampling: recomputed u differs from the stored state by "
+                             f"{out.max_abs_du:.4f} nats (limit 0.05)")
+    st = out.stats
+    n_lf = int(st.n_leapfrog.sum())
+    n_vg = launches["logwts_fwd"]
+    log(f"{tag} phase 5 run_sampling ({N_DRAWS} draws x {c} chains, max_depth {MAX_DEPTH}): "
+        f"{wall:.2f} s wall, {c * N_DRAWS / wall:.3f} draws/s, {n_lf / wall:.1f} chain-leapfrogs/s "
+        f"({n_lf} chain-leapfrogs in {n_vg} batched value+grads, {n_vg / wall:.1f}/s), "
+        f"mean accept {float(st.accept_prob.mean()):.3f}, divergences {int(st.diverging.sum())}, "
+        f"mean tree depth {float(st.tree_depth.float().mean()):.2f}, "
+        f"max |du| vs stored state {out.max_abs_du:.5f}; launches {launches}")
+    phase_done("5_sampling")
+    log(f"{tag} phase 5 profile: " + device_busy_share(pot, out.warm))
+    phase_done("5_profile")
+    log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
+
+    sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu"}
+    replaces = {
+        "bump_fwd": "bumpcosmology_tpu/ops/pallas_bump.py:177",
+        "bump_bwd": "bumpcosmology_tpu/ops/pallas_bump.py:199",
+        "logwts_fwd": "bumpcosmology_tpu/ops/pallas_logwts.py:184",
+        "logwts_bwd": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
+    }
+    kernels = []
+    for name, row in rows.items():
+        b_ms, b_by = row["bound"]
+        kernels.append(dict(name=name, route="cuda", source=sources[name.split("_")[0]],
+                            replaces=replaces[name], launches=launches[name],
+                            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            status="ok: built, matches its plain twin, launched on the main path"))
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def device_busy_share(potential, warm, max_depth: int = 4) -> str:
+    """Share of the wall time of one short NUTS draw (``max_depth`` 4: at
+    most 15 batched value+grads) in which the card runs a kernel, from a
+    ``torch.profiler`` trace (CUDA activity).  A full-depth draw makes some
+    10^6 device activities, which take the profiler minutes to collect."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bumpcosmology_torch.inference.nuts import NutsConfig, run_sampling
+    from bumpcosmology_torch.ops import cuda_logwts
+
+    torch.cuda.synchronize()
+    vg0 = cuda_logwts.LAUNCHES["logwts_fwd"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_sampling(potential, warm, 1, NutsConfig(max_depth=max_depth), seed=SEED + 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n_vg = cuda_logwts.LAUNCHES["logwts_fwd"] - vg0
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return "device busy share not measured (the profiler recorded no device activity)"
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):  # union of intervals
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (f"one draw at max_depth {max_depth} under the profiler: {n_vg} batched value+grads, "
+            f"{len(events)} device activities ({len(events) / max(n_vg, 1):.0f} per value+grad), "
+            f"device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.1f} ms wall "
+            f"(busy share {busy / wall_us:.4f}, idle share {1 - busy / wall_us:.4f}); top device time: "
+            + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top))
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,80 @@
+"""Guards of the port's boundaries.
+
+* Importing the port pulls in neither JAX nor the JAX package.
+* No file of the port, and not ``chip_smoke.py``, names either package.
+* Entry points given ``device=None`` (meaning CUDA) raise on a host without
+  CUDA instead of carrying on on the CPU.
+"""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "bumpcosmology_torch"
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, pkgutil, importlib, bumpcosmology_torch\n"
+        "for m in pkgutil.walk_packages(bumpcosmology_torch.__path__, 'bumpcosmology_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m.startswith('jaxlib')"
+        " or m.startswith('bumpcosmology_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _hits(files, pattern):
+    return [f"{p.relative_to(ROOT)}:{i}" for p in files
+            for i, line in enumerate(p.read_text().splitlines(), 1) if re.search(pattern, line)]
+
+
+@pytest.mark.parametrize("pattern", [r"bumpcosmology_tpu", r"\bjax\b"])
+def test_no_port_file_names_the_jax_packages(pattern):
+    files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    assert not _hits(files, pattern)
+
+
+def test_chip_smoke_imports_neither_package():
+    """chip_smoke.py cites the replaced Pallas kernels by path in its report,
+    and imports neither package."""
+    smoke = [ROOT / "chip_smoke.py"]
+    assert not _hits(smoke, r"^\s*(import|from)\s+(jax|bumpcosmology_tpu)\b")
+    assert not _hits(smoke, r"\bjax\b")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_load_pop_cosmo_data_raises_without_cuda(no_cuda):
+    from bumpcosmology_torch.benchdata import load_pop_cosmo_data
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_pop_cosmo_data(ROOT / "benchmarks" / "flagship_catalog.npz")
+
+
+def test_pop_cosmo_model_spec_raises_without_cuda(no_cuda):
+    from bumpcosmology_torch.benchdata import load_pop_cosmo_data
+    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_model_spec
+
+    data = load_pop_cosmo_data(ROOT / "benchmarks" / "flagship_catalog.npz", device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pop_cosmo_model_spec(data)
+
+
+def test_run_sampling_raises_without_cuda(no_cuda):
+    from bumpcosmology_torch.inference.nuts import run_sampling
+    from bumpcosmology_torch.utils.checkpoint import load_warmup
+
+    warm = load_warmup(ROOT / "benchmarks" / "flagship_warmup16.npz", device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_sampling(lambda th: (th * th).sum(-1), warm, 1)
