@@ -8,6 +8,9 @@ its layout so each module's counterpart is easy to find:
 - :mod:`bumpcosmology_torch.models`     — L1 population & cosmology models
 - :mod:`bumpcosmology_torch.inference`  — L2 priors, potential, likelihood, NUTS
 - :mod:`bumpcosmology_torch.utils`      — checkpoint loading
+- :mod:`bumpcosmology_torch.data`       — importance weights at fixed Planck18
+- :mod:`bumpcosmology_torch.mock`       — the mock universe's injection campaign,
+  observations and one-year catalog, with the SNR-integral kernel (``cuda_snr``)
 
 Everything is batched over a leading chain axis: the potential takes
 ``theta`` of shape ``(C, dim)`` and one value+grad serves all ``C`` chains.

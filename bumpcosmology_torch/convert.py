@@ -22,7 +22,14 @@ from bumpcosmology_torch.models.parameters import (
 )
 
 __all__ = ["tensor", "theta_batch", "population_params", "cosmo_params", "pop_cosmo_data",
-           "warmup_result"]
+           "warmup_result", "columns"]
+
+
+def columns(frame) -> dict:
+    """A table (anything indexable by column name with a ``keys()``, such as
+    the DataFrame the JAX package's mock campaign returns) as this package's
+    ``{column: numpy array}`` dict, columns in their order."""
+    return {name: np.asarray(frame[name]) for name in frame.keys()}
 
 
 def tensor(x, device=None, dtype=torch.float32) -> torch.Tensor:

@@ -29,7 +29,7 @@ __all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build_kernels", "load_kernel", "check
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("bump", "logwts")
+KERNEL_SOURCES = ("bump", "logwts", "snr")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -21,7 +21,15 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
 4. the 16-chain potential value+grad, kernels against twins:
    |dU|/(1+|U|) < 2e-4 and |dgrad|/(1+|grad|) < 5e-3, timed with CUDA events;
 5. ``run_sampling`` for a few NUTS draws with every launch count set to 0
-   just before and read just after; each kernel must have launched.
+   just before and read just after; each kernel must have launched;
+6. the mock injection campaign at the reference's size: 10^7 draws
+   (seed 333,165,393) through ``draw_injection_campaign`` with the SNR
+   integral on kernel C, then ``campaign_summary`` (predicted detections/yr
+   in the JAX package's calibrated band, 250-2200), ``add_observation_noise``
+   and ``draw_one_year_catalog(nsamp=128)``, with every launch count set to 0
+   just before and read just after (kernel C and kernel A's forward must have
+   launched); then kernel C against its plain twin on exactly the rows the
+   campaign computed: rtol 2e-5 / atol 1e-6, the same exact zeros.
 
 Any failure raises and exits non-zero.  The last two lines of stdout are
 the ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; the line
@@ -62,6 +70,24 @@ OPS_A_FWD_PER_CELL = 8
 OPS_A_BWD_PER_CELL = 32
 OPS_B_FWD_PER_QUERY = 97
 OPS_B_BWD_PER_QUERY = 185
+
+# Kernel C (csrc/snr.cu) does data-dependent work: a row's loop ends at the
+# first grid point at or above f_cut, and each live point runs one branch.
+# FP32 operations per live point (compares, the ratio, powf or the Lorentzian,
+# amp, amp^2 w inv_psd, the sum): inspiral 8, merger 9, ringdown 12; per row
+# 60 (masses, 4 transition frequencies, 5 powf, the amplitude, the final
+# compare); per block and grid point 3 (staging f_k and w_k inv_psd_k).
+# Special-function results (MUFU: powf needs at least one ex2, an IEEE
+# division one rcp): 2 per inspiral/merger point (powf, division), 1 per
+# ringdown point (division), 10 per row; the SFU issues 16 results per clock
+# per SM.
+OPS_C_INSP, OPS_C_MERG, OPS_C_RING, OPS_C_ROW, OPS_C_STAGE = 8, 9, 12, 60, 3
+SFU_C_POWER_POINT, SFU_C_RING_POINT, SFU_C_ROW = 2, 1, 10
+SFU_PER_CLOCK_PER_SM, H100_SMS = 16, 132
+MOCK_NDRAW = 10_000_000
+MOCK_SEED = 333_165_393
+MOCK_NSAMP = 128
+PLAIN_CHUNK = 65536
 
 
 def log(msg: str) -> None:
@@ -297,14 +323,21 @@ def main() -> int:
     phase_done("5_sampling")
     log(f"{tag} phase 5 profile: " + device_busy_share(pot, out.warm))
     phase_done("5_profile")
+
+    # ---- phase 6: the mock injection campaign through kernel C ------------
+    rows["snr_integral"], mock_launches = mock_campaign_phase(dev, tag)
+    launches["snr_integral"] = mock_launches["snr_integral"]
+    phase_done("6_mock_campaign")
     log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
 
-    sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu"}
+    sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
+               "snr": "bumpcosmology_torch/csrc/snr.cu"}
     replaces = {
         "bump_fwd": "bumpcosmology_tpu/ops/pallas_bump.py:177",
         "bump_bwd": "bumpcosmology_tpu/ops/pallas_bump.py:199",
         "logwts_fwd": "bumpcosmology_tpu/ops/pallas_logwts.py:184",
         "logwts_bwd": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
+        "snr_integral": "bumpcosmology_tpu/mock/pallas_snr.py:116",
     }
     kernels = []
     for name, row in rows.items():
@@ -357,6 +390,141 @@ def device_busy_share(potential, warm, max_depth: int = 4) -> str:
             f"device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.1f} ms wall "
             f"(busy share {busy / wall_us:.4f}, idle share {1 - busy / wall_us:.4f}); top device time: "
             + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top))
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def snr_work(m1, m2, f_grid):
+    """(FP32 operations, special-function results) that kernel C does on these
+    rows, counted per live point and branch as the kernel runs them."""
+    import torch
+
+    from bumpcosmology_torch.mock import cuda_snr
+
+    f_merg, f_ring, _, f_cut = cuda_snr.row_scalars(m1, m2)
+    n_f = f_grid.shape[0]
+    below = lambda x: torch.searchsorted(f_grid, x.contiguous())  # noqa: E731  (number of f_k < x)
+    n_cut = below(f_cut)
+    n_insp = torch.minimum(below(f_merg), n_cut)
+    n_pre_ring = torch.minimum(below(f_ring), n_cut)
+    insp, merg, ring = (int(x.sum()) for x in (n_insp, n_pre_ring - n_insp, n_cut - n_pre_ring))
+    n, blocks = m1.shape[0], -(-m1.shape[0] // 256)
+    ops = (insp * OPS_C_INSP + merg * OPS_C_MERG + ring * OPS_C_RING + n * OPS_C_ROW
+           + blocks * n_f * OPS_C_STAGE)
+    sfu = (insp + merg) * SFU_C_POWER_POINT + ring * SFU_C_RING_POINT + n * SFU_C_ROW
+    return ops, sfu, dict(inspiral=insp, merger=merg, ringdown=ring, all=n * n_f)
+
+
+def mock_campaign_phase(dev, tag: str):
+    """Phase 6: the 10^7-draw injection campaign and the catalog after it,
+    through the port's entry points, then kernel C against its plain twin on
+    the campaign's own SNR rows.  Returns (kernel row, launch counts)."""
+    import numpy as np
+    import torch
+
+    from bumpcosmology_torch.mock import catalog, cuda_snr, psd, snr
+    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+
+    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_snr.LAUNCHES)
+    # host-clock split of the campaign: wrap the two SNR calls to mark when the
+    # host draws end, when the rows are on the card, when the SNRs are done
+    marks, seen = {}, {}
+    batched, network = catalog.network_snr_batched, snr.network_snr
+
+    def timed_batched(*args, **kwargs):
+        marks["batched_in"] = time.perf_counter()
+        out = batched(*args, **kwargs)
+        marks["batched_out"] = time.perf_counter()
+        return out
+
+    def timed_network(m1, m2, dl, *args, **kwargs):
+        torch.cuda.synchronize()
+        marks["network_in"] = time.perf_counter()
+        out = network(m1, m2, dl, *args, **kwargs)
+        torch.cuda.synchronize()
+        marks["network_out"] = time.perf_counter()
+        seen["rows"] = (m1, m2, dl)
+        return out
+
+    for cnt in counters:
+        for k in cnt:
+            cnt[k] = 0
+    catalog.network_snr_batched, snr.network_snr = timed_batched, timed_network
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inj = catalog.draw_injection_campaign(ndraw=MOCK_NDRAW, seed=MOCK_SEED, device=dev)
+        t_campaign = time.perf_counter()
+        summary = catalog.campaign_summary(inj, device=dev)
+        obs = catalog.add_observation_noise(inj)
+        t_obs = time.perf_counter()
+        cat = catalog.draw_one_year_catalog(len(inj["m1"]), obs, nsamp=MOCK_NSAMP, device=dev)
+        torch.cuda.synchronize()
+        t_cat = time.perf_counter()
+    finally:
+        catalog.network_snr_batched, snr.network_snr = batched, network
+    launches = {k: v for cnt in counters for k, v in cnt.items()}
+
+    m1, m2, dl = seen["rows"]
+    n = m1.shape[0]
+    split = dict(host_draws=marks["batched_in"] - t0, host_to_device=marks["network_in"] - marks["batched_in"],
+                 device_snr=marks["network_out"] - marks["network_in"],
+                 device_to_host=marks["batched_out"] - marks["network_out"],
+                 host_assembly=t_campaign - marks["batched_out"])
+    log(f"{tag} phase 6 campaign: {MOCK_NDRAW} draws, {n} rows computed on the card "
+        f"({n / MOCK_NDRAW:.4f} pass the z / chirp-distance precut); wall {t_campaign - t0:.3f} s "
+        f"(host clock, s: {json.dumps({k: round(v, 4) for k, v in split.items()})}); "
+        f"device SNR {n / split['device_snr']:.4g} injections/s")
+    snr_net = inj["SNR"]
+    if snr_net.shape != (MOCK_NDRAW,) or not np.isfinite(snr_net).all() or (snr_net < 0).any():
+        raise AssertionError("campaign: SNR column is not finite and non-negative at full length")
+    nex = summary["predicted_detections_per_year"]
+    n_events = len(np.unique(cat["evt"]))
+    log(f"{tag} phase 6 campaign_summary {json.dumps(summary)} in {t_obs - t_campaign:.3f} s with the "
+        f"observation noise; one-year catalog: {len(obs['SNR_OBS'])} observed detections, {n_events} events "
+        f"x {MOCK_NSAMP} PE samples in {t_cat - t_obs:.3f} s (host clock); launches {launches}")
+    if not 250.0 < nex < 2200.0:
+        raise AssertionError(f"campaign: {nex:.1f} predicted detections/yr outside the calibrated band 250-2200")
+    counts = np.bincount(cat["evt"])[np.unique(cat["evt"])] if n_events else np.zeros(0)
+    if n_events == 0 or (counts != MOCK_NSAMP).any() or not all(np.isfinite(cat[k]).all() for k in cat):
+        raise AssertionError(f"catalog: {n_events} events, samples per event {set(counts.tolist())}")
+    if not ((cat["q"] >= 0) & (cat["q"] <= 1) & (cat["m1"] > 0) & (cat["z"] > 0)).all():
+        raise AssertionError("catalog: PE samples outside their support")
+    missing = [k for k in ("snr_integral", "bump_fwd") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"campaign: kernels never launched on the mock path: {missing}")
+
+    # kernel C against its plain twin on the campaign's rows, then timed
+    f_grid = snr.frequency_grid(device=dev)
+    inv_psd = 1.0 / psd.PSDS["H1"](f_grid)
+    grid = dict(f_min=float(f_grid[0]), f_max=float(f_grid[-1]), n_f=f_grid.shape[0], amp_scale=cuda_snr.AMP_SCALE)
+    got = cuda_snr._snr_integral_cuda(m1, m2, dl, inv_psd, **grid)
+    ref = cuda_snr.snr_integral_plain(m1, m2, dl, inv_psd, **grid, chunk=PLAIN_CHUNK)
+    torch.cuda.synchronize()
+    if not torch.equal(got == 0, ref == 0):
+        raise AssertionError("C: the exact zeros (f_cut below f_min) differ between kernel and plain twin")
+    err = check_close("C", got, ref, rtol=2e-5, atol=1e-6)
+    ms = cuda_ms(lambda: cuda_snr._snr_integral_cuda(m1, m2, dl, inv_psd, **grid))
+    plain_ms = cuda_ms(lambda: cuda_snr.snr_integral_plain(m1, m2, dl, inv_psd, **grid, chunk=PLAIN_CHUNK),
+                       reps=3, warmup=1)
+    n_f = grid["n_f"]
+    ops, sfu, points = snr_work(m1, m2, cuda_snr.log_grid(grid["f_min"], grid["f_max"], n_f, dev))
+    clock = max_sm_clock_hz()
+    t_bytes = (n * 16 + 2 * n_f * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_sfu = sfu / (SFU_PER_CLOCK_PER_SM * H100_SMS * clock) * 1e3
+    bound = max(t_bytes, t_ops, t_sfu)
+    by = "bytes" if bound == t_bytes else "operations"
+    log(f"{tag} phase 6 kernel C (N={n}, n_f={n_f}; {int((ref == 0).sum())} exact zeros): max|err| {err:.3e} "
+        f"vs the plain twin; {ms:.4f} ms (plain {plain_ms:.4f} ms, chunks of {PLAIN_CHUNK}); live points "
+        f"{json.dumps(points)}; bound {bound:.5f} ms by {by} (bytes {t_bytes:.5f}, FP32 operations "
+        f"{t_ops:.5f}, special-function unit {t_sfu:.5f} at {clock / 1e6:.0f} MHz x {H100_SMS} SMs)")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound=(bound, by)), launches
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from bumpcosmology_torch.mock import cuda_snr, psd, snr
 from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
 
 pytestmark = pytest.mark.cuda
@@ -63,3 +64,20 @@ def test_logwts_kernel_matches_plain(dev):
     torch.testing.assert_close(res[0][0], res[1][0], rtol=2e-5, atol=2e-5)
     for a, b in zip(res[0][1:], res[1][1:]):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-4 * float(b.abs().max()) + 1e-5)
+
+
+def test_snr_kernel_matches_plain(dev):
+    """Kernel C against its plain twin, exact zeros (f_cut below f_min) included."""
+    rng = np.random.default_rng(2)
+    n = 20000
+    m1 = np.exp(rng.uniform(np.log(5.0), np.log(2500.0), n))
+    args = [torch.as_tensor(x.astype(np.float32), device=dev)
+            for x in (m1, m1 * rng.uniform(0.05, 1.0, n), np.exp(rng.uniform(np.log(0.01), np.log(40.0), n)))]
+    f_grid = snr.frequency_grid(device=dev)
+    inv_psd = 1.0 / psd.PSDS["H1"](f_grid)
+    grid = dict(f_min=float(f_grid[0]), f_max=float(f_grid[-1]), n_f=f_grid.shape[0])
+    got = cuda_snr.snr_integral(*args, inv_psd, **grid)
+    ref = cuda_snr.snr_integral_plain(*args, inv_psd, **grid, chunk=4096)
+    torch.cuda.synchronize()
+    assert torch.equal(got == 0, ref == 0) and bool((ref == 0).any())
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-6)

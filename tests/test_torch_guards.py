@@ -5,6 +5,7 @@
 * Entry points given ``device=None`` (meaning CUDA) raise on a host without
   CUDA instead of carrying on on the CPU.
 """
+import json
 import pathlib
 import re
 import subprocess
@@ -17,18 +18,29 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "bumpcosmology_torch"
 
 
-def test_import_leaves_jax_out():
+def _modules_after_importing_the_port():
+    """``sys.modules`` of a fresh interpreter that imported every port module."""
     code = (
-        "import sys, pkgutil, importlib, bumpcosmology_torch\n"
+        "import sys, json, pkgutil, importlib, bumpcosmology_torch\n"
         "for m in pkgutil.walk_packages(bumpcosmology_torch.__path__, 'bumpcosmology_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m.startswith('jaxlib')"
-        " or m.startswith('bumpcosmology_tpu')]\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+    return json.loads(r.stdout.splitlines()[-1])
+
+
+def test_import_leaves_jax_out():
+    bad = [m for m in _modules_after_importing_the_port()
+           if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib") or m.startswith("bumpcosmology_tpu")]
+    assert not bad
+
+
+def test_import_leaves_pandas_and_h5py_out():
+    """The GPU host has neither package: the port's tables are dicts of arrays."""
+    bad = [m for m in _modules_after_importing_the_port() if m.split(".")[0] in ("pandas", "h5py")]
+    assert not bad
 
 
 def _hits(files, pattern):
@@ -78,3 +90,26 @@ def test_run_sampling_raises_without_cuda(no_cuda):
     warm = load_warmup(ROOT / "benchmarks" / "flagship_warmup16.npz", device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         run_sampling(lambda th: (th * th).sum(-1), warm, 1)
+
+
+def _mock_entry_points():
+    import numpy as np
+
+    from bumpcosmology_torch.data.weights import default_pop_wt
+    from bumpcosmology_torch.mock.catalog import draw_injection_campaign
+    from bumpcosmology_torch.mock.snr import amplitude_factor, network_snr_batched
+
+    one = np.ones(4)
+    return {
+        "draw_injection_campaign": lambda: draw_injection_campaign(ndraw=100, seed=1),
+        "network_snr_batched": lambda: network_snr_batched(*(30.0 * one,) * 3, *(0.5 * one,) * 5),
+        "amplitude_factor": lambda: amplitude_factor(30.0 * one, 20.0 * one),
+        "default_pop_wt": lambda: default_pop_wt(30.0 * one, 0.8 * one, 0.5 * one),
+    }
+
+
+@pytest.mark.parametrize("entry", ["draw_injection_campaign", "network_snr_batched", "amplitude_factor",
+                                   "default_pop_wt"])
+def test_mock_entry_points_raise_without_cuda(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _mock_entry_points()[entry]()
