@@ -5,7 +5,11 @@ counterpart of the JAX package's ``inference/likelihoods.py``.
     log μ_sel = logsumexp_injections(log w_sel) − log Ndraw
 
 batched over chains.  Every PE sample and injection is one row of a shared
-``(N, 4)`` query table; one kernel-B launch weighs all of them for all chains.
+``(N, 4)`` query table; one kernel-B launch weighs all of them for all chains
+and reduces them to the per-event and selection log-sum-exps (the ``lse``
+epilogue), so the ``(C, N)`` weights never reach device memory on this path.
+:func:`pop_cosmo_event_sel_logwts` returns the weights themselves (the ``rows``
+epilogue) for the effective-sample-size diagnostics.
 
 This mirrors the JAX package's fused/Pallas route
 (``_cosmo_frame_logwts_fused``, ``likelihoods.py:339-361``): the log(dL)-keyed
@@ -32,7 +36,7 @@ from bumpcosmology_torch.models.parameters import (
     RedshiftParams,
 )
 from bumpcosmology_torch.models.population import build_population
-from bumpcosmology_torch.ops.cuda_logwts import cosmo_frame_logwts
+from bumpcosmology_torch.ops.cuda_logwts import cosmo_frame_logwts, cosmo_frame_logwts_lse, query_rows
 
 __all__ = [
     "EventData",
@@ -43,6 +47,8 @@ __all__ = [
     "cosmo_from_sites",
     "dl_bounds_of",
     "query_table",
+    "selection_neff_terms",
+    "pop_cosmo_event_sel_logwts",
     "pop_cosmo_loglike",
     "POP_COSMO_PRIORS",
     "pop_cosmo_model_spec",
@@ -125,11 +131,46 @@ def dl_bounds_of(data: PopCosmoData, margin: float = 0.05):
 
 
 def query_table(data: PopCosmoData) -> torch.Tensor:
-    """(N, 4) rows [m1_det, q, dL, log pdraw]: every PE sample, then every injection."""
+    """(N, 4) rows [m1_det, q, log dL, log pdraw]: every PE sample, then every injection."""
     ev, sel = data.events, data.selection
-    rows = [torch.stack([ev.a, ev.q, ev.c, ev.log_pdraw], dim=-1).reshape(-1, 4),
-            torch.stack([sel.a, sel.q, sel.c, sel.log_pdraw], dim=-1)]
-    return torch.cat(rows, dim=0).contiguous()
+    flat = lambda x: x.reshape(-1)  # noqa: E731
+    return torch.cat([query_rows(flat(ev.a), flat(ev.q), flat(ev.c), flat(ev.log_pdraw)),
+                      query_rows(sel.a, sel.q, sel.c, sel.log_pdraw)], dim=0).contiguous()
+
+
+def selection_neff_terms(log_sel_wts: torch.Tensor, log_ndraw: torch.Tensor):
+    """(log_mu_sel, neff_sel), each ``(C,)``, from selection log-weights ``(C, nsel)``:
+    the selection mean and its effective sample size (the variance diagnostic of
+    Farr 2019, as ``_selection_neff_terms`` of the JAX package's ``likelihoods.py:259-272``,
+    with its float32-safe clamp on the ``log1p(-exp(x))`` argument)."""
+    log_mu = torch.logsumexp(log_sel_wts, dim=-1) - log_ndraw
+    log_mu2 = torch.logsumexp(2.0 * log_sel_wts, dim=-1) - 2.0 * log_ndraw
+    x = torch.clamp_max(2.0 * log_mu - log_ndraw - log_mu2, -1e-7)
+    log_s2 = log_mu2 + torch.log1p(-torch.exp(x))
+    return log_mu, torch.exp(2.0 * log_mu - log_s2)
+
+
+def _frame_tables(sites, n_grid: int, n_z: int, dl_bounds, plain: bool):
+    pop = build_population(population_from_sites(sites), n_grid, plain)
+    cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
+    return pop, cosmo, build_detector_table(cosmo, dl_bounds[0], dl_bounds[1], n=n_z)
+
+
+def pop_cosmo_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopCosmoData,
+                               n_grid: int = DEFAULT_N_GRID, n_z: int = 1024, dl_bounds=None,
+                               qry=None, plain: bool = False):
+    """``(pop, cosmo, log_wts (C, nobs, nsamp), log_sel_wts (C, nsel))``: the
+    per-row detector-frame weights that the deterministics (``neff``,
+    ``neff_sel``, ``selection_noise_nats``) consume; the fused branch of the
+    JAX package's ``_pop_cosmo_event_sel_logwts`` (``likelihoods.py:472-476``),
+    one kernel-B launch with the ``rows`` epilogue."""
+    nobs, nsamp = data.events.a.shape
+    dl_bounds = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
+    qry = query_table(data) if qry is None else qry
+    pop, cosmo, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
+    log_w = cosmo_frame_logwts(pop, det, qry, plain)  # (C, N)
+    n_ev = nobs * nsamp
+    return pop, cosmo, log_w[:, :n_ev].reshape(-1, nobs, nsamp), log_w[:, n_ev:]
 
 
 def pop_cosmo_loglike(sites: Dict[str, torch.Tensor], data: PopCosmoData,
@@ -141,16 +182,12 @@ def pop_cosmo_loglike(sites: Dict[str, torch.Tensor], data: PopCosmoData,
     ``plain=True`` takes the kernels' plain twins whatever the device.
     """
     nobs, nsamp = data.events.a.shape
-    dl_lo, dl_hi = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
+    dl_bounds = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
     qry = query_table(data) if qry is None else qry
-    pop = build_population(population_from_sites(sites), n_grid, plain)
-    cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
-    det = build_detector_table(cosmo, dl_lo, dl_hi, n=n_z)
-    log_w = cosmo_frame_logwts(pop, det, qry, plain)  # (C, N)
-    n_ev = nobs * nsamp
-    log_like = torch.logsumexp(log_w[:, :n_ev].reshape(-1, nobs, nsamp), dim=-1) - math.log(nsamp)
-    log_mu_sel = torch.logsumexp(log_w[:, n_ev:], dim=-1) - data.selection.log_ndraw
-    return log_like.sum(-1) - nobs * log_mu_sel
+    pop, _, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
+    lse_ev, lse_sel = cosmo_frame_logwts_lse(pop, det, qry, nobs, nsamp, plain)
+    log_mu_sel = lse_sel - data.selection.log_ndraw
+    return lse_ev.sum(-1) - nobs * math.log(nsamp) - nobs * log_mu_sel
 
 
 _MASS_PRIORS = {

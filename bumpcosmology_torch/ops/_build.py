@@ -23,13 +23,13 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build_kernels", "load_kernel", "check_cuda",
-           "cuda_stream", "raise_on"]
+__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build_kernels", "load_kernel", "kernel_function",
+           "check_cuda", "cuda_stream", "raise_on"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("bump", "logwts", "snr")
+KERNEL_SOURCES = ("bump", "logwts", "snr", "floor")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: Dict[tuple, object] = {}
 
 
 def _nvcc() -> str:
@@ -124,3 +125,12 @@ def load_kernel(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _LIBS[name] = lib
         return lib
+
+
+def kernel_function(name: str, fn: str, signatures: Dict[str, tuple]):
+    """The bound C function ``fn`` of ``csrc/<name>.cu``, cached after its
+    first use so that a hot wrapper pays one dictionary lookup per call."""
+    f = _FUNCTIONS.get((name, fn))
+    if f is None:
+        f = _FUNCTIONS[(name, fn)] = getattr(load_kernel(name, signatures), fn)
+    return f

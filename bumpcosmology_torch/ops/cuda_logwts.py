@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``ops/pallas_logwts.py`` — the flagship
 joint likelihood's hot loop.  For every PE sample and injection (the rows of
-one shared ``(N, 4)`` query array ``[m1_det, q, dL, log pdraw]``) and every
-chain it computes
+one shared ``(N, 4)`` query array ``[m1_det, q, log dL, log pdraw]``, built by
+:func:`query_rows`; ``log dL`` is per row and not per chain, so it is taken
+once, when the table is built) and every chain it computes
 
     z, log_jac = lerp(detector table @ log dL);  m1 = m1_det/(1+z);  m2 = q m1
     out = log dN/dm(m1) + log dN/dm(m2) + beta log((m1+m2)/60) + log m1
@@ -16,9 +17,17 @@ in the Pallas slot order (:data:`SLOTS`).
 The CUDA kernel is ``csrc/logwts.cu``.  The backward is hand-derived (the
 Pallas kernel recomputed under a JAX vjp); its plain PyTorch twin below
 writes the same formulas in tensor code, and the CPU tests hold it against
-JAX autodiff of the JAX package's fused path.  :func:`logwts` dispatches on
-the device of its tensors: CPU takes the twin, CUDA launches the kernel or
-raises.
+JAX autodiff of the JAX package's fused path.
+
+Two epilogues share the kernel body.  :func:`logwts` (``rows``) returns the
+``(C, N)`` log-weights, the Pallas kernel's own function.  :func:`logwts_lse`
+(``lse``) returns what the joint likelihood takes from them straight after:
+the log-sum-exp of each event's ``nsamp`` contiguous rows, ``(C, nobs)``, and
+of the selection rows that follow them, ``(C,)``; its backward forms each
+row's cotangent as ``g_seg * exp(out - lse_seg)`` (0 for a ``-inf`` row) and
+never holds a ``(C, N)`` tensor.  A segment whose rows are all ``-inf``
+returns ``-inf`` and zero cotangents, never NaN.  Both dispatch on the device
+of their tensors: CPU takes the twin, CUDA launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -27,19 +36,25 @@ import math
 
 import torch
 
-from bumpcosmology_torch.ops._build import check_cuda, cuda_stream, load_kernel, raise_on
+from bumpcosmology_torch.ops._build import kernel_function, raise_on
 from bumpcosmology_torch.ops.special import softplus
 
-__all__ = ["SLOTS", "LAUNCHES", "logwts", "logwts_plain", "pack_scalars", "cosmo_frame_logwts"]
+__all__ = ["SLOTS", "LAUNCHES", "query_rows", "logwts", "logwts_plain", "logwts_lse",
+           "logwts_lse_plain", "pack_scalars", "cosmo_frame_logwts", "cosmo_frame_logwts_lse"]
 
 SLOTS = ("v0", "dv", "mbh_lo", "dmbh", "mbh_hi", "c", "mbhmax", "log_pl_norm", "log_norm",
          "beta", "lam", "kappa", "zp", "k_det", "k_bump")
-LAUNCHES = {"logwts_fwd": 0, "logwts_bwd": 0}
+LAUNCHES = {"logwts_fwd": 0, "logwts_bwd": 0, "logwts_lse_fwd": 0, "logwts_lse_bwd": 0}
 
 _LOG2 = math.log(2.0)
 _MBH_MIN = 5.0  # models/mass.py::MBH_MIN
 _MREF = 30.0  # models/mass.py::MREF
 _QREF = 1.0  # models/population.py::QREF
+
+
+def query_rows(a, q, dl, log_pdraw) -> torch.Tensor:
+    """(N, 4) query rows ``[m1_det, q, log dL, log pdraw]`` from ``(N,)`` tensors."""
+    return torch.stack([a, q, torch.log(dl), log_pdraw], dim=-1).contiguous()
 
 
 def _bracket(pos, n: int):
@@ -68,8 +83,8 @@ def _mass(m, s, bump):
 
 def _evaluate(det, bump, scal, qry):
     s = {name: scal[:, k : k + 1] for k, name in enumerate(SLOTS)}
-    a, q, dl, log_pdraw = (qry[:, k][None, :] for k in range(4))
-    posz = (torch.log(dl) - s["v0"]) / s["dv"]
+    a, q, log_dl, log_pdraw = (qry[:, k][None, :] for k in range(4))
+    posz = (log_dl - s["v0"]) / s["dv"]
     lo, t, slope = _bracket(posz, det.shape[1])
     idx = lo.unsqueeze(-1).expand(*lo.shape, 2)
     e0 = torch.gather(det, 1, idx)
@@ -121,7 +136,11 @@ def _mass_bwd(w, m, g, s, d_bump, acc):
 
 def _logwts_bwd_plain(det, bump, scal, qry, g):
     """The hand-derived backward of ``csrc/logwts.cu`` in tensor code."""
-    r = _evaluate(det, bump, scal, qry)
+    return _bwd_of_rows(_evaluate(det, bump, scal, qry), det, bump, scal, g)
+
+
+def _bwd_of_rows(r, det, bump, scal, g):
+    """Table and scalar cotangents from the evaluation ``r`` and the (C, N) row cotangent ``g``."""
     s = r["s"]
     acc = {name: torch.zeros_like(scal[:, 0]) for name in SLOTS}
     d_bump = torch.zeros_like(bump)
@@ -166,44 +185,144 @@ class _LogwtsPlain(torch.autograd.Function):
         return d_det, d_bump, d_scal, None
 
 
+def _check_segments(n: int, nobs: int, nsamp: int) -> None:
+    if nobs < 0 or (nobs > 0 and nsamp < 1) or nobs * nsamp > n:
+        raise ValueError(f"logwts_lse: {nobs} events x {nsamp} samples do not fit in {n} query rows")
+
+
+def _segment_lse(out, nobs: int, nsamp: int):
+    """Log-sum-exp of each event's rows, (C, nobs), and of the rows after them, (C,).
+    ``torch.logsumexp`` of an all ``-inf`` (or empty) segment is ``-inf``."""
+    c, n_ev = out.shape[0], nobs * nsamp
+    return (torch.logsumexp(out[:, :n_ev].reshape(c, nobs, nsamp), dim=-1),
+            torch.logsumexp(out[:, n_ev:], dim=-1))
+
+
+def _lse_row_cotangent(out, lse_ev, lse_sel, g_ev, g_sel, nobs: int, nsamp: int):
+    """(C, N) row cotangents ``g_seg exp(out - lse_seg)``.  A ``-inf`` row gets
+    exactly 0 — so does every row of a segment whose log-sum-exp is ``-inf`` —
+    where autograd of ``torch.logsumexp`` would form ``exp(-inf + inf)`` = NaN."""
+    c, n = out.shape
+    n_sel = n - nobs * nsamp
+    per_row = lambda ev, sel: torch.cat(  # noqa: E731
+        [ev.repeat_interleave(nsamp, dim=1), sel[:, None].expand(c, n_sel)], dim=1)
+    g = per_row(g_ev, g_sel) * torch.exp(out - per_row(lse_ev, lse_sel))
+    return torch.where(torch.isneginf(out), torch.zeros_like(out), g)
+
+
+class _LogwtsLsePlain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, det, bump, scal, qry, nobs, nsamp):
+        lse_ev, lse_sel = _segment_lse(_evaluate(det, bump, scal, qry)["out"], nobs, nsamp)
+        ctx.save_for_backward(det, bump, scal, qry, lse_ev, lse_sel)
+        ctx.segments = (nobs, nsamp)
+        return lse_ev, lse_sel
+
+    @staticmethod
+    def backward(ctx, g_ev, g_sel):
+        det, bump, scal, qry, lse_ev, lse_sel = ctx.saved_tensors
+        r = _evaluate(det, bump, scal, qry)
+        g = _lse_row_cotangent(r["out"], lse_ev, lse_sel, g_ev, g_sel, *ctx.segments)
+        d_det, d_bump, d_scal = _bwd_of_rows(r, det, bump, scal, g)
+        return d_det, d_bump, d_scal, None, None, None
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "logwts_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "logwts_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "logwts_fwd": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    "logwts_bwd": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "logwts_lse_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "logwts_lse_bwd": ([_P] * 7 + [_I, _I, _P, _I] + [_P] * 3 + [_I] * 6 + [_P], _I),
 }
 
 
-def _shapes(det, bump, scal, qry):
-    c, k, g_len, n = det.shape[0], det.shape[1], bump.shape[1], qry.shape[0]
-    check_cuda(det, (c, k, 2), "det")
-    check_cuda(bump, (c, g_len), "bump")
-    check_cuda(scal, (c, len(SLOTS)), "scal")
-    check_cuda(qry, (n, 4), "qry")
-    return c, k, g_len, n
+def _require_cuda_f32(t, name: str) -> None:
+    if t.device.type != "cuda" or t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected a float32 CUDA tensor, got {t.dtype} on {t.device}")
+
+
+def _launch_args(det, bump, scal, qry):
+    """Validates the four inputs once and returns ``(C, K, G, N, stream)``.
+
+    Raises unless every tensor is a contiguous float32 CUDA tensor of the
+    kernel's shape on one device (``qry`` 16-byte aligned: it is read as float4).
+    """
+    c, k, g_len, n = det.shape[0], det.shape[1], bump.shape[-1], qry.shape[0]
+    for name, t, shape in (("det", det, (c, k, 2)), ("bump", bump, (c, g_len)),
+                           ("scal", scal, (c, len(SLOTS))), ("qry", qry, (n, 4))):
+        _require_cuda_f32(t, name)
+        if t.shape != shape or not t.is_contiguous() or t.device != det.device:
+            raise ValueError(f"{name}: expected a contiguous tensor of shape {shape} on {det.device}, got "
+                             f"{tuple(t.shape)} with strides {t.stride()} on {t.device}")
+    if qry.data_ptr() % 16:
+        raise ValueError("qry: expected 16-byte aligned storage")
+    return c, k, g_len, n, ctypes.c_void_p(torch.cuda.current_stream(det.device).cuda_stream)
+
+
+def _cotangent_outputs(det, bump, scal):
+    # torch.empty: the kernel stores every element exactly once
+    return torch.empty_like(det), torch.empty_like(bump), torch.empty_like(scal)
 
 
 def _logwts_fwd_cuda(det, bump, scal, qry):
-    c, k, g_len, n = _shapes(det, bump, scal, qry)
+    c, k, g_len, n, stream = _launch_args(det, bump, scal, qry)
     out = torch.empty((c, n), device=det.device, dtype=torch.float32)
-    rc = load_kernel("logwts", _SIGNATURES).logwts_fwd(
+    rc = kernel_function("logwts", "logwts_fwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), out.data_ptr(),
-        c, k, g_len, n, cuda_stream(det))
+        c, k, g_len, n, stream)
     raise_on(rc, "logwts_fwd")
     LAUNCHES["logwts_fwd"] += 1
     return out
 
 
 def _logwts_bwd_cuda(det, bump, scal, qry, g):
-    c, k, g_len, n = _shapes(det, bump, scal, qry)
-    check_cuda(g, (c, n), "g")
-    d_det = torch.zeros_like(det)
-    d_bump = torch.zeros_like(bump)
-    d_scal = torch.zeros_like(scal)
-    rc = load_kernel("logwts", _SIGNATURES).logwts_bwd(
+    c, k, g_len, n, stream = _launch_args(det, bump, scal, qry)
+    _require_cuda_f32(g, "g")
+    if g.shape != (c, n) or not g.is_contiguous():
+        raise ValueError(f"g: expected a contiguous tensor of shape {(c, n)}, got {tuple(g.shape)} "
+                         f"with strides {g.stride()}")
+    d_det, d_bump, d_scal = _cotangent_outputs(det, bump, scal)
+    rc = kernel_function("logwts", "logwts_bwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), g.data_ptr(),
-        d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), c, k, g_len, n, cuda_stream(det))
+        d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), c, k, g_len, n, stream)
     raise_on(rc, "logwts_bwd")
     LAUNCHES["logwts_bwd"] += 1
+    return d_det, d_bump, d_scal
+
+
+def _logwts_lse_fwd_cuda(det, bump, scal, qry, nobs: int, nsamp: int):
+    c, k, g_len, n, stream = _launch_args(det, bump, scal, qry)
+    _check_segments(n, nobs, nsamp)
+    lse_ev = torch.empty((c, nobs), device=det.device, dtype=torch.float32)
+    lse_sel = torch.empty((c,), device=det.device, dtype=torch.float32)
+    rc = kernel_function("logwts", "logwts_lse_fwd", _SIGNATURES)(
+        det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), lse_ev.data_ptr(),
+        lse_sel.data_ptr(), c, k, g_len, n, nobs, nsamp, stream)
+    raise_on(rc, "logwts_lse_fwd")
+    LAUNCHES["logwts_lse_fwd"] += 1
+    return lse_ev, lse_sel
+
+
+def _logwts_lse_bwd_cuda(det, bump, scal, qry, lse_ev, lse_sel, g_ev, g_sel, nobs: int, nsamp: int):
+    """The cotangents ``g_ev`` (C, nobs) and ``g_sel`` (C,) may have any strides
+    (autograd hands over broadcast views); everything else is contiguous."""
+    c, k, g_len, n, stream = _launch_args(det, bump, scal, qry)
+    _check_segments(n, nobs, nsamp)
+    for name, t, shape in (("lse_ev", lse_ev, (c, nobs)), ("lse_sel", lse_sel, (c,)),
+                           ("g_ev", g_ev, (c, nobs)), ("g_sel", g_sel, (c,))):
+        _require_cuda_f32(t, name)
+        if t.shape != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not (lse_ev.is_contiguous() and lse_sel.is_contiguous()):
+        raise ValueError("lse_ev, lse_sel: expected contiguous tensors")
+    d_det, d_bump, d_scal = _cotangent_outputs(det, bump, scal)
+    rc = kernel_function("logwts", "logwts_lse_bwd", _SIGNATURES)(
+        det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), lse_ev.data_ptr(),
+        lse_sel.data_ptr(), g_ev.data_ptr(), g_ev.stride(0), g_ev.stride(1), g_sel.data_ptr(),
+        g_sel.stride(0), d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), c, k, g_len, n,
+        nobs, nsamp, stream)
+    raise_on(rc, "logwts_lse_bwd")
+    LAUNCHES["logwts_lse_bwd"] += 1
     return d_det, d_bump, d_scal
 
 
@@ -220,6 +339,22 @@ class _LogwtsCuda(torch.autograd.Function):
         return d_det, d_bump, d_scal, None
 
 
+class _LogwtsLseCuda(torch.autograd.Function):
+    """Saves the tables, the queries and the log-sum-exps; no (C, N) tensor exists."""
+
+    @staticmethod
+    def forward(ctx, det, bump, scal, qry, nobs, nsamp):
+        lse_ev, lse_sel = _logwts_lse_fwd_cuda(det, bump, scal, qry, nobs, nsamp)
+        ctx.save_for_backward(det, bump, scal, qry, lse_ev, lse_sel)
+        ctx.segments = (nobs, nsamp)
+        return lse_ev, lse_sel
+
+    @staticmethod
+    def backward(ctx, g_ev, g_sel):
+        d_det, d_bump, d_scal = _logwts_lse_bwd_cuda(*ctx.saved_tensors, g_ev, g_sel, *ctx.segments)
+        return d_det, d_bump, d_scal, None, None, None
+
+
 def logwts_plain(det, bump, scal, qry):
     """The plain PyTorch twin of the kernel, on any device (tests and the
     on-card comparison call it; the main path does not)."""
@@ -230,11 +365,32 @@ def logwts(det, bump, scal, qry):
     """(C, N) log-weights; CPU tensors take the plain twin, CUDA tensors
     launch ``csrc/logwts.cu`` (forward and backward)."""
     if det.device.type == "cuda":
-        return _LogwtsCuda.apply(det.contiguous(), bump.contiguous(), scal.contiguous(),
-                                 qry.contiguous())
+        return _LogwtsCuda.apply(det, bump, scal, qry)
     if det.device.type == "cpu":
         return _LogwtsPlain.apply(det, bump, scal, qry)
     raise ValueError(f"logwts: unsupported device {det.device}")
+
+
+def logwts_lse_plain(det, bump, scal, qry, nobs: int, nsamp: int):
+    """The plain PyTorch twin of the ``lse`` epilogue, on any device: the
+    ``rows`` twin followed by ``torch.logsumexp`` over each segment, with the
+    backward of an all-dead segment written out as zeros."""
+    _check_segments(qry.shape[0], nobs, nsamp)
+    return _LogwtsLsePlain.apply(det, bump, scal, qry, nobs, nsamp)
+
+
+def logwts_lse(det, bump, scal, qry, nobs: int, nsamp: int):
+    """Segment log-sum-exps of the log-weights: ``(C, nobs)`` over each event's
+    ``nsamp`` contiguous rows (the first ``nobs * nsamp`` rows of ``qry``) and
+    ``(C,)`` over the rows after them (the injections).
+
+    CPU tensors take the plain twin; CUDA tensors launch the ``lse`` kernels
+    of ``csrc/logwts.cu``, one launch forward and one backward."""
+    if det.device.type == "cuda":
+        return _LogwtsLseCuda.apply(det, bump, scal, qry, nobs, nsamp)
+    if det.device.type == "cpu":
+        return logwts_lse_plain(det, bump, scal, qry, nobs, nsamp)
+    raise ValueError(f"logwts_lse: unsupported device {det.device}")
 
 
 def pack_scalars(pop, det) -> torch.Tensor:
@@ -251,11 +407,25 @@ def pack_scalars(pop, det) -> torch.Tensor:
     return torch.stack([x.expand(c) for x in cols], dim=1)
 
 
+def _tables(pop, det):
+    return det.cols.contiguous(), pop.mass_table.log_bump.contiguous(), pack_scalars(pop, det)
+
+
 def cosmo_frame_logwts(pop, det, qry, plain: bool = False):
     """Drop-in twin of ``cosmo_frame_logwts_pallas`` for all chains at once:
-    (C, N) log-weights of the shared queries ``qry`` (N, 4).
+    (C, N) log-weights of the shared queries ``qry`` (N, 4), see :func:`query_rows`.
 
     ``plain=True`` takes the plain twin whatever the device (the on-card
     comparison uses it)."""
     fn = logwts_plain if plain else logwts
-    return fn(det.cols, pop.mass_table.log_bump, pack_scalars(pop, det), qry)
+    return fn(*_tables(pop, det), qry)
+
+
+def cosmo_frame_logwts_lse(pop, det, qry, nobs: int, nsamp: int, plain: bool = False):
+    """The joint likelihood's use of the log-weights, fused: ``(C, nobs)``
+    per-event and ``(C,)`` selection log-sum-exps of the shared queries ``qry``
+    (``nobs * nsamp`` PE-sample rows, then the injections).
+
+    ``plain=True`` takes the plain twin whatever the device."""
+    fn = logwts_lse_plain if plain else logwts_lse
+    return fn(*_tables(pop, det), qry, nobs, nsamp)

@@ -11,17 +11,25 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
 16 chains sampled with dense-mass NUTS from ``benchmarks/flagship_warmup16.npz``
 — and holds every CUDA kernel against its plain PyTorch twin:
 
-1. build both kernels from ``bumpcosmology_torch/csrc`` (one nvcc per source);
+1. build every kernel from ``bumpcosmology_torch/csrc`` (one nvcc per source),
+   and time the card's launch floor: an empty kernel through the same ctypes
+   path, alone and in kernel B's cluster geometry;
 2. kernel A (bump table) against its twin at C=16, G=256 on the warm thetas:
    forward rtol 1e-4 / atol 5e-5, VJP to the 5 scalars rtol 2e-4 / atol 1e-5;
 3. kernel B (detector-frame log-weights) at full size, N=38,912, K=1024,
-   G=256, C=16: values rtol 2e-5 / atol 2e-5 (the same -inf rows), every
-   cotangent rtol 5e-4 with atol 5e-4 x the largest reference entry
-   (float32 atomics sum in another order);
-4. the 16-chain potential value+grad, kernels against twins:
-   |dU|/(1+|U|) < 2e-4 and |dgrad|/(1+|grad|) < 5e-3, timed with CUDA events;
-5. ``run_sampling`` for a few NUTS draws with every launch count set to 0
-   just before and read just after; each kernel must have launched;
+   G=256, C=16, both epilogues, forward and backward.  ``rows``: values rtol
+   2e-5 / atol 2e-5 (the same -inf rows), every cotangent rtol 5e-4 with atol
+   5e-4 x the largest reference entry (float32 atomics sum in another order).
+   ``lse`` (56 per-event and one selection log-sum-exp per chain, and the
+   cotangents from a random (C, nobs) + (C,) cotangent): the same limits;
+4. the 16-chain potential value+grad (through the ``lse`` epilogue), kernels
+   against twins: |dU|/(1+|U|) < 2e-4 and |dgrad|/(1+|grad|) < 5e-3, timed with
+   CUDA events;
+5. ``run_sampling`` for a few NUTS draws, then the effective-sample-size
+   diagnostics (``pop_cosmo_event_sel_logwts`` and ``selection_neff_terms``, the
+   ``rows`` epilogue) on the last draw of every chain, with every launch count
+   set to 0 just before and read just after; kernel A and the ``lse`` kernels
+   must have launched once per value+grad and the ``rows`` forward at least once;
 6. the mock injection campaign at the reference's size: 10^7 draws
    (seed 333,165,393) through ``draw_injection_campaign`` with the SNR
    integral on kernel C, then ``campaign_summary`` (predicted detections/yr
@@ -30,6 +38,11 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
    just before and read just after (kernel C and kernel A's forward must have
    launched); then kernel C against its plain twin on exactly the rows the
    campaign computed: rtol 2e-5 / atol 1e-6, the same exact zeros.
+
+Every kernel is timed twice: ``ms`` is its device time (20 launches captured
+in one CUDA graph and replayed, so the host's queueing rate is out of the
+figure), ``call_ms`` the time of one call of its Python wrapper as the main
+path pays it (CUDA events around 20 eager calls).
 
 Any failure raises and exits non-zero.  The last two lines of stdout are
 the ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; the line
@@ -66,10 +79,15 @@ FP32_OPS_PER_S = 67e12
 #          rate and frame terms (16), sum (12) -> 97
 #   B-bwd per chain-query: the forward's 97 again + two mass-term VJPs (2 x 24),
 #          z/kappa/zp terms (26), 4 table scatters and the slope terms (14) -> 185
+#   B lse epilogue per chain-query: forward max, exp, add, merge -> + 4;
+#          backward exp(out - lse), multiply, compare -> + 3
 OPS_A_FWD_PER_CELL = 8
 OPS_A_BWD_PER_CELL = 32
 OPS_B_FWD_PER_QUERY = 97
 OPS_B_BWD_PER_QUERY = 185
+OPS_B_LSE_FWD_EXTRA = 4
+OPS_B_LSE_BWD_EXTRA = 3
+GRAPH_LAUNCHES = 20
 
 # Kernel C (csrc/snr.cu) does data-dependent work: a row's loop ends at the
 # first grid point at or above f_cut, and each live point runs one branch.
@@ -101,7 +119,8 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``reps`` runs, by CUDA events."""
+    """Mean time of one eager call of ``fn()`` over ``reps`` calls, by CUDA events
+    on the stream: the wrapper call as the main path pays it (``call_ms``)."""
     import torch
 
     for _ in range(warmup):
@@ -114,6 +133,36 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = 5, warmup: int = 3) -> float:
+    """Device time of one ``fn()``: ``launches`` calls captured in one CUDA
+    graph, replayed ``replays`` times between two CUDA events.  The host queues
+    nothing while the graph runs, so this is the kernel's own time plus the
+    card's gap between two dependent graph nodes (``ms``)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (launches * replays)
+
+
+def both_ms(fn, **graph_kwargs):
+    """(device ms, call ms) of ``fn``."""
+    return graph_ms(fn, **graph_kwargs), cuda_ms(fn)
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -156,15 +205,17 @@ def main() -> int:
     from bumpcosmology_torch.inference.likelihoods import (
         cosmo_from_sites,
         dl_bounds_of,
+        pop_cosmo_event_sel_logwts,
         pop_cosmo_model_spec,
         population_from_sites,
         query_table,
+        selection_neff_terms,
     )
     from bumpcosmology_torch.inference.model import constrain, make_potential, value_and_grad
     from bumpcosmology_torch.inference.nuts import NutsConfig, run_sampling
     from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table
     from bumpcosmology_torch.models.population import build_population
-    from bumpcosmology_torch.ops import _build, cuda_bump, cuda_logwts
+    from bumpcosmology_torch.ops import _build, cuda_bump, cuda_logwts, launch_floor
     from bumpcosmology_torch.utils.checkpoint import load_warmup
 
     card = card_line()
@@ -192,11 +243,20 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    # the launch floor: kernels that compute nothing, through the same ctypes path
+    b_threads = 32 * 19  # kernel B's forward block at the flagship size (38 pieces a block in 2 rounds of 19 warps)
+    floor_ms, floor_call_ms = both_ms(lambda: launch_floor.launch_floor(dev))
+    floor_cl_ms, floor_cl_call_ms = both_ms(lambda: launch_floor.launch_floor_cluster(16, b_threads, dev))
+    log(f"{tag} launch floor (empty kernel; device ms from {GRAPH_LAUNCHES} launches in one replayed CUDA graph, "
+        f"call ms from CUDA events around 20 eager calls): 1 block x 32 threads: device {floor_ms:.5f} ms, "
+        f"call {floor_call_ms:.5f} ms; kernel B's geometry (16 clusters of 8 blocks x {b_threads} threads, one "
+        f"cluster.sync): device {floor_cl_ms:.5f} ms, call {floor_cl_call_ms:.5f} ms")
     phase_done("1_build")
 
     data = load_pop_cosmo_data(CATALOG)
     warm = load_warmup(WARMUP16)
     spec = pop_cosmo_model_spec(data, N_GRID, N_Z)
+    spec_data, spec_bounds = data.to(spec.device), dl_bounds_of(data)
     spec_plain = pop_cosmo_model_spec(data, N_GRID, N_Z, plain=True)
     theta = warm.state.theta
     c = theta.shape[0]
@@ -219,18 +279,18 @@ def main() -> int:
     err_af = check_close("A-fwd", res[0][0], res[1][0], rtol=1e-4, atol=5e-5)
     err_ab = check_close("A-bwd", res[0][1], res[1][1], rtol=2e-4, atol=1e-5)
     logdn = res[0][0]
-    a_fwd = cuda_ms(lambda: cuda_bump._bump_fwd_cuda(p5, N_GRID))
+    a_fwd, a_fwd_call = both_ms(lambda: cuda_bump._bump_fwd_cuda(p5, N_GRID))
     a_fwd_plain = cuda_ms(lambda: cuda_bump._bump_fwd_plain(p5, N_GRID))
-    a_bwd = cuda_ms(lambda: cuda_bump._bump_bwd_cuda(p5, logdn, g_a, N_GRID))
+    a_bwd, a_bwd_call = both_ms(lambda: cuda_bump._bump_bwd_cuda(p5, logdn, g_a, N_GRID))
     a_bwd_plain = cuda_ms(lambda: cuda_bump._bump_bwd_plain(p5, logdn, g_a, N_GRID))
     cells = c * N_GRID * N_GRID
-    rows["bump_fwd"] = dict(ms=a_fwd, plain_ms=a_fwd_plain, max_abs_err=err_af,
+    rows["bump_fwd"] = dict(ms=a_fwd, call_ms=a_fwd_call, plain_ms=a_fwd_plain, max_abs_err=err_af,
                             bound=bound_ms(c * 5 * 4 + c * N_GRID * 4, cells * OPS_A_FWD_PER_CELL))
-    rows["bump_bwd"] = dict(ms=a_bwd, plain_ms=a_bwd_plain, max_abs_err=err_ab,
+    rows["bump_bwd"] = dict(ms=a_bwd, call_ms=a_bwd_call, plain_ms=a_bwd_plain, max_abs_err=err_ab,
                             bound=bound_ms(c * 5 * 4 * 2 + 2 * c * N_GRID * 4, cells * OPS_A_BWD_PER_CELL))
     log(f"{tag} phase 2 kernel A (C={c}, G={N_GRID}): forward max|err| {err_af:.3e}, "
-        f"VJP max|err| {err_ab:.3e}; fwd {a_fwd:.4f} ms (plain {a_fwd_plain:.4f}), "
-        f"bwd {a_bwd:.4f} ms (plain {a_bwd_plain:.4f})")
+        f"VJP max|err| {err_ab:.3e}; fwd device {a_fwd:.5f} ms, call {a_fwd_call:.4f} ms (plain {a_fwd_plain:.4f}), "
+        f"bwd device {a_bwd:.5f} ms, call {a_bwd_call:.4f} ms (plain {a_bwd_plain:.4f})")
     phase_done("2_kernel_a")
 
     # ---- phase 3: kernel B at full size ---------------------------------
@@ -242,6 +302,7 @@ def main() -> int:
                   cuda_logwts.pack_scalars(pop, det).contiguous())
     qry = query_table(data)
     n = qry.shape[0]
+    nobs, nsamp = data.events.a.shape
     g_b = torch.randn((c, n), generator=gen, device=dev)
     res = []
     for fn in (cuda_logwts.logwts, cuda_logwts.logwts_plain):
@@ -251,26 +312,79 @@ def main() -> int:
         res.append((out.detach(), *(x.grad for x in leaves)))
     torch.cuda.synchronize()
     err_bf = check_close("B-fwd", res[0][0], res[1][0], rtol=2e-5, atol=2e-5)
-    err_bb = 0.0
-    for name, got, ref in zip(("d_det", "d_bump", "d_scal"), res[0][1:], res[1][1:]):
-        scale = float(ref.abs().max())
-        err_bb = max(err_bb, check_close(f"B-bwd {name}", got, ref, rtol=5e-4, atol=5e-4 * scale))
+
+    def check_cotangents(label, got3, ref3):
+        worst = 0.0
+        for name, got, ref in zip(("d_det", "d_bump", "d_scal"), got3, ref3):
+            scale = float(ref.abs().max())
+            worst = max(worst, check_close(f"{label} {name}", got, ref, rtol=5e-4, atol=5e-4 * scale))
+        return worst
+
+    err_bb = check_cotangents("B-bwd", res[0][1:], res[1][1:])
     n_dead = int(torch.isneginf(res[0][0]).sum())
     g_live = g_b * torch.isfinite(res[0][0])
-    b_fwd = cuda_ms(lambda: cuda_logwts._logwts_fwd_cuda(*tables, qry))
+
+    # the lse epilogue: per-event and selection log-sum-exps, and the cotangents back
+    g_ev = torch.randn((c, nobs), generator=gen, device=dev)
+    g_sel = torch.randn((c,), generator=gen, device=dev)
+    res_l = []
+    for fn in (cuda_logwts.logwts_lse, cuda_logwts.logwts_lse_plain):
+        leaves = [x.clone().requires_grad_(True) for x in tables]
+        lse_ev, lse_sel = fn(*leaves, qry, nobs, nsamp)
+        torch.autograd.backward([lse_ev, lse_sel], [g_ev, g_sel])
+        res_l.append((lse_ev.detach(), lse_sel.detach(), *(x.grad for x in leaves)))
+    torch.cuda.synchronize()
+    err_lf = max(check_close("B-lse-fwd events", res_l[0][0], res_l[1][0], rtol=2e-5, atol=2e-5),
+                 check_close("B-lse-fwd selection", res_l[0][1], res_l[1][1], rtol=2e-5, atol=2e-5))
+    err_lb = check_cotangents("B-lse-bwd", res_l[0][2:], res_l[1][2:])
+    lse_ev, lse_sel = res_l[0][:2]
+
+    b_fwd, b_fwd_call = both_ms(lambda: cuda_logwts._logwts_fwd_cuda(*tables, qry))
     b_fwd_plain = cuda_ms(lambda: cuda_logwts._evaluate(*tables, qry)["out"])
-    b_bwd = cuda_ms(lambda: cuda_logwts._logwts_bwd_cuda(*tables, qry, g_live))
+    b_bwd, b_bwd_call = both_ms(lambda: cuda_logwts._logwts_bwd_cuda(*tables, qry, g_live))
     b_bwd_plain = cuda_ms(lambda: cuda_logwts._logwts_bwd_plain(*tables, qry, g_live))
-    k_det = tables[0].shape[1]
+    l_fwd, l_fwd_call = both_ms(lambda: cuda_logwts._logwts_lse_fwd_cuda(*tables, qry, nobs, nsamp))
+    l_bwd, l_bwd_call = both_ms(lambda: cuda_logwts._logwts_lse_bwd_cuda(*tables, qry, lse_ev, lse_sel, g_ev, g_sel,
+                                                                         nobs, nsamp))
+    l_fwd_plain = cuda_ms(lambda: cuda_logwts._segment_lse(cuda_logwts._evaluate(*tables, qry)["out"], nobs, nsamp))
+
+    def lse_bwd_plain():
+        r = cuda_logwts._evaluate(*tables, qry)
+        g = cuda_logwts._lse_row_cotangent(r["out"], lse_ev, lse_sel, g_ev, g_sel, nobs, nsamp)
+        return cuda_logwts._bwd_of_rows(r, *tables, g)
+
+    l_bwd_plain = cuda_ms(lse_bwd_plain)
+    # how many detector bins a warp's 32 consecutive rows fall into (the backward's shared-memory atomics)
+    with torch.no_grad():
+        k_det = tables[0].shape[1]
+        bins = torch.floor((qry[:, 2] - tables[2][0, 0]) / tables[2][0, 1]).clamp(0, k_det - 2)
+        warps = bins[: n // 32 * 32].reshape(-1, 32).sort(dim=1).values
+        distinct = 1 + (warps[:, 1:] != warps[:, :-1]).sum(1).float()
+        n_ev_warps = nobs * nsamp // 32
     table_bytes = c * (k_det * 8 + N_GRID * 4 + 15 * 4)
-    rows["logwts_fwd"] = dict(ms=b_fwd, plain_ms=b_fwd_plain, max_abs_err=err_bf,
+    seg_bytes = c * (nobs + 1) * 4
+    rows["logwts_fwd"] = dict(ms=b_fwd, call_ms=b_fwd_call, plain_ms=b_fwd_plain, max_abs_err=err_bf,
                               bound=bound_ms(n * 16 + table_bytes + c * n * 4, c * n * OPS_B_FWD_PER_QUERY))
-    rows["logwts_bwd"] = dict(ms=b_bwd, plain_ms=b_bwd_plain, max_abs_err=err_bb,
+    rows["logwts_bwd"] = dict(ms=b_bwd, call_ms=b_bwd_call, plain_ms=b_bwd_plain, max_abs_err=err_bb,
                               bound=bound_ms(n * 16 + table_bytes + c * n * 4 + table_bytes,
                                              c * n * OPS_B_BWD_PER_QUERY))
-    log(f"{tag} phase 3 kernel B (C={c}, N={n}, K={k_det}, G={N_GRID}; {n_dead} -inf chain-queries): "
-        f"values max|err| {err_bf:.3e}, cotangents max|err| {err_bb:.3e}; fwd {b_fwd:.4f} ms "
-        f"(plain {b_fwd_plain:.4f}), bwd {b_bwd:.4f} ms (plain {b_bwd_plain:.4f})")
+    rows["logwts_lse_fwd"] = dict(ms=l_fwd, call_ms=l_fwd_call, plain_ms=l_fwd_plain, max_abs_err=err_lf,
+                                  bound=bound_ms(n * 16 + table_bytes + seg_bytes,
+                                                 c * n * (OPS_B_FWD_PER_QUERY + OPS_B_LSE_FWD_EXTRA)))
+    rows["logwts_lse_bwd"] = dict(ms=l_bwd, call_ms=l_bwd_call, plain_ms=l_bwd_plain, max_abs_err=err_lb,
+                                  bound=bound_ms(n * 16 + table_bytes + table_bytes + 2 * seg_bytes,
+                                                 c * n * (OPS_B_BWD_PER_QUERY + OPS_B_LSE_BWD_EXTRA)))
+    log(f"{tag} phase 3 kernel B (C={c}, N={n}, K={k_det}, G={N_GRID}; {n_dead} -inf chain-queries): rows "
+        f"values max|err| {err_bf:.3e}, cotangents max|err| {err_bb:.3e}; fwd device {b_fwd:.5f} ms, call "
+        f"{b_fwd_call:.4f} ms (plain {b_fwd_plain:.4f}), bwd device {b_bwd:.5f} ms, call {b_bwd_call:.4f} ms "
+        f"(plain {b_bwd_plain:.4f})")
+    log(f"{tag} phase 3 kernel B lse epilogue ({nobs} events x {nsamp} samples + {n - nobs * nsamp} injections): "
+        f"values max|err| {err_lf:.3e}, cotangents max|err| {err_lb:.3e}; fwd device {l_fwd:.5f} ms, call "
+        f"{l_fwd_call:.4f} ms (plain {l_fwd_plain:.4f}), bwd device {l_bwd:.5f} ms, call {l_bwd_call:.4f} ms "
+        f"(plain {l_bwd_plain:.4f})")
+    log(f"{tag} phase 3 kernel B backward: distinct detector bins among 32 consecutive rows: events mean "
+        f"{float(distinct[:n_ev_warps].mean()):.2f} (min {int(distinct[:n_ev_warps].min())}), injections mean "
+        f"{float(distinct[n_ev_warps:].mean()):.2f} (min {int(distinct[n_ev_warps:].min())})")
     phase_done("3_kernel_b")
 
     # ---- phase 4: potential value+grad ----------------------------------
@@ -302,24 +416,42 @@ def main() -> int:
     out = run_sampling(pot, warm, N_DRAWS, NutsConfig(max_depth=MAX_DEPTH), seed=SEED)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    sampled = {k: v for cnt in counters for k, v in cnt.items()}
+    # the effective-sample-size diagnostics on the last draw of every chain (the rows epilogue)
+    with torch.no_grad():
+        last_sites = constrain(spec, out.thetas[:, -1])
+        _, _, log_w, log_sel_w = pop_cosmo_event_sel_logwts(last_sites, spec_data, N_GRID, N_Z, spec_bounds, qry)
+        _, neff_sel = selection_neff_terms(log_sel_w, spec_data.selection.log_ndraw)
+        neff = torch.exp(2.0 * torch.logsumexp(log_w, -1) - torch.logsumexp(2.0 * log_w, -1))
+    torch.cuda.synchronize()
     launches = {k: v for cnt in counters for k, v in cnt.items()}
     if out.thetas.shape != (c, N_DRAWS, theta.shape[1]) or not bool(torch.isfinite(out.thetas).all()):
         raise AssertionError(f"sampling: draws of shape {tuple(out.thetas.shape)} are not all finite")
-    missing = [k for k, v in launches.items() if v == 0]
+    on_path = ("bump_fwd", "bump_bwd", "logwts_lse_fwd", "logwts_lse_bwd", "logwts_fwd")
+    missing = [k for k in on_path if launches[k] == 0]
     if missing:
         raise AssertionError(f"sampling: kernels never launched on the main path: {missing}")
+    n_vg = sampled["logwts_lse_fwd"]
+    if not (sampled["logwts_lse_bwd"] == sampled["bump_fwd"] == sampled["bump_bwd"] == n_vg) or sampled["logwts_fwd"]:
+        raise AssertionError(f"sampling: not one kernel-B forward and backward per value+grad: {sampled}")
     if out.max_abs_du >= 0.05:
         raise AssertionError(f"sampling: recomputed u differs from the stored state by "
                              f"{out.max_abs_du:.4f} nats (limit 0.05)")
+    if (neff_sel.shape != (c,) or neff.shape != (c, nobs) or not bool(torch.isfinite(neff_sel).all())
+            or not bool(torch.isfinite(neff).all()) or float(neff_sel.min()) < 1.0 or float(neff.min()) < 1.0
+            or float(neff.max()) > nsamp * (1 + 1e-4)):
+        raise AssertionError("diagnostics: neff_sel or per-event neff outside [1, number of rows]")
     st = out.stats
     n_lf = int(st.n_leapfrog.sum())
-    n_vg = launches["logwts_fwd"]
     log(f"{tag} phase 5 run_sampling ({N_DRAWS} draws x {c} chains, max_depth {MAX_DEPTH}): "
         f"{wall:.2f} s wall, {c * N_DRAWS / wall:.3f} draws/s, {n_lf / wall:.1f} chain-leapfrogs/s "
         f"({n_lf} chain-leapfrogs in {n_vg} batched value+grads, {n_vg / wall:.1f}/s), "
         f"mean accept {float(st.accept_prob.mean()):.3f}, divergences {int(st.diverging.sum())}, "
         f"mean tree depth {float(st.tree_depth.float().mean()):.2f}, "
         f"max |du| vs stored state {out.max_abs_du:.5f}; launches {launches}")
+    log(f"{tag} phase 5 diagnostics on the last draw of {c} chains (rows epilogue): neff_sel min "
+        f"{float(neff_sel.min()):.1f}, median {float(neff_sel.median()):.1f}; per-event neff min "
+        f"{float(neff.min()):.2f}, median {float(neff.median()):.2f} of {nsamp} samples")
     phase_done("5_sampling")
     log(f"{tag} phase 5 profile: " + device_busy_share(pot, out.warm))
     phase_done("5_profile")
@@ -337,16 +469,22 @@ def main() -> int:
         "bump_bwd": "bumpcosmology_tpu/ops/pallas_bump.py:199",
         "logwts_fwd": "bumpcosmology_tpu/ops/pallas_logwts.py:184",
         "logwts_bwd": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
+        "logwts_lse_fwd": "bumpcosmology_tpu/ops/pallas_logwts.py:184",
+        "logwts_lse_bwd": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
         "snr_integral": "bumpcosmology_tpu/mock/pallas_snr.py:116",
     }
     kernels = []
     for name, row in rows.items():
         b_ms, b_by = row["bound"]
+        status = "ok: built, matches its plain twin, launched on the main path"
+        if name == "logwts_bwd":
+            status = ("ok: built, matches its plain twin; launched in the phase-3 comparison only "
+                      "(the main path's gradient takes the lse epilogue)")
         kernels.append(dict(name=name, route="cuda", source=sources[name.split("_")[0]],
                             replaces=replaces[name], launches=launches[name],
-                            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
-                            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                            status="ok: built, matches its plain twin, launched on the main path"))
+                            max_abs_err=row["max_abs_err"], ms=row["ms"], call_ms=row["call_ms"],
+                            plain_ms=row["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            status=status))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -366,13 +504,13 @@ def device_busy_share(potential, warm, max_depth: int = 4) -> str:
     from bumpcosmology_torch.ops import cuda_logwts
 
     torch.cuda.synchronize()
-    vg0 = cuda_logwts.LAUNCHES["logwts_fwd"]
+    vg0 = cuda_logwts.LAUNCHES["logwts_lse_fwd"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_sampling(potential, warm, 1, NutsConfig(max_depth=max_depth), seed=SEED + 1)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    n_vg = cuda_logwts.LAUNCHES["logwts_fwd"] - vg0
+    n_vg = cuda_logwts.LAUNCHES["logwts_lse_fwd"] - vg0
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         return "device busy share not measured (the profiler recorded no device activity)"
@@ -508,7 +646,7 @@ def mock_campaign_phase(dev, tag: str):
     if not torch.equal(got == 0, ref == 0):
         raise AssertionError("C: the exact zeros (f_cut below f_min) differ between kernel and plain twin")
     err = check_close("C", got, ref, rtol=2e-5, atol=1e-6)
-    ms = cuda_ms(lambda: cuda_snr._snr_integral_cuda(m1, m2, dl, inv_psd, **grid))
+    ms, call_ms = both_ms(lambda: cuda_snr._snr_integral_cuda(m1, m2, dl, inv_psd, **grid), launches=5, replays=2)
     plain_ms = cuda_ms(lambda: cuda_snr.snr_integral_plain(m1, m2, dl, inv_psd, **grid, chunk=PLAIN_CHUNK),
                        reps=3, warmup=1)
     n_f = grid["n_f"]
@@ -520,10 +658,11 @@ def mock_campaign_phase(dev, tag: str):
     bound = max(t_bytes, t_ops, t_sfu)
     by = "bytes" if bound == t_bytes else "operations"
     log(f"{tag} phase 6 kernel C (N={n}, n_f={n_f}; {int((ref == 0).sum())} exact zeros): max|err| {err:.3e} "
-        f"vs the plain twin; {ms:.4f} ms (plain {plain_ms:.4f} ms, chunks of {PLAIN_CHUNK}); live points "
+        f"vs the plain twin; device {ms:.4f} ms (5 launches in one replayed CUDA graph, the wrapper's four small "
+        f"grid kernels included), call {call_ms:.4f} ms (plain {plain_ms:.4f} ms, chunks of {PLAIN_CHUNK}); live points "
         f"{json.dumps(points)}; bound {bound:.5f} ms by {by} (bytes {t_bytes:.5f}, FP32 operations "
         f"{t_ops:.5f}, special-function unit {t_sfu:.5f} at {clock / 1e6:.0f} MHz x {H100_SMS} SMs)")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound=(bound, by)), launches
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err, bound=(bound, by)), launches
 
 
 if __name__ == "__main__":

@@ -39,9 +39,8 @@ def test_bump_kernel_matches_plain(dev):
     torch.testing.assert_close(outs[0][1], outs[1][1], rtol=2e-4, atol=1e-5)
 
 
-def test_logwts_kernel_matches_plain(dev):
-    rng = np.random.default_rng(1)
-    c, k, gl, n = 4, 1024, 256, 5000
+def _logwts_inputs(rng, dev, c, k, gl, n):
+    """Random tables, scalars and query rows [m1_det, q, log dL, log pdraw] on the card."""
     z = np.sort(rng.uniform(0.01, 3.0, (c, k)), 1)
     det = torch.as_tensor(np.stack([z, rng.normal(size=(c, k))], -1).astype(np.float32), device=dev)
     bump = torch.as_tensor(rng.normal(size=(c, gl)).astype(np.float32) - 5.0, device=dev)
@@ -51,19 +50,55 @@ def test_logwts_kernel_matches_plain(dev):
     scal[:, 13:] = [k, gl]
     scal = torch.as_tensor(scal, device=dev)
     qry = torch.as_tensor(np.stack([rng.uniform(5, 120, n), rng.uniform(0.1, 1.0, n),
-                                    np.exp(rng.uniform(np.log(0.11), np.log(19.0), n)),
+                                    rng.uniform(np.log(0.11), np.log(19.0), n),
                                     rng.normal(size=n)], 1).astype(np.float32), device=dev)
+    return (det, bump, scal), qry
+
+
+def _assert_cotangents_close(got, ref):
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-4 * float(b.abs().max()) + 1e-5)
+
+
+def test_logwts_kernel_matches_plain(dev):
+    rng = np.random.default_rng(1)
+    c, n = 4, 5000
+    tables, qry = _logwts_inputs(rng, dev, c, 1024, 256, n)
     g = torch.as_tensor(rng.normal(size=(c, n)).astype(np.float32), device=dev)
     res = []
     for fn in (cuda_logwts.logwts, cuda_logwts.logwts_plain):
-        leaves = [x.clone().requires_grad_(True) for x in (det, bump, scal)]
+        leaves = [x.clone().requires_grad_(True) for x in tables]
         out = fn(*leaves, qry)
         (out.nan_to_num(neginf=0.0) * g).sum().backward()
         res.append((out.detach(), *(x.grad for x in leaves)))
     torch.cuda.synchronize()
+    assert bool(torch.isneginf(res[1][0]).any())
     torch.testing.assert_close(res[0][0], res[1][0], rtol=2e-5, atol=2e-5)
-    for a, b in zip(res[0][1:], res[1][1:]):
-        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-4 * float(b.abs().max()) + 1e-5)
+    _assert_cotangents_close(res[0][1:], res[1][1:])
+
+
+def test_logwts_lse_kernel_matches_plain(dev):
+    """The ``lse`` epilogue: ragged segments (7 events x 96 samples, 1,000
+    injections: pieces of 96 and a last piece of 104 rows), one all-dead event,
+    cotangents handed over as broadcast views."""
+    rng = np.random.default_rng(3)
+    c, nobs, nsamp, nsel = 4, 7, 96, 1000
+    tables, qry = _logwts_inputs(rng, dev, c, 1024, 256, nobs * nsamp + nsel)
+    qry[2 * nsamp : 3 * nsamp, 0] = 1.0  # event 2: m1 < 5 on every row
+    g_ev = torch.as_tensor(rng.normal(size=(c, 1)).astype(np.float32), device=dev).expand(c, nobs)
+    g_sel = torch.as_tensor(rng.normal(size=c).astype(np.float32), device=dev)
+    res = []
+    for fn in (cuda_logwts.logwts_lse, cuda_logwts.logwts_lse_plain):
+        leaves = [x.clone().requires_grad_(True) for x in tables]
+        lse_ev, lse_sel = fn(*leaves, qry, nobs, nsamp)
+        torch.autograd.backward([lse_ev, lse_sel], [g_ev, g_sel])
+        res.append((lse_ev.detach(), lse_sel.detach(), *(x.grad for x in leaves)))
+    torch.cuda.synchronize()
+    assert bool(torch.isneginf(res[0][0][:, 2]).all()) and bool(torch.isfinite(res[0][0][:, [0, 1, 3, 4, 5, 6]]).all())
+    assert all(bool(torch.isfinite(x).all()) for x in res[0][2:])
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(res[0][1], res[1][1], rtol=2e-5, atol=2e-5)
+    _assert_cotangents_close(res[0][2:], res[1][2:])
 
 
 def test_snr_kernel_matches_plain(dev):

@@ -113,3 +113,72 @@ def _mock_entry_points():
 def test_mock_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         _mock_entry_points()[entry]()
+
+
+class _OnCuda:
+    """A CPU tensor that reports a CUDA device: what a kernel wrapper sees of
+    a tensor on the card, on a host that has none."""
+
+    def __init__(self, t):
+        self._t = t
+        self.device = torch.device("cuda", 0)
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _lse_args(c=2, k=8, g=6, nobs=3, nsamp=4, nsel=5):
+    n = nobs * nsamp + nsel
+    return [torch.zeros(c, k, 2), torch.zeros(c, g), torch.zeros(c, 15), torch.zeros(n, 4)], nobs, nsamp
+
+
+@pytest.fixture
+def plain_twin_calls(monkeypatch):
+    from bumpcosmology_torch.ops import cuda_logwts
+
+    calls = []
+
+    def reached(*args, **kwargs):
+        calls.append(args)
+        raise AssertionError("the plain twin was reached for a CUDA tensor")
+
+    monkeypatch.setattr(cuda_logwts, "_evaluate", reached)
+    return calls
+
+
+@pytest.mark.parametrize("which", ["det", "bump", "scal", "qry"])
+@pytest.mark.parametrize("fault", ["non_contiguous", "float64"])
+def test_logwts_lse_raises_on_bad_cuda_argument(plain_twin_calls, which, fault):
+    from bumpcosmology_torch.ops.cuda_logwts import logwts_lse
+
+    args, nobs, nsamp = _lse_args()
+    i = ["det", "bump", "scal", "qry"].index(which)
+    if fault == "float64":
+        args[i] = args[i].double()
+    else:
+        args[i] = torch.zeros(*args[i].shape[:-1], 2 * args[i].shape[-1])[..., ::2]
+        assert not args[i].is_contiguous()
+    with pytest.raises(ValueError, match=which):
+        logwts_lse(*(_OnCuda(t) for t in args), nobs, nsamp)
+    assert not plain_twin_calls
+
+
+def test_logwts_lse_never_takes_the_plain_twin_for_a_cuda_tensor(plain_twin_calls):
+    """Well-formed CUDA-typed arguments go on to the launch (which this host
+    cannot make, so it raises); the plain twin is not a fallback."""
+    from bumpcosmology_torch.ops.cuda_logwts import LAUNCHES, logwts_lse
+
+    args, nobs, nsamp = _lse_args()
+    before = dict(LAUNCHES)
+    with pytest.raises(Exception) as err:
+        logwts_lse(*(_OnCuda(t) for t in args), nobs, nsamp)
+    assert not isinstance(err.value, ValueError), err.value
+    assert not plain_twin_calls and LAUNCHES == before
+
+
+def test_logwts_lse_rejects_other_devices():
+    from bumpcosmology_torch.ops.cuda_logwts import logwts_lse
+
+    args, nobs, nsamp = _lse_args()
+    with pytest.raises(ValueError, match="unsupported device"):
+        logwts_lse(*(t.to("meta") for t in args), nobs, nsamp)

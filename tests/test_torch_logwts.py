@@ -7,23 +7,48 @@ population/cosmology parameters — as ``tests/test_pallas_logwts.py:95-130``
 does for the Pallas kernel (rtol 2e-5 on values; rtol 5e-4 on gradients).
 The hand-derived backward is also held against PyTorch autograd of the same
 forward (rtol 1e-5: same float32 arithmetic, different summation order).
+
+``logwts_lse`` (the ``lse`` epilogue: per-event and selection log-sum-exps of
+the rows) is held the same way against ``jax.scipy.special.logsumexp`` over
+the fused rows, dead rows and one all-dead segment included.
+
+The tests above the last section build smooth tables from population
+parameters.  The last section repeats value and cotangents on rough tables
+(independent random entries, as the on-card tests use), where a bracket
+position that is rounded differently shows up in the weight at once.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.scipy.special import logsumexp as jlogsumexp
 
 from bumpcosmology_tpu.inference.likelihoods import _cosmo_frame_logwts_fused
+from bumpcosmology_tpu.models.cosmology import DetectorFrameTable
 from bumpcosmology_tpu.models.cosmology import build_cosmology as jbuild_cosmology
 from bumpcosmology_tpu.models.cosmology import build_detector_table as jbuild_det
 from bumpcosmology_tpu.models.cosmology import z_and_logjac_at_dl
+from bumpcosmology_tpu.models.mass import MassFunctionTable
 from bumpcosmology_tpu.models.parameters import DEFAULT_POPULATION, CosmoParams, PopulationParams
+from bumpcosmology_tpu.models.population import PopulationIntensity
 from bumpcosmology_tpu.models.population import build_population as jbuild_population
 from bumpcosmology_torch.models import parameters as tparam
 from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table
-from bumpcosmology_torch.models.population import build_population
-from bumpcosmology_torch.ops.cuda_logwts import SLOTS, _evaluate, cosmo_frame_logwts, logwts, pack_scalars
+from bumpcosmology_torch.models.cosmology import z_and_logjac_at_dl as tz_and_logjac_at_dl
+from bumpcosmology_torch.models.population import build_population, log_dndmdqdv
+from bumpcosmology_torch.ops.cuda_logwts import (
+    SLOTS,
+    _evaluate,
+    cosmo_frame_logwts,
+    cosmo_frame_logwts_lse,
+    logwts,
+    logwts_lse,
+    logwts_lse_plain,
+    logwts_plain,
+    pack_scalars,
+    query_rows,
+)
 
 DL_LO, DL_HI = 1.0, 20.0
 N_GRID = 256
@@ -70,7 +95,7 @@ def _queries(seed: int, n: int):
 
 
 def _qry(a, q, dl, log_pdraw):
-    return torch.as_tensor(np.stack([a, q, dl, log_pdraw], axis=1))
+    return query_rows(*(torch.as_tensor(x) for x in (a, q, dl, log_pdraw)))
 
 
 def test_logwts_forward_matches_fused():
@@ -138,3 +163,242 @@ def test_mask_only_scalars_have_zero_cotangent(slot):
     scal = pack_scalars(pop, det).detach().requires_grad_(True)
     logwts(det.cols.detach(), pop.mass_table.log_bump.detach(), scal, _qry(a, q, dl, lp)).sum().backward()
     assert float(scal.grad[0, SLOTS.index(slot)]) == 0.0
+
+
+def test_query_rows_store_log_dl_and_give_the_same_weights():
+    """The query table keeps log dL (taken once, per row); the weights equal
+    those of the port's unfused composition, which takes dL itself."""
+    a, q, dl, lp = _queries(8, 400)
+    qry = _qry(a, q, dl, lp)
+    assert qry.shape == (400, 4) and qry.is_contiguous()
+    np.testing.assert_allclose(qry[:, 2].numpy(), np.log(dl), rtol=3e-7)
+    np.testing.assert_array_equal(qry[:, [0, 1, 3]].numpy(), np.stack([a, q, lp], 1))
+    pop, det = _torch_tables(torch.tensor(THETA0))
+    ta, tq, tdl, tlp = (torch.as_tensor(x)[None] for x in (a, q, dl, lp))
+    z, log_jac = tz_and_logjac_at_dl(det, tdl)
+    ref = log_dndmdqdv(pop, ta / (1.0 + z), tq, z) - 2.0 * torch.log1p(z) + log_jac - tlp
+    got = cosmo_frame_logwts(pop, det, qry)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def _segmented_queries(seed, nobs, nsamp, nsel, dead_event=None):
+    """nobs x nsamp PE-sample rows then nsel injection rows, some with -inf
+    weight (m1 or m2 below MBH_MIN) and some past the bump cut; every row of
+    ``dead_event`` is dead."""
+    n = nobs * nsamp + nsel
+    a, q, dl, lp = _queries(seed, n)
+    a[1::17] = 0.05 * a[1::17]  # m1 < MBH_MIN
+    q[2::19] = 0.1  # m2 < MBH_MIN
+    a[3::23] = 3.0 * a[3::23]  # m1 beyond the bump: the tail remains
+    if dead_event is not None:
+        a[dead_event * nsamp : (dead_event + 1) * nsamp] = 1.0
+    return a, q, dl, lp
+
+
+def _jax_lse(theta, a, q, dl, lp, nobs, nsamp):
+    pop, det = _jax_tables(theta)
+    out = _cosmo_frame_logwts_fused(pop, det, a, q, dl, lp)
+    n_ev = nobs * nsamp
+    return jlogsumexp(out[:n_ev].reshape(nobs, nsamp), axis=1), jlogsumexp(out[n_ev:])
+
+
+@pytest.mark.parametrize("nobs,nsamp,nsel", [(5, 32, 200), (7, 96, 1000), (3, 37, 11), (4, 130, 0)])
+def test_logwts_lse_matches_logsumexp_of_fused_rows(nobs, nsamp, nsel):
+    """Values of both outputs, -inf rows inside the segments; nsamp not a power of two."""
+    a, q, dl, lp = _segmented_queries(11, nobs, nsamp, nsel)
+    ev_ref, sel_ref = _jax_lse(jnp.asarray(THETA0, jnp.float32), a, q, dl, lp, nobs, nsamp)
+    pop, det = _torch_tables(torch.tensor(THETA0))
+    rows = cosmo_frame_logwts(pop, det, _qry(a, q, dl, lp))
+    assert torch.isneginf(rows).any() and torch.isfinite(rows).any()
+    lse_ev, lse_sel = cosmo_frame_logwts_lse(pop, det, _qry(a, q, dl, lp), nobs, nsamp)
+    assert lse_ev.shape == (1, nobs) and lse_sel.shape == (1,)
+    np.testing.assert_allclose(lse_ev[0].numpy(), np.asarray(ev_ref), rtol=2e-5, atol=2e-5)
+    if nsel:
+        np.testing.assert_allclose(float(lse_sel), float(sel_ref), rtol=2e-5, atol=2e-5)
+    else:
+        assert float(lse_sel) == -np.inf
+
+
+def test_logwts_lse_grad_matches_fused():
+    """Cotangents of both outputs through tables + scalars back to the 13 raw
+    parameters, against JAX autodiff of logsumexp over the fused rows."""
+    nobs, nsamp, nsel = 6, 48, 300
+    a, q, dl, lp = _segmented_queries(12, nobs, nsamp, nsel)
+    rng = np.random.default_rng(13)
+    g_ev, g_sel = rng.normal(size=nobs).astype(np.float32), np.float32(rng.normal())
+
+    def jloss(theta):
+        ev, sel = _jax_lse(theta, a, q, dl, lp, nobs, nsamp)
+        return jnp.vdot(g_ev, ev) + g_sel * sel
+
+    v_ref, g_ref = jax.value_and_grad(jloss)(jnp.asarray(THETA0, jnp.float32))
+    assert np.isfinite(np.asarray(g_ref)).all()
+    theta = torch.tensor(THETA0, requires_grad=True)
+    pop, det = _torch_tables(theta)
+    lse_ev, lse_sel = cosmo_frame_logwts_lse(pop, det, _qry(a, q, dl, lp), nobs, nsamp)
+    v = (lse_ev[0] * torch.as_tensor(g_ev)).sum() + float(g_sel) * lse_sel[0]
+    v.backward()
+    np.testing.assert_allclose(float(v.detach()), float(v_ref), rtol=2e-5)
+    for name, r, p in zip(NAMES, np.asarray(g_ref), theta.grad.numpy()):
+        np.testing.assert_allclose(
+            p, r, rtol=5e-4, atol=5e-4 * max(1.0, abs(float(v_ref))) * 1e-3 + 1e-3,
+            err_msg=f"grad wrt {name}",
+        )
+
+
+def test_logwts_lse_hand_backward_matches_autograd_for_all_15_scalars():
+    """The lse backward equals autograd of torch.logsumexp over the same rows:
+    det, bump and every scalar slot (v0 and dv included), broadcast cotangents."""
+    nobs, nsamp, nsel = 4, 40, 90
+    a, q, dl, lp = _segmented_queries(14, nobs, nsamp, nsel)
+    pop, det = _torch_tables(torch.tensor(THETA0))
+    det_c, bump, scal = det.cols.detach(), pop.mass_table.log_bump.detach(), pack_scalars(pop, det).detach()
+    qry = _qry(a, q, dl, lp)
+    w_sel = -float(nobs)
+
+    leaves = [x.clone().requires_grad_(True) for x in (det_c, bump, scal)]
+    lse_ev, lse_sel = logwts_lse(*leaves, qry, nobs, nsamp)
+    (lse_ev.sum(-1) + w_sel * lse_sel).sum().backward()  # the likelihood's own use: g_ev is a broadcast view
+    auto = [x.clone().requires_grad_(True) for x in (det_c, bump, scal)]
+    out = _evaluate(*auto, qry)["out"]
+    n_ev = nobs * nsamp
+    ref = torch.logsumexp(out[:, :n_ev].reshape(1, nobs, nsamp), -1).sum(-1) + w_sel * torch.logsumexp(out[:, n_ev:], -1)
+    ref.sum().backward()
+    for name, h, x in zip(("det", "bump", "scal"), leaves, auto):
+        assert torch.isfinite(h.grad).all(), name
+        np.testing.assert_allclose(h.grad.numpy(), x.grad.numpy(), rtol=1e-5, atol=1e-4, err_msg=name)
+    live = [k for k, name in enumerate(SLOTS) if name not in ("mbh_hi", "k_det", "k_bump")]
+    assert (leaves[2].grad[0, live] != 0).all()
+
+
+def test_logwts_lse_all_dead_segment_is_neginf_with_zero_cotangents():
+    """An event whose every row has -inf weight: value -inf, and its cotangent
+    (however large) reaches no table bin and no scalar; nothing is NaN."""
+    nobs, nsamp, nsel, dead = 4, 24, 60, 2
+    a, q, dl, lp = _segmented_queries(15, nobs, nsamp, nsel, dead_event=dead)
+    pop, det = _torch_tables(torch.tensor(THETA0))
+    tables = (det.cols.detach(), pop.mass_table.log_bump.detach(), pack_scalars(pop, det).detach())
+    qry = _qry(a, q, dl, lp)
+    g_ev = torch.ones(1, nobs)
+    grads = []
+    for weight in (1.0, 1e6):
+        leaves = [x.clone().requires_grad_(True) for x in tables]
+        lse_ev, lse_sel = logwts_lse(*leaves, qry, nobs, nsamp)
+        assert float(lse_ev.detach()[0, dead]) == -np.inf
+        assert torch.isfinite(lse_ev[0, [0, 1, 3]]).all() and torch.isfinite(lse_sel).all()
+        g = g_ev.clone()
+        g[0, dead] = weight
+        torch.autograd.backward([lse_ev, lse_sel], [g, torch.ones(1)])
+        assert all(torch.isfinite(x.grad).all() for x in leaves)
+        grads.append([x.grad for x in leaves])
+    for lo, hi in zip(*grads):
+        assert torch.equal(lo, hi)
+
+
+def test_logwts_lse_rejects_segments_that_do_not_fit():
+    a, q, dl, lp = _queries(16, 50)
+    pop, det = _torch_tables(torch.tensor(THETA0))
+    with pytest.raises(ValueError, match="do not fit"):
+        cosmo_frame_logwts_lse(pop, det, _qry(a, q, dl, lp), 6, 10)
+
+
+# ---- rough tables: the plain twins against the JAX package, entry for entry ----
+
+ROUGH_K, ROUGH_G = 1024, 256
+
+
+def _rough_inputs(seed, n):
+    """Random tables, scalars and queries like those of the on-card tests
+    (``tests/test_torch_cuda.py::_logwts_inputs``), one chain, as numpy.
+
+    Neighbouring table entries differ by order one, so one ulp of a bracket
+    position (6e-5 at position 1000) moves a weight by 1e-4.  The queries keep
+    only distances whose float32 logarithm is the same in numpy-on-torch and
+    in JAX: the table stores ``log dL``, and a last-bit difference between two
+    libraries' ``log`` is not what these tests are about."""
+    rng = np.random.default_rng(seed)
+    k, gl = ROUGH_K, ROUGH_G
+    cols = np.stack([np.sort(rng.uniform(0.01, 3.0, k)), rng.normal(size=k)], -1).astype(np.float32)
+    bump = (rng.normal(size=gl) - 5.0).astype(np.float32)
+    scal = np.zeros(15, np.float32)
+    scal[:13] = [np.log(0.1), np.log(200.0) / (k - 1), 3.0, 0.2, 3.0 + 0.2 * (gl - 1), 2.9, 36.0,
+                 -4.0, 1.0, -2.0, 4.7, 7.0, 3.0]
+    scal[13:] = [k, gl]
+    dl = np.exp(rng.uniform(np.log(0.11), np.log(19.0), 2 * n)).astype(np.float32)
+    same = torch.log(torch.as_tensor(dl)).numpy() == np.asarray(jnp.log(jnp.asarray(dl)))
+    assert same.sum() >= n
+    dl = dl[same][:n]
+    a = rng.uniform(5, 120, n).astype(np.float32)
+    q = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    lp = rng.normal(size=n).astype(np.float32)
+    return cols, bump, scal, (a, q, dl, lp)
+
+
+def _jax_rough_rows(cols, bump, scal, a, q, dl, lp):
+    """The JAX package's fused rows from the raw tables and the 13 live scalars."""
+    s = dict(zip(SLOTS, scal))
+    mass = DEFAULT_POPULATION.mass._replace(c=s["c"], mbhmax=s["mbhmax"], beta=s["beta"])
+    red = DEFAULT_POPULATION.redshift._replace(lam=s["lam"], kappa=s["kappa"], zp=s["zp"])
+    table = MassFunctionTable(params=mass, mbh_lo=s["mbh_lo"], dmbh=s["dmbh"], mbh_hi=s["mbh_hi"],
+                              log_bump=bump, log_pl_norm=s["log_pl_norm"], log_norm=s["log_norm"])
+    pop = PopulationIntensity(mass_table=table, params=PopulationParams(mass=mass, redshift=red))
+    det = DetectorFrameTable(params=None, v0=s["v0"], dv=s["dv"], cols=cols)
+    return _cosmo_frame_logwts_fused(pop, det, a, q, dl, lp)
+
+
+def _torch_rough(cols, bump, scal, qs):
+    return [torch.as_tensor(x)[None] for x in (cols, bump, scal)], _qry(*qs)
+
+
+def test_plain_twin_matches_fused_on_rough_tables():
+    """Values of ``logwts_plain`` and ``logwts_lse_plain``.  The twin takes the
+    bracket positions, z and m1 with the JAX package's own operations (a true
+    division, no reciprocal), so the rows agree to the smooth terms' rounding:
+    the limit is the smooth-table tests' 2e-5, not the 1e-4 of a moved bracket."""
+    nobs, nsamp, n = 9, 100, 3000
+    cols, bump, scal, qs = _rough_inputs(21, n)
+    ref = np.asarray(_jax_rough_rows(jnp.asarray(cols), jnp.asarray(bump), jnp.asarray(scal), *qs))
+    tables, qry = _torch_rough(cols, bump, scal, qs)
+    got = logwts_plain(*tables, qry)[0].numpy()
+    dead = np.isneginf(ref)
+    assert 0 < dead.sum() < n // 2
+    np.testing.assert_array_equal(np.isneginf(got), dead)
+    np.testing.assert_allclose(got[~dead], ref[~dead], rtol=2e-5, atol=2e-5)
+    lse_ev, lse_sel = logwts_lse_plain(*tables, qry, nobs, nsamp)
+    n_ev = nobs * nsamp
+    np.testing.assert_allclose(lse_ev[0].numpy(), np.asarray(jlogsumexp(ref[:n_ev].reshape(nobs, nsamp), axis=1)),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(float(lse_sel), float(jlogsumexp(ref[n_ev:])), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("epilogue", ["rows", "lse"])
+def test_plain_twin_cotangents_match_fused_on_rough_tables(epilogue):
+    """The hand-derived cotangents to every table entry and all 13 live
+    scalars against JAX autodiff of the fused rows (and of logsumexp over
+    them), on rough tables; the file's gradient tolerance, scaled by the
+    largest reference entry as the on-card check scales it."""
+    nobs, nsamp, n = 9, 100, 3000
+    cols, bump, scal, qs = _rough_inputs(22, n)
+    rng = np.random.default_rng(23)
+    g_rows = rng.normal(size=n).astype(np.float32)
+    g_ev, g_sel = rng.normal(size=nobs).astype(np.float32), np.float32(rng.normal())
+    n_ev = nobs * nsamp
+
+    def jloss(cols, bump, scal):
+        out = _jax_rough_rows(cols, bump, scal, *qs)
+        if epilogue == "rows":
+            return jnp.vdot(g_rows, jnp.where(jnp.isneginf(out), 0.0, out))
+        return jnp.vdot(g_ev, jlogsumexp(out[:n_ev].reshape(nobs, nsamp), axis=1)) + g_sel * jlogsumexp(out[n_ev:])
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(cols), jnp.asarray(bump), jnp.asarray(scal))
+    tables, qry = _torch_rough(cols, bump, scal, qs)
+    leaves = [x.clone().requires_grad_(True) for x in tables]
+    if epilogue == "rows":
+        (logwts_plain(*leaves, qry)[0].nan_to_num(neginf=0.0) * torch.as_tensor(g_rows)).sum().backward()
+    else:
+        lse_ev, lse_sel = logwts_lse_plain(*leaves, qry, nobs, nsamp)
+        ((lse_ev[0] * torch.as_tensor(g_ev)).sum() + float(g_sel) * lse_sel[0]).backward()
+    for name, leaf, r in zip(("det", "bump", "scal"), leaves, ref):
+        r = np.asarray(r)
+        assert np.isfinite(r).all(), name
+        np.testing.assert_allclose(leaf.grad[0].numpy(), r, rtol=5e-4, atol=5e-4 * np.abs(r).max(), err_msg=name)

@@ -86,3 +86,58 @@ def test_prior_sample_lies_in_support(pair):
     sites = constrain(spec, theta)
     for name, dist in spec.priors.items():
         assert torch.isfinite(dist.log_prob(sites[name])).all(), name
+
+
+def test_event_sel_logwts_and_neff_terms_match_jax(pair):
+    """The per-row weights behind the deterministics (the ``rows`` epilogue)
+    and the selection effective sample size, chain by chain against the JAX
+    package's fused branch.  Weights: atol 5e-4 nats + rtol 2e-5 (the tables
+    are built by different float32 cumulative sums on the two sides);
+    ``log_mu_sel`` atol 2e-4, ``neff_sel`` and the per-event ``neff`` rtol 2e-3."""
+    from jax.scipy.special import logsumexp as jlogsumexp
+
+    from bumpcosmology_tpu.inference.likelihoods import _pop_cosmo_event_sel_logwts, _selection_neff_terms
+    from bumpcosmology_tpu.inference.likelihoods import dl_bounds_of as jbounds
+    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_event_sel_logwts, selection_neff_terms
+
+    js, spec = pair
+    jd = jsynthetic(nobs=8, nsamp=32, nsel=128, seed=0)
+    td = convert.pop_cosmo_data(jd, "cpu")
+    bounds = jbounds(jd)
+    theta = jprior(js, jax.random.PRNGKey(3), (3,))
+    jsites = jconstrain(js, theta)
+    sites = constrain(spec, convert.theta_batch(theta, "cpu"))
+    pop, cosmo, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, td, N_GRID, N_Z, bounds)
+    assert log_w.shape == (3, 8, 32) and log_sel_w.shape == (3, 128)
+    assert pop.mass_table.log_bump.shape == (3, N_GRID) and cosmo.dl.shape == (3, N_Z)
+    log_mu, neff_sel = selection_neff_terms(log_sel_w, td.selection.log_ndraw)
+    neff = torch.exp(2.0 * torch.logsumexp(log_w, -1) - torch.logsumexp(2.0 * log_w, -1))
+    for c in range(3):
+        _, _, jw, jsw = _pop_cosmo_event_sel_logwts({k: v[c] for k, v in jsites.items()}, jd, N_GRID, N_Z, bounds)
+        jw, jsw = np.asarray(jw), np.asarray(jsw)
+        for got, ref in ((log_w[c].numpy(), jw), (log_sel_w[c].numpy(), jsw)):
+            assert np.array_equal(np.isneginf(got), np.isneginf(ref))
+            fin = np.isfinite(ref)
+            np.testing.assert_allclose(got[fin], ref[fin], rtol=2e-5, atol=5e-4)
+        jmu, jneff_sel = _selection_neff_terms(jsw, jd.selection.log_ndraw)
+        np.testing.assert_allclose(float(log_mu[c]), float(jmu), atol=2e-4)
+        np.testing.assert_allclose(float(neff_sel[c]), float(jneff_sel), rtol=2e-3)
+        jneff = np.exp(2.0 * np.asarray(jlogsumexp(jw, axis=1)) - np.asarray(jlogsumexp(2.0 * jw, axis=1)))
+        np.testing.assert_allclose(neff[c].numpy(), jneff, rtol=2e-3)
+
+
+def test_loglike_is_the_segment_reduction_of_the_rows(pair):
+    """``pop_cosmo_loglike`` (one fused ``lse`` call) equals the log-sum-exps
+    taken over the ``rows`` weights, as the JAX package's likelihood takes them."""
+    import math
+
+    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_event_sel_logwts, pop_cosmo_loglike
+
+    _, spec = pair
+    td = convert.pop_cosmo_data(jsynthetic(nobs=8, nsamp=32, nsel=128, seed=0), "cpu")
+    sites = constrain(spec, prior_sample(spec, torch.Generator().manual_seed(5), (4,)))
+    _, _, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, td, N_GRID, N_Z)
+    ref = (torch.logsumexp(log_w, -1) - math.log(32)).sum(-1) \
+        - 8 * (torch.logsumexp(log_sel_w, -1) - td.selection.log_ndraw)
+    got = pop_cosmo_loglike(sites, td, N_GRID, N_Z)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5)
