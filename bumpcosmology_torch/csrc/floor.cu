@@ -3,8 +3,10 @@
 // a launch that computes nothing.  Replaces no TPU kernel; chip_smoke.py times it.
 //
 //   launch_floor(stream)                    one block of 32 threads
-//   launch_floor_cluster(C, threads, stream) kernel B's geometry: a cluster of 8 blocks per
-//                                           chain, grid (8, C), and one cluster.sync()
+//   launch_floor_grid(blocks, C, threads, stream)  a plain grid (blocks, C): kernel A's forward
+//   launch_floor_cluster(C, threads, stream) kernel B's and kernel A's backward's geometry: a
+//                                           cluster of 8 blocks per chain, grid (8, C), and one
+//                                           cluster.sync()
 // Each returns the CUDA error of its launch (0 on success).
 
 #include <cooperative_groups.h>
@@ -20,6 +22,11 @@ __global__ void empty_cluster_kernel() { cooperative_groups::this_cluster().sync
 
 extern "C" int launch_floor(void* stream) {
   empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+extern "C" int launch_floor_grid(int blocks, int C, int threads, void* stream) {
+  empty_kernel<<<dim3(blocks, C, 1), threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

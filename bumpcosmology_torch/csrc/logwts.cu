@@ -33,7 +33,7 @@
 // and the operation bound (one operation per exp/log) are 1-2 microseconds, the same order as
 // an empty launch (1.0 us; 1.8 us in this kernel's cluster geometry).  Measured (H100 80GB
 // HBM3, 700 W; device time of 20 launches in one replayed CUDA graph, as chip_smoke.py phase 3
-// and bumpcosmology_torch/tools/kernel_b_times.py take it): the forward takes 18 us, and took
+// and bumpcosmology_torch/tools/kernel_times.py take it): the forward takes 18 us, and took
 // the same to within 1 us whatever the split of the rows over warps and lanes, so it is bound by
 // the depth of one row's chain of some 15 transcendentals and 8 dependent shared-memory reads,
 // not by instruction rate; the backward takes 63 us, of which 33 us are its shared-memory float

@@ -20,9 +20,9 @@ import math
 
 import torch
 
-from bumpcosmology_torch.ops._build import check_cuda, cuda_stream, load_kernel, raise_on
+from bumpcosmology_torch.ops._build import check_cuda, cuda_stream, kernel_function, raise_on
 
-__all__ = ["bump_log_dn", "bump_log_dn_plain", "LAUNCHES", "PARAM_NAMES"]
+__all__ = ["bump_log_dn", "bump_log_dn_plain", "LAUNCHES", "LAUNCH_GEOMETRY", "PARAM_NAMES"]
 
 PARAM_NAMES = ("a", "b", "mpisn", "mbhmax", "sigma")
 LAUNCHES = {"bump_fwd": 0, "bump_bwd": 0}
@@ -31,6 +31,13 @@ _LOG_2PI = math.log(2.0 * math.pi)
 _MCO_BREAK = 20.0
 _GRID_MBH_LO = 3.0
 _GRID_MCO_LO = 1.0
+# what csrc/bump.cu takes: chains are the grid's second axis, and the backward's
+# seven per-column tables must fit one block's shared memory
+_MAX_CHAINS = 65535
+_MAX_GRID = 8192
+# the launch geometry at n_grid >= 128 (BLOCKS, WARPS_FWD, WARPS_BWD of csrc/bump.cu): the
+# forward is a plain grid (blocks, C), the backward one cluster of `blocks` blocks per chain
+LAUNCH_GEOMETRY = {"blocks": 8, "fwd_threads": 512, "bwd_threads": 256}
 
 
 def _packed(params: torch.Tensor, n_grid: int):
@@ -126,28 +133,36 @@ _SIGNATURES = {
 }
 
 
-def _lib():
-    return load_kernel("bump", _SIGNATURES)
+def _check_launch(params: torch.Tensor, n_grid: int) -> int:
+    """Raise unless the kernels take ``params`` and ``n_grid``; returns C."""
+    c = params.shape[0]
+    check_cuda(params, (c, 5), "params")
+    if not 1 <= c <= _MAX_CHAINS:
+        raise ValueError(f"params: expected 1 to {_MAX_CHAINS} chains, got {c}")
+    if not 2 <= n_grid <= _MAX_GRID:
+        raise ValueError(f"n_grid: expected 2 to {_MAX_GRID} grid points, got {n_grid}")
+    return c
 
 
 def _bump_fwd_cuda(params: torch.Tensor, n_grid: int) -> torch.Tensor:
-    c = params.shape[0]
-    check_cuda(params, (c, 5), "params")
+    c = _check_launch(params, n_grid)
     out = torch.empty((c, n_grid), device=params.device, dtype=torch.float32)
-    rc = _lib().bump_fwd(params.data_ptr(), out.data_ptr(), c, n_grid, cuda_stream(params))
+    rc = kernel_function("bump", "bump_fwd", _SIGNATURES)(
+        params.data_ptr(), out.data_ptr(), c, n_grid, cuda_stream(params))
     raise_on(rc, "bump_fwd")
     LAUNCHES["bump_fwd"] += 1
     return out
 
 
 def _bump_bwd_cuda(params, logdn, g, n_grid: int) -> torch.Tensor:
-    c = params.shape[0]
-    check_cuda(params, (c, 5), "params")
+    c = _check_launch(params, n_grid)
     check_cuda(logdn, (c, n_grid), "logdn")
     check_cuda(g, (c, n_grid), "g")
+    # torch.empty: the kernel stores all five cotangents of every chain, and needs no scratch
     dparams = torch.empty((c, 5), device=params.device, dtype=torch.float32)
-    rc = _lib().bump_bwd(params.data_ptr(), logdn.data_ptr(), g.data_ptr(), dparams.data_ptr(),
-                         c, n_grid, cuda_stream(params))
+    rc = kernel_function("bump", "bump_bwd", _SIGNATURES)(
+        params.data_ptr(), logdn.data_ptr(), g.data_ptr(), dparams.data_ptr(),
+        c, n_grid, cuda_stream(params))
     raise_on(rc, "bump_bwd")
     LAUNCHES["bump_bwd"] += 1
     return dparams
@@ -178,7 +193,7 @@ def bump_log_dn(params: torch.Tensor, n_grid: int = 256) -> torch.Tensor:
 
     CPU tensors take the plain twin; CUDA tensors launch ``csrc/bump.cu``."""
     if params.device.type == "cuda":
-        return _BumpCuda.apply(params.contiguous(), n_grid)
+        return _BumpCuda.apply(params if params.is_contiguous() else params.contiguous(), n_grid)
     if params.device.type == "cpu":
         return _BumpPlain.apply(params, n_grid)
     raise ValueError(f"bump_log_dn: unsupported device {params.device}")

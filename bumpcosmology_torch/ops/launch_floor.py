@@ -2,9 +2,10 @@
 path as the port's kernels (``csrc/floor.cu``).
 
 A kernel's time is read against these: :func:`launch_floor` is one block of 32
-threads that does nothing; :func:`launch_floor_cluster` has kernel B's launch
-geometry (one cluster of 8 blocks per chain, one ``cluster.sync()``) and does
-nothing else.  Nothing on the main path calls them; the on-card check times them.
+threads that does nothing; :func:`launch_floor_grid` is a plain grid of
+``(blocks, chains)`` blocks (kernel A's forward); :func:`launch_floor_cluster`
+has the launch geometry of kernel B and of kernel A's backward (one cluster of
+8 blocks per chain, one ``cluster.sync()``) and does nothing else.  Nothing on the main path calls them; the on-card check times them.
 """
 from __future__ import annotations
 
@@ -14,10 +15,11 @@ import torch
 
 from bumpcosmology_torch.ops._build import kernel_function, raise_on
 
-__all__ = ["launch_floor", "launch_floor_cluster"]
+__all__ = ["launch_floor", "launch_floor_grid", "launch_floor_cluster"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"launch_floor": ([_P], _I), "launch_floor_cluster": ([_I, _I, _P], _I)}
+_SIGNATURES = {"launch_floor": ([_P], _I), "launch_floor_grid": ([_I, _I, _I, _P], _I),
+               "launch_floor_cluster": ([_I, _I, _P], _I)}
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -30,6 +32,12 @@ def _stream(device) -> ctypes.c_void_p:
 def launch_floor(device="cuda") -> None:
     """Queue one empty kernel (1 block x 32 threads) on ``device``'s current stream."""
     raise_on(kernel_function("floor", "launch_floor", _SIGNATURES)(_stream(device)), "launch_floor")
+
+
+def launch_floor_grid(blocks: int, chains: int, threads: int, device="cuda") -> None:
+    """Queue one empty kernel of grid (``blocks``, ``chains``) x ``threads``, no clusters."""
+    rc = kernel_function("floor", "launch_floor_grid", _SIGNATURES)(blocks, chains, threads, _stream(device))
+    raise_on(rc, "launch_floor_grid")
 
 
 def launch_floor_cluster(chains: int, threads: int, device="cuda") -> None:

@@ -16,6 +16,10 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
    path, alone and in kernel B's cluster geometry;
 2. kernel A (bump table) against its twin at C=16, G=256 on the warm thetas:
    forward rtol 1e-4 / atol 5e-5, VJP to the 5 scalars rtol 2e-4 / atol 1e-5;
+   the same limits, against the twin run in float64, at C=1 (the mock campaign's
+   launch), at G=48 and G=100 (not multiples of a warp), at G=2100 (nine passes
+   of 256 columns, more than 32 rows a warp) and at C=64; two backward launches on the same inputs
+   must agree bit for bit (the reduction runs in a fixed order);
 3. kernel B (detector-frame log-weights) at full size, N=38,912, K=1024,
    G=256, C=16, both epilogues, forward and backward.  ``rows``: values rtol
    2e-5 / atol 2e-5 (the same -inf rows), every cotangent rtol 5e-4 with atol
@@ -72,17 +76,20 @@ FP32_OPS_PER_S = 67e12
 
 # FP32 operations per unit of work, tallied from the kernel sources (each
 # exp/log/log1p counted as one operation; the special-function unit runs
-# those at a quarter of the FMA rate, so these bounds are optimistic):
-#   A-fwd per cell: r (2), K (2), online log-sum-exp (compare, exp, add, ...) -> 8
-#   A-bwd per cell: r (2), w = exp(...) (4), ros, phi_j, dk/dmco (4), 5 accumulators (22) -> 32
+# those at a quarter of the FMA rate, so B's bounds are optimistic; A's and
+# C's bounds also count special-function results, one exp per cell for A):
+#   A-fwd per cell: r (2), K (2), max (1), exp(K - max): subtract, scale, ex2 (3), add (1) -> 9
+#   A-bwd per cell: r (2), K - L (3), exp: scale, ex2 (2), w r (1), three moments of w (3),
+#          five table-weighted sums (5) -> 16
 #   B-fwd per chain-query: bracket + two lerps (14), masses (3), two mass terms (2 x 26),
 #          rate and frame terms (16), sum (12) -> 97
 #   B-bwd per chain-query: the forward's 97 again + two mass-term VJPs (2 x 24),
 #          z/kappa/zp terms (26), 4 table scatters and the slope terms (14) -> 185
 #   B lse epilogue per chain-query: forward max, exp, add, merge -> + 4;
 #          backward exp(out - lse), multiply, compare -> + 3
-OPS_A_FWD_PER_CELL = 8
-OPS_A_BWD_PER_CELL = 32
+OPS_A_FWD_PER_CELL = 9
+OPS_A_BWD_PER_CELL = 16
+SFU_A_PER_CELL = 1
 OPS_B_FWD_PER_QUERY = 97
 OPS_B_BWD_PER_QUERY = 185
 OPS_B_LSE_FWD_EXTRA = 4
@@ -168,6 +175,15 @@ def both_ms(fn, **graph_kwargs):
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_a(n_bytes: float, cells: int, ops_per_cell: int, clock_hz: float):
+    """Kernel A's bound: bytes, FP32 operations, or one special-function result
+    (the exp) per cell at 16 per clock per SM.  Returns (ms, by, the three times in ms)."""
+    t = dict(bytes=n_bytes / HBM_BYTES_PER_S * 1e3, fp32=cells * ops_per_cell / FP32_OPS_PER_S * 1e3,
+             sfu=cells * SFU_A_PER_CELL / (SFU_PER_CLOCK_PER_SM * H100_SMS * clock_hz) * 1e3)
+    ms = max(t.values())
+    return ms, ("bytes" if ms == t["bytes"] else "operations"), t
 
 
 def check_close(name: str, got, ref, rtol: float, atol: float) -> float:
@@ -268,29 +284,86 @@ def main() -> int:
     rows = {}
 
     # ---- phase 2: kernel A ----------------------------------------------
+    def twin_vjp(p, n_grid, g, dtype):
+        leaf = p.detach().to(dtype).clone().requires_grad_(True)
+        out = cuda_bump.bump_log_dn_plain(leaf, n_grid)
+        (out * g.to(dtype)).sum().backward()
+        return out.detach().float(), leaf.grad.float()
+
+    def kernel_a_errors(label, p, n_grid, g, twin_dtype=torch.float32):
+        """(forward, VJP) max |kernel - twin| on ``p`` (C, 5), inside phase 2's
+        limits, then the kernel's table and VJP.  The twin runs in ``twin_dtype``."""
+        leaf = p.detach().clone().requires_grad_(True)
+        out = cuda_bump.bump_log_dn(leaf, n_grid)
+        (out * g).sum().backward()
+        ref, ref_grad = twin_vjp(p, n_grid, g, twin_dtype)
+        torch.cuda.synchronize()
+        return (check_close(f"A-fwd {label}", out.detach(), ref, rtol=1e-4, atol=5e-5),
+                check_close(f"A-bwd {label}", leaf.grad, ref_grad, rtol=2e-4, atol=1e-5), out.detach(), leaf.grad)
+
+    def share_of_vjp_limit(got, ref):
+        return round(float(((got - ref).abs() / (1e-5 + 2e-4 * ref.abs())).max()), 3)
+
     g_a = torch.randn((c, N_GRID), generator=gen, device=dev)
-    res = []
-    for fn in (cuda_bump.bump_log_dn, cuda_bump.bump_log_dn_plain):
-        leaf = p5.clone().requires_grad_(True)
-        out = fn(leaf, N_GRID)
-        (out * g_a).sum().backward()
-        res.append((out.detach(), leaf.grad))
-    torch.cuda.synchronize()
-    err_af = check_close("A-fwd", res[0][0], res[1][0], rtol=1e-4, atol=5e-5)
-    err_ab = check_close("A-bwd", res[0][1], res[1][1], rtol=2e-4, atol=1e-5)
-    logdn = res[0][0]
+    err_af, err_ab, logdn, _ = kernel_a_errors(f"C={c} G={N_GRID}", p5, N_GRID, g_a)
+    # the shapes the geometry could break: one chain, grids that are no multiple of a warp, a grid of many
+    # passes, four times the chains.  Here the twin runs in float64: with a random cotangent some of the 5 C
+    # sums nearly cancel, and on such an entry the float32 twin's own rounding uses up the VJP limit (the
+    # shares of the limit are printed for C=64: kernel and float32 twin against float64, and against each other)
+    p64 = p5.repeat(4, 1)
+    p64[:, [0, 1, 4]] *= 1.0 + 0.04 * (torch.rand((4 * c, 3), generator=gen, device=dev) - 0.5)
+    p64[:, 3] += torch.rand((4 * c,), generator=gen, device=dev)
+    shape_errs = {}
+    for p, n_grid in ((p5[:1], N_GRID), (p5, 48), (p5, 100), (p5[:2], 2100), (p64, N_GRID)):
+        label = f"C={p.shape[0]} G={n_grid}"
+        g_s = torch.randn((p.shape[0], n_grid), generator=gen, device=dev)
+        e_f, e_b, _, grad_k = kernel_a_errors(label, p, n_grid, g_s, torch.float64)
+        shape_errs[label] = [float(f"{e_f:.3e}"), float(f"{e_b:.3e}")]
+    # g_s and grad_k are those of the loop's last shape, C=64
+    grad_32, grad_64 = twin_vjp(p64, N_GRID, g_s, torch.float32)[1], twin_vjp(p64, N_GRID, g_s, torch.float64)[1]
+    shares64 = {"kernel vs float64 twin": share_of_vjp_limit(grad_k, grad_64),
+                "float32 twin vs float64 twin": share_of_vjp_limit(grad_32, grad_64),
+                "kernel vs float32 twin": share_of_vjp_limit(grad_k, grad_32)}
+    # the backward's reduction runs in a fixed order: two launches agree bit for bit
+    for p, ld, g_s in ((p5, logdn, g_a), (p64, cuda_bump._bump_fwd_cuda(p64, N_GRID),
+                                          torch.randn((4 * c, N_GRID), generator=gen, device=dev))):
+        d1 = cuda_bump._bump_bwd_cuda(p, ld, g_s, N_GRID)
+        d2 = cuda_bump._bump_bwd_cuda(p, ld, g_s, N_GRID)
+        torch.cuda.synchronize()
+        if not torch.equal(d1, d2):
+            raise AssertionError(f"A-bwd C={p.shape[0]}: two launches on the same inputs differ")
     a_fwd, a_fwd_call = both_ms(lambda: cuda_bump._bump_fwd_cuda(p5, N_GRID))
     a_fwd_plain = cuda_ms(lambda: cuda_bump._bump_fwd_plain(p5, N_GRID))
     a_bwd, a_bwd_call = both_ms(lambda: cuda_bump._bump_bwd_cuda(p5, logdn, g_a, N_GRID))
     a_bwd_plain = cuda_ms(lambda: cuda_bump._bump_bwd_plain(p5, logdn, g_a, N_GRID))
+    by_chains = {c: (a_fwd, a_bwd)}
+    for p in (p5[:1], p64):
+        ld = cuda_bump._bump_fwd_cuda(p, N_GRID)
+        g_s = torch.randn((p.shape[0], N_GRID), generator=gen, device=dev)
+        by_chains[p.shape[0]] = (graph_ms(lambda: cuda_bump._bump_fwd_cuda(p, N_GRID)),
+                                 graph_ms(lambda: cuda_bump._bump_bwd_cuda(p, ld, g_s, N_GRID)))
+    # the launch floor in kernel A's geometries at the flagship size
+    geo = cuda_bump.LAUNCH_GEOMETRY
+    floor_af = graph_ms(lambda: launch_floor.launch_floor_grid(geo["blocks"], c, geo["fwd_threads"], dev))
+    floor_ab = graph_ms(lambda: launch_floor.launch_floor_cluster(c, geo["bwd_threads"], dev))
     cells = c * N_GRID * N_GRID
-    rows["bump_fwd"] = dict(ms=a_fwd, call_ms=a_fwd_call, plain_ms=a_fwd_plain, max_abs_err=err_af,
-                            bound=bound_ms(c * 5 * 4 + c * N_GRID * 4, cells * OPS_A_FWD_PER_CELL))
-    rows["bump_bwd"] = dict(ms=a_bwd, call_ms=a_bwd_call, plain_ms=a_bwd_plain, max_abs_err=err_ab,
-                            bound=bound_ms(c * 5 * 4 * 2 + 2 * c * N_GRID * 4, cells * OPS_A_BWD_PER_CELL))
+    clock = max_sm_clock_hz()
+    bound_af = bound_a(c * 5 * 4 + c * N_GRID * 4, cells, OPS_A_FWD_PER_CELL, clock)
+    bound_ab = bound_a(c * 5 * 4 * 2 + 2 * c * N_GRID * 4, cells, OPS_A_BWD_PER_CELL, clock)
+    rows["bump_fwd"] = dict(ms=a_fwd, call_ms=a_fwd_call, plain_ms=a_fwd_plain, max_abs_err=err_af, bound=bound_af[:2])
+    rows["bump_bwd"] = dict(ms=a_bwd, call_ms=a_bwd_call, plain_ms=a_bwd_plain, max_abs_err=err_ab, bound=bound_ab[:2])
     log(f"{tag} phase 2 kernel A (C={c}, G={N_GRID}): forward max|err| {err_af:.3e}, "
         f"VJP max|err| {err_ab:.3e}; fwd device {a_fwd:.5f} ms, call {a_fwd_call:.4f} ms (plain {a_fwd_plain:.4f}), "
-        f"bwd device {a_bwd:.5f} ms, call {a_bwd_call:.4f} ms (plain {a_bwd_plain:.4f})")
+        f"bwd device {a_bwd:.5f} ms, call {a_bwd_call:.4f} ms (plain {a_bwd_plain:.4f}); launch floor in its "
+        f"geometries: forward grid ({geo['blocks']}, {c}) x {geo['fwd_threads']} threads {floor_af:.5f} ms, backward {c} "
+        f"clusters of 8 blocks x {geo['bwd_threads']} threads {floor_ab:.5f} ms")
+    log(f"{tag} phase 2 kernel A by shape: [forward, VJP] max|err| against the twin in float64, inside the same limits "
+        f"{json.dumps(shape_errs)}; largest share of the VJP limit at C={4 * c}: {json.dumps(shares64)}; "
+        f"two backward launches bit-identical at C={c} and C={4 * c}; device ms at G={N_GRID} [fwd, bwd]: "
+        + json.dumps({f"C={k}": [round(f, 6), round(b, 6)] for k, (f, b) in sorted(by_chains.items())}))
+    log(f"{tag} phase 2 kernel A bounds at {clock / 1e6:.0f} MHz x {H100_SMS} SMs (ms; bytes, FP32 operations, "
+        f"special-function unit): forward {json.dumps({k: round(v, 7) for k, v in bound_af[2].items()})}, "
+        f"backward {json.dumps({k: round(v, 7) for k, v in bound_ab[2].items()})}")
     phase_done("2_kernel_a")
 
     # ---- phase 3: kernel B at full size ---------------------------------

@@ -22,21 +22,27 @@ def dev():
     return torch.device("cuda")
 
 
-def test_bump_kernel_matches_plain(dev):
+@pytest.mark.parametrize("c,n_grid", [(8, 256), (1, 256), (3, 48), (5, 100), (2, 600), (2, 2100)])
+def test_bump_kernel_matches_plain(dev, c, n_grid):
+    """One chain, grids that are no multiple of a warp, and grids of several
+    passes of 256 columns (the last with more than 32 rows a warp), beside the
+    full shape; two backward launches on the same inputs agree bit for bit."""
     rng = np.random.default_rng(0)
-    mpisn = 31.0 + rng.normal(size=8)
-    p = np.stack([1.8 + 0.3 * rng.normal(size=8), -0.7 + 0.3 * rng.normal(size=8), mpisn,
-                  mpisn + rng.uniform(2, 8, 8), rng.uniform(1.5, 3.5, 8)], 1).astype(np.float32)
-    g = torch.as_tensor(rng.normal(size=(8, 256)).astype(np.float32), device=dev)
+    mpisn = 31.0 + rng.normal(size=c)
+    p = np.stack([1.8 + 0.3 * rng.normal(size=c), -0.7 + 0.3 * rng.normal(size=c), mpisn,
+                  mpisn + rng.uniform(2, 8, c), rng.uniform(1.5, 3.5, c)], 1).astype(np.float32)
+    g = torch.as_tensor(rng.normal(size=(c, n_grid)).astype(np.float32), device=dev)
     outs = []
     for fn in (cuda_bump.bump_log_dn, cuda_bump.bump_log_dn_plain):
         t = torch.tensor(p, device=dev, requires_grad=True)
-        out = fn(t, 256)
+        out = fn(t, n_grid)
         (out * g).sum().backward()
         outs.append((out.detach(), t.grad))
+    again = cuda_bump._bump_bwd_cuda(torch.tensor(p, device=dev), outs[0][0], g, n_grid)
     torch.cuda.synchronize()
     torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4, atol=5e-5)
     torch.testing.assert_close(outs[0][1], outs[1][1], rtol=2e-4, atol=1e-5)
+    assert torch.equal(again, outs[0][1])
 
 
 def _logwts_inputs(rng, dev, c, k, gl, n):

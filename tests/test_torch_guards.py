@@ -4,6 +4,9 @@
 * No file of the port, and not ``chip_smoke.py``, names either package.
 * Entry points given ``device=None`` (meaning CUDA) raise on a host without
   CUDA instead of carrying on on the CPU.
+* A kernel wrapper given a CUDA tensor raises on what the kernel does not take
+  and never takes the plain twin.
+* The ctypes signatures agree with the ``extern "C"`` declarations they bind.
 """
 import json
 import pathlib
@@ -182,3 +185,102 @@ def test_logwts_lse_rejects_other_devices():
     args, nobs, nsamp = _lse_args()
     with pytest.raises(ValueError, match="unsupported device"):
         logwts_lse(*(t.to("meta") for t in args), nobs, nsamp)
+
+
+@pytest.fixture
+def bump_twin_calls(monkeypatch):
+    from bumpcosmology_torch.ops import cuda_bump
+
+    calls = []
+
+    def reached(*args, **kwargs):
+        calls.append(args)
+        raise AssertionError("the plain twin was reached for a CUDA tensor")
+
+    monkeypatch.setattr(cuda_bump, "_bump_fwd_plain", reached)
+    return calls
+
+
+@pytest.mark.parametrize("fault", ["float64", "shape", "no_chain"])
+def test_bump_log_dn_raises_on_bad_cuda_params(bump_twin_calls, fault):
+    from bumpcosmology_torch.ops.cuda_bump import bump_log_dn
+
+    params = {"float64": torch.ones(3, 5, dtype=torch.float64), "shape": torch.ones(3, 4),
+              "no_chain": torch.ones(0, 5)}[fault]
+    with pytest.raises(ValueError, match="params"):
+        bump_log_dn(_OnCuda(params), 48)
+    assert not bump_twin_calls
+
+
+@pytest.mark.parametrize("n_grid", [1, 8193])
+def test_bump_log_dn_raises_on_a_grid_the_kernel_cannot_take(bump_twin_calls, n_grid):
+    from bumpcosmology_torch.ops.cuda_bump import bump_log_dn
+
+    with pytest.raises(ValueError, match="n_grid"):
+        bump_log_dn(_OnCuda(torch.ones(3, 5)), n_grid)
+    assert not bump_twin_calls
+
+
+def test_bump_log_dn_never_takes_the_plain_twin_for_a_cuda_tensor(bump_twin_calls):
+    """Well-formed CUDA-typed ``params`` go on to the launch (which this host
+    cannot make, so it raises); the plain twin is not a fallback."""
+    from bumpcosmology_torch.ops.cuda_bump import LAUNCHES, bump_log_dn
+
+    before = dict(LAUNCHES)
+    with pytest.raises(Exception) as err:
+        bump_log_dn(_OnCuda(torch.ones(3, 5)), 48)
+    assert not isinstance(err.value, ValueError), err.value
+    assert not bump_twin_calls and LAUNCHES == before
+
+
+def test_bump_log_dn_rejects_other_devices():
+    from bumpcosmology_torch.ops.cuda_bump import bump_log_dn
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        bump_log_dn(torch.ones(3, 5, device="meta"), 48)
+
+
+def _extern_c_declarations(source: str):
+    """{function: [ctypes type per argument]} of the ``extern "C" int f(...)``
+    definitions of a CUDA source: a pointer is ``c_void_p``, an ``int`` is ``c_int``."""
+    import ctypes
+
+    out = {}
+    for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source):
+        kinds = []
+        for arg in (a.strip() for a in args.split(",")):
+            if "*" in arg:
+                kinds.append(ctypes.c_void_p)
+            else:
+                assert re.fullmatch(r"int \w+", arg), f"{name}: argument {arg!r} is neither a pointer nor an int"
+                kinds.append(ctypes.c_int)
+        out[name] = kinds
+    return out
+
+
+@pytest.mark.parametrize("source,module", [("bump", "ops.cuda_bump"), ("logwts", "ops.cuda_logwts"),
+                                           ("floor", "ops.launch_floor")])
+def test_ctypes_signatures_match_the_extern_c_declarations(source, module):
+    """A mismatch cuts a pointer to 32 bits or shifts every argument after
+    it, without any error; only the source can show it on a host without nvcc."""
+    import ctypes
+    import importlib
+
+    declared = _extern_c_declarations((PORT / "csrc" / f"{source}.cu").read_text())
+    bound = importlib.import_module(f"bumpcosmology_torch.{module}")._SIGNATURES
+    assert set(bound) == set(declared)
+    for name, (argtypes, restype) in bound.items():
+        assert list(argtypes) == declared[name], name
+        assert restype is ctypes.c_int
+
+
+def test_bump_launch_geometry_matches_the_source():
+    """``LAUNCH_GEOMETRY`` (what the on-card check times the launch floor in)
+    and the wrapper's limits repeat constants of ``csrc/bump.cu``."""
+    from bumpcosmology_torch.ops import cuda_bump
+
+    text = (PORT / "csrc" / "bump.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    assert cuda_bump.LAUNCH_GEOMETRY == {"blocks": const["BLOCKS"], "fwd_threads": 32 * const["WARPS_FWD"],
+                                         "bwd_threads": 32 * const["WARPS_BWD"]}
+    assert cuda_bump._MAX_GRID == const["MAX_G"]

@@ -23,6 +23,7 @@ from bumpcosmology_tpu.models.mass import build_mass_function as jbuild_mass
 from bumpcosmology_tpu.models.mass import log_dndm as jlog_dndm
 from bumpcosmology_tpu.models.mass import pisn_bump_log_dndm_grid, set_bump_kernel
 from bumpcosmology_tpu.models.parameters import DEFAULT_POPULATION, CosmoParams
+from bumpcosmology_tpu.ops.pallas_bump import bump_log_dn_pallas
 from bumpcosmology_torch import convert
 from bumpcosmology_torch.models import cosmology as tcos
 from bumpcosmology_torch.models import population as tpop
@@ -72,6 +73,28 @@ def test_bump_plain_vjp_matches_autodiff():
         for k, name in enumerate(PARAM_NAMES):
             np.testing.assert_allclose(float(t.grad[c, k]), float(gr[k]), rtol=2e-4, atol=1e-5,
                                        err_msg=f"chain {c}: grad wrt {name}")
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("n_grid", [48, 100])
+def test_bump_plain_ragged_shapes_match_jax(n_grid, c):
+    """Grids that are no multiple of a warp, one chain and three: the twin's
+    values against the jnp route and the Pallas kernel (interpret mode), its
+    VJP against JAX autodiff of the jnp route, at the kernel's tolerances."""
+    p = _draws(c, seed=11 + n_grid)
+    g = np.random.default_rng(n_grid).normal(size=(c, n_grid)).astype(np.float32)
+    t = torch.tensor(p, requires_grad=True)
+    out = bump_log_dn(t, n_grid)  # CPU tensor -> plain twin
+    assert out.shape == (c, n_grid)
+    (out * torch.as_tensor(g)).sum().backward()
+    for k in range(c):
+        xs = tuple(jnp.float32(v) for v in p[k])
+        for ref in (_jax_bump(*xs, n_grid), bump_log_dn_pallas(*xs, n_grid, True)):
+            np.testing.assert_allclose(out.detach().numpy()[k], np.asarray(ref), rtol=1e-4, atol=5e-5)
+        gr = jax.grad(lambda *a: jnp.vdot(g[k], _jax_bump(*a, n_grid)), argnums=(0, 1, 2, 3, 4))(*xs)
+        for j, name in enumerate(PARAM_NAMES):
+            np.testing.assert_allclose(float(t.grad[k, j]), float(gr[j]), rtol=2e-4, atol=1e-5,
+                                       err_msg=f"chain {k}: grad wrt {name}")
 
 
 def _mass_draws():
