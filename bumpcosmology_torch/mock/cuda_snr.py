@@ -10,8 +10,19 @@ log-uniform grid ``f_k = exp(log f_min + k dlog)`` and the trapezoid rule's
 closed-form weights on that grid.  Only the ``(N,)`` integrals are returned;
 there is no gradient (the campaign is simulation, not inference).
 
-The CUDA kernel is ``csrc/snr.cu``; beside it here is its plain PyTorch twin,
-which materializes the ``(chunk, n_f)`` integrand a chunk of rows at a time.
+The CUDA kernel is ``csrc/snr.cu``.  It sums each row's three segments
+(inspiral, merger, ringdown) from float64 prefix tables over the grid and
+loops only over the ringdown's few points; its header has the algebra.
+Beside it here are two plain PyTorch renderings:
+
+* :func:`snr_integral_plain`, the twin: the Pallas body as tensor code, which
+  materializes the ``(chunk, n_f)`` integrand a chunk of rows at a time.  The
+  kernel is held to it on the card, and CPU tensors take it.
+* :func:`_snr_integral_segments_plain`: the kernel's segment algebra (float64
+  tables, float32 row scalars, the same counts on the stored grid).  No entry
+  point calls it; the CPU tests hold it to the JAX package, so that the
+  algebra the kernel runs is proved where the kernel cannot run.
+
 :func:`snr_integral` dispatches on the device of its inputs: a CPU tensor
 takes the twin, a CUDA tensor launches the kernel or raises.  Kernel and twin
 take their grid from :func:`log_grid`, so they cut at ``f >= f_cut`` on the
@@ -93,8 +104,81 @@ def snr_integral_plain(m1_det, m2_det, dl_gpc, inv_psd, f_min: float = 10.0, f_m
     return out
 
 
+def _count_below(f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``#{k : f_k < x}`` for each ``x`` on the stored grid ``f``, found as the
+    kernel finds it: a guess from the log-uniform spacing, then moved until
+    ``f_{k-1} < x <= f_k`` (int64, the shape of ``x``; NaN counts 0)."""
+    n_f = f.shape[0]
+    log_f0 = torch.log(f[0])
+    guess = torch.ceil((torch.log(x) - log_f0) * ((n_f - 1) / (torch.log(f[-1]) - log_f0)))
+    k = guess.nan_to_num(nan=0.0).clamp(0, n_f).long()
+    inf = f.new_full((1,), math.inf)
+    f_pad = torch.cat([-inf, f, inf])  # f_pad[k] = f_{k-1}
+    while bool((down := f_pad[k] >= x).any()):
+        k = k - down.long()
+    while bool((up := f_pad[k + 1] < x).any()):
+        k = k + up.long()
+    return k
+
+
+def _snr_integral_segments_plain(m1_det, m2_det, dl_gpc, inv_psd, f_min: float = 10.0, f_max: float = 2048.0,
+                                 n_f: int = 512, amp_scale: float = AMP_SCALE):
+    """The kernel's segment algebra (``csrc/snr.cu``) in plain PyTorch:
+
+        out = a^2 (Gi[n1] + (Gm[n2] - Gm[n1] + f_ring^(-4/3) sum_{n2<=k<n3} L_k^2 g_k) / f_merg)
+
+    with float64 prefix tables Gi, Gm of ``f^(-7/3) g`` and ``f^(-4/3) g``
+    (``g_k = w_k inv_psd_k``), the row scalars in float32 and the counts of
+    :func:`_count_below` on the grid of :func:`log_grid`.  ``a^2`` and the
+    ringdown's factors are formed as the kernel forms them."""
+    f = log_grid(f_min, f_max, n_f, m1_det.device)
+    c = torch.full((n_f,), trapezoid_coefficients(f_min, f_max, n_f)[1], dtype=torch.float32)
+    c[0], c[-1] = trapezoid_coefficients(f_min, f_max, n_f)[::2]  # the kernel takes the weights as floats
+    g = c.to(f.device, torch.float64) * f.double() * inv_psd.to(torch.float32).double()
+    log_f = torch.log(f.double())
+    zero = g.new_zeros(1)
+    g_insp = torch.cat([zero, torch.cumsum(torch.exp(-7.0 / 3.0 * log_f) * g, 0)])
+    g_merg = torch.cat([zero, torch.cumsum(torch.exp(-4.0 / 3.0 * log_f) * g, 0)])
+
+    f_merg, f_ring, sigma, f_cut = row_scalars(m1_det, m2_det)
+    n3 = _count_below(f, f_cut)
+    n1 = torch.minimum(_count_below(f, f_merg), n3)
+    n2 = torch.maximum(torch.minimum(_count_below(f, f_ring), n3), n1)
+
+    span = int((n3 - n2).max()) if n3.numel() else 0  # the longest ringdown
+    idx = n2[:, None] + torch.arange(span, device=f.device)
+    live = idx < n3[:, None]
+    idx = idx.clamp(max=n_f - 1)
+    hw2 = (0.5 * sigma) ** 2
+    d = f[idx] - f_ring[:, None]
+    r = 1.0 / (d * d + hw2[:, None])
+    ring = torch.where(live, r * r * g.float()[idx], 0.0).sum(1)  # sum of L_k^2 g_k / hw^4
+
+    # a^2 = A2_UNIT amp_scale^2 m1 m2 M^(-1/3) / dl^2; the ringdown's factor f_ring^(-4/3) hw^4
+    amp = torch.tensor(amp_scale, dtype=torch.float32).double()  # the kernel takes it as a float
+    a2 = (_A2_UNIT * amp * amp * m1_det.double() * m2_det.double() * ((m1_det + m2_det) ** (-1.0 / 3.0)).double()
+          * (1.0 / (dl_gpc * dl_gpc)).double())
+    r_ring2 = (f_ring ** (-1.0 / 3.0)) ** 2
+    ring_scale = r_ring2.double() ** 2 * hw2.double() ** 2
+    merg_ring = g_merg[n2] - g_merg[n1] + ring_scale * ring.double()
+    return (a2 * (g_insp[n1] + (1.0 / f_merg).double() * merg_ring)).float()
+
+
+# A_N^2 = _A2_UNIT m1 m2 M^(-1/3) / dl^2 (Msun, Gpc): Mc^(5/3) = m1 m2 M^(-1/3)
+_A2_UNIT = 5.0 / 24.0 * math.pi ** (-4.0 / 3.0) * MSUN_S ** (5.0 / 3.0) * (C_SI / GPC_M) ** 2
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"snr_integral": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P], _I)}
+_SIGNATURES = {"snr_integral": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P], _I)}
+_GRIDS: dict = {}
+
+
+def _grid(f_min: float, f_max: float, n_f: int, device) -> torch.Tensor:
+    """:func:`log_grid`, built once per (f_min, f_max, n_f, device) and kept."""
+    key = (float(f_min), float(f_max), int(n_f), torch.device(device))
+    f = _GRIDS.get(key)
+    if f is None:
+        f = _GRIDS[key] = log_grid(f_min, f_max, n_f, device)
+    return f
 
 
 def _snr_integral_cuda(m1_det, m2_det, dl_gpc, inv_psd, f_min, f_max, n_f, amp_scale):
@@ -105,10 +189,11 @@ def _snr_integral_cuda(m1_det, m2_det, dl_gpc, inv_psd, f_min, f_max, n_f, amp_s
     out = torch.empty(n, dtype=torch.float32, device=m1_det.device)
     if n == 0:
         return out
-    f = log_grid(f_min, f_max, n_f, m1_det.device)
+    f = _grid(f_min, f_max, n_f, m1_det.device)
+    tables = torch.empty(2 * (n_f + 1), dtype=torch.float64, device=m1_det.device)  # (Gi, Gm) per knot
     lib = load_kernel("snr", _SIGNATURES)
     rc = lib.snr_integral(m1_det.data_ptr(), m2_det.data_ptr(), dl_gpc.data_ptr(), f.data_ptr(),
-                          inv_psd.data_ptr(), out.data_ptr(), n, n_f,
+                          inv_psd.data_ptr(), tables.data_ptr(), out.data_ptr(), n, n_f,
                           *trapezoid_coefficients(f_min, f_max, n_f), amp_scale, cuda_stream(m1_det))
     raise_on(rc, "snr_integral")
     LAUNCHES["snr_integral"] += 1

@@ -1,10 +1,10 @@
-"""Time kernel A or kernel B of another checkout on the same card, beside this one's.
+"""Time kernel A, B or C of another checkout on the same card, beside this one's.
 
-    python3 bumpcosmology_torch/tools/kernel_times.py --kernel a|b [--root DIR]
+    python3 bumpcosmology_torch/tools/kernel_times.py --kernel a|b|c [--root DIR]
 
 (run by path, not with ``-m``: the package it times is the one under ``--root``).
 
-``chip_smoke.py`` phases 2 and 3 give the kernels' device times for the checkout
+``chip_smoke.py`` phases 2, 3 and 6 give the kernels' device times for the checkout
 it lies in.  This tool gives the same figures for any checkout of the
 repository, so that two commits are compared within one job on one card.  It
 builds the kernel's source under ``--root`` (default: this checkout), launches
@@ -20,6 +20,11 @@ power limit.  Needs one NVIDIA GPU and nvcc.
 * ``--kernel b``: ``csrc/logwts.cu`` at C = 16, N = 38,912, K = 1024, G = 256, the
   ``rows`` kernels and, where the checkout has them, the ``lse`` kernels (phase
   3's limits).
+* ``--kernel c``: ``csrc/snr.cu`` on the rows of phase 6's 10^7-draw campaign
+  (``chip_smoke.run_campaign``, about 7 s of host draws a run), phase 6's
+  limits (rtol 2e-5 / atol 1e-6, the same exact zeros) and timers (5 calls in
+  one replayed graph), and the device time of each launch of a call
+  (``device_ms_by_launch``, from a ``torch.profiler`` trace of 5 eager calls).
 
 To compare a commit with its parent, from the root of the checkout (``_archive/``
 is git-ignored):
@@ -126,10 +131,56 @@ def kernel_b_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
     return kernels, dict(C=c, N=n, K=n_z, G=n_grid)
 
 
+def kernel_c_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: int):
+    """({kernel: row}, shape) of ``csrc/snr.cu`` under ``root``, on the campaign's rows."""
+    import torch
+
+    from bumpcosmology_torch.mock import cuda_snr as kc
+    from bumpcosmology_torch.mock import psd, snr
+    from chip_smoke import PLAIN_CHUNK, run_campaign
+
+    _, (m1, m2, dl), _ = run_campaign(torch.device("cuda"))
+    f_grid = snr.frequency_grid(device=m1.device)
+    inv_psd = 1.0 / psd.PSDS["H1"](f_grid)
+    grid = dict(f_min=float(f_grid[0]), f_max=float(f_grid[-1]), n_f=f_grid.shape[0], amp_scale=kc.AMP_SCALE)
+    fn = lambda: kc._snr_integral_cuda(m1, m2, dl, inv_psd, **grid)  # noqa: E731
+    got, ref = fn(), kc.snr_integral_plain(m1, m2, dl, inv_psd, **grid, chunk=PLAIN_CHUNK)
+    torch.cuda.synchronize()
+    check_close("C exact zeros", (got == 0).float(), (ref == 0).float(), 0.0, 0.0)  # the same zeros
+    timed = row(fn, check_close("C", got, ref, 2e-5, 1e-6), launches=5, replays=2)
+    timed["device_ms_by_launch"] = device_ms_by_launch(fn)
+    return {"snr_integral": timed}, dict(N=m1.shape[0], n_f=grid["n_f"])
+
+
+def device_ms_by_launch(fn, calls: int = 5):
+    """{kernel name: mean device ms a call} of the launches of ``fn()``, from a
+    ``torch.profiler`` trace of ``calls`` eager calls."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"\(anonymous namespace\)::|^void ", "", e.name).split("(")[0][:60]
+            by[name] = by.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
+    return by
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("a", "b"), required=True)
+    ap.add_argument("--kernel", choices=("a", "b", "c"), required=True)
     ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--no-check", action="store_true",
+                    help="report max_abs_err without holding it to the limits: for timing a copy with a part of "
+                         "the kernel removed on purpose, to see what that part costs")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
 
@@ -143,14 +194,19 @@ def main(argv=None) -> int:
 
     sys.path.insert(0, str(root))  # the package under --root
 
-    def row(fn, err):
-        ms, call_ms = both_ms(fn)
+    def row(fn, err, **graph_kwargs):
+        ms, call_ms = both_ms(fn, **graph_kwargs)
         return dict(ms=ms, call_ms=call_ms, max_abs_err=err)
 
-    times = kernel_a_times if args.kernel == "a" else kernel_b_times
+    if args.no_check:
+        def check_close(name, got, ref, rtol, atol):  # noqa: F811
+            return float((got - ref).abs().max())
+
+    times = {"a": kernel_a_times, "b": kernel_b_times, "c": kernel_c_times}[args.kernel]
     kernels, shape = times(root, row, check_close, N_GRID, N_Z, SEED)
     torch.cuda.synchronize()
-    print(json.dumps(dict(root=str(root), kernel=args.kernel, card=card_line(), shape=shape, kernels=kernels)))
+    print(json.dumps(dict(root=str(root), kernel=args.kernel, card=card_line(), shape=shape, kernels=kernels,
+                          checked=not args.no_check)))
     return 0
 
 

@@ -41,14 +41,21 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
    and ``draw_one_year_catalog(nsamp=128)``, with every launch count set to 0
    just before and read just after (kernel C and kernel A's forward must have
    launched); then kernel C against its plain twin on exactly the rows the
-   campaign computed: rtol 2e-5 / atol 1e-6, the same exact zeros.
+   campaign computed, and on some 3,000 rows whose f_merg, f_ring or f_cut
+   sits on a stored knot of the grid or one ulp beside it: rtol 2e-5 / atol
+   1e-6, the same exact zeros.  Kernel and twin are also measured (not held)
+   against the same sum in float64 on the campaign's rows.  C's bound is the
+   least work of its function on the campaign's rows (bytes, FP32 operations,
+   special-function results; the constants' comment has the tally).
 
 Every kernel is timed twice: ``ms`` is its device time (20 launches captured
 in one CUDA graph and replayed, so the host's queueing rate is out of the
 figure), ``call_ms`` the time of one call of its Python wrapper as the main
 path pays it (CUDA events around 20 eager calls).
 
-Any failure raises and exits non-zero.  The last two lines of stdout are
+Every kernel's device time must lie above its bound (the least time the
+card could take for the same work), or the bound is miscounted.  Any failure
+raises and exits non-zero.  The last two lines of stdout are
 the ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; the line
 before them is the card's name and power limit from nvidia-smi.  Exits
 non-zero, printing no result, when CUDA is absent or the package is not
@@ -57,6 +64,7 @@ beside this script.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -96,18 +104,22 @@ OPS_B_LSE_FWD_EXTRA = 4
 OPS_B_LSE_BWD_EXTRA = 3
 GRAPH_LAUNCHES = 20
 
-# Kernel C (csrc/snr.cu) does data-dependent work: a row's loop ends at the
-# first grid point at or above f_cut, and each live point runs one branch.
-# FP32 operations per live point (compares, the ratio, powf or the Lorentzian,
-# amp, amp^2 w inv_psd, the sum): inspiral 8, merger 9, ringdown 12; per row
-# 60 (masses, 4 transition frequencies, 5 powf, the amplitude, the final
-# compare); per block and grid point 3 (staging f_k and w_k inv_psd_k).
-# Special-function results (MUFU: powf needs at least one ex2, an IEEE
-# division one rcp): 2 per inspiral/merger point (powf, division), 1 per
-# ringdown point (division), 10 per row; the SFU issues 16 results per clock
-# per SM.
-OPS_C_INSP, OPS_C_MERG, OPS_C_RING, OPS_C_ROW, OPS_C_STAGE = 8, 9, 12, 60, 3
-SFU_C_POWER_POINT, SFU_C_RING_POINT, SFU_C_ROW = 2, 1, 10
+# Kernel C's bound is the least work of its function on the campaign's own
+# rows, whatever implements it.  Bytes: m1, m2, dl in and the integral out (16
+# a row), the grid and inv_psd once.  A row needs, in FP32 operations: M, eta
+# and M_s (5); the four transition frequencies, (a eta + b) eta + c times one
+# shared reciprocal of pi M_s (3 each, and pi M_s: 13); a^2, which is a
+# constant times m1 m2 M^(-1/3) / dl^2 (4); three counts on the sorted grid,
+# each a binary search of 9 compare-and-select steps (54); the sum of the
+# three segments' terms from the prefix tables (6) -> 82.  Special-function
+# results (MUFU, 16 per clock per SM): the reciprocals of pi M_s, M^2, dl and
+# f_merg (4) and the powers M^(-1/3) and f_ring^(-4/3) (a log2 and an exp2
+# each: 4) -> 8 a row; a binary search needs none.  Inspiral and merger
+# points add nothing (their sums come from the two prefix tables, built once
+# per call over n_f points).  A live ringdown point needs the Lorentzian: d,
+# d^2 + hw^2, hw^2 times the reciprocal, its square times g_k into the sum (5
+# operations) and one reciprocal.
+OPS_C_ROW, SFU_C_ROW, OPS_C_RING_POINT, SFU_C_RING_POINT = 82, 8, 5, 1
 SFU_PER_CLOCK_PER_SM, H100_SMS = 16, 132
 MOCK_NDRAW = 10_000_000
 MOCK_SEED = 333_165_393
@@ -549,6 +561,9 @@ def main() -> int:
     kernels = []
     for name, row in rows.items():
         b_ms, b_by = row["bound"]
+        if row["ms"] < b_ms:
+            raise AssertionError(f"{name}: {row['ms']:.6f} ms on the device is below its bound {b_ms:.6f} ms, "
+                                 "so the bound does not count the least work")
         status = "ok: built, matches its plain twin, launched on the main path"
         if name == "logwts_bwd":
             status = ("ok: built, matches its plain twin; launched in the phase-3 comparison only "
@@ -609,40 +624,41 @@ def max_sm_clock_hz() -> float:
     return float(out.strip().splitlines()[0]) * 1e6
 
 
-def snr_work(m1, m2, f_grid):
-    """(FP32 operations, special-function results) that kernel C does on these
-    rows, counted per live point and branch as the kernel runs them."""
+def snr_work(m1, m2, f_grid, clock_hz: float):
+    """Kernel C's least work on these rows: (bound ms, bound by, {bytes, fp32,
+    sfu} in ms, live points by segment)."""
     import torch
 
     from bumpcosmology_torch.mock import cuda_snr
 
     f_merg, f_ring, _, f_cut = cuda_snr.row_scalars(m1, m2)
-    n_f = f_grid.shape[0]
     below = lambda x: torch.searchsorted(f_grid, x.contiguous())  # noqa: E731  (number of f_k < x)
     n_cut = below(f_cut)
     n_insp = torch.minimum(below(f_merg), n_cut)
     n_pre_ring = torch.minimum(below(f_ring), n_cut)
-    insp, merg, ring = (int(x.sum()) for x in (n_insp, n_pre_ring - n_insp, n_cut - n_pre_ring))
-    n, blocks = m1.shape[0], -(-m1.shape[0] // 256)
-    ops = (insp * OPS_C_INSP + merg * OPS_C_MERG + ring * OPS_C_RING + n * OPS_C_ROW
-           + blocks * n_f * OPS_C_STAGE)
-    sfu = (insp + merg) * SFU_C_POWER_POINT + ring * SFU_C_RING_POINT + n * SFU_C_ROW
-    return ops, sfu, dict(inspiral=insp, merger=merg, ringdown=ring, all=n * n_f)
+    points = {k: int(x.sum()) for k, x in (("inspiral", n_insp), ("merger", n_pre_ring - n_insp),
+                                           ("ringdown", n_cut - n_pre_ring))}
+    n, n_f = m1.shape[0], f_grid.shape[0]
+    sfu_per_ms = SFU_PER_CLOCK_PER_SM * H100_SMS * clock_hz / 1e3
+
+    t = dict(bytes=(n * 16 + 2 * n_f * 4) / HBM_BYTES_PER_S * 1e3,
+             fp32=(n * OPS_C_ROW + points["ringdown"] * OPS_C_RING_POINT) / FP32_OPS_PER_S * 1e3,
+             sfu=(n * SFU_C_ROW + points["ringdown"] * SFU_C_RING_POINT) / sfu_per_ms)
+    ms = max(t.values())
+    return ms, ("bytes" if ms == t["bytes"] else "operations"), t, points
 
 
-def mock_campaign_phase(dev, tag: str):
-    """Phase 6: the 10^7-draw injection campaign and the catalog after it,
-    through the port's entry points, then kernel C against its plain twin on
-    the campaign's own SNR rows.  Returns (kernel row, launch counts)."""
-    import numpy as np
+def run_campaign(dev):
+    """``draw_injection_campaign`` at the reference's size (``MOCK_NDRAW``
+    draws from ``MOCK_SEED``) with the SNRs on the card.  Returns (injection
+    table, the (m1, m2, dl) rows that kernel C computed, the host-clock split
+    in s).  ``tools/kernel_times.py --kernel c`` times C on the same rows."""
     import torch
 
-    from bumpcosmology_torch.mock import catalog, cuda_snr, psd, snr
-    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+    from bumpcosmology_torch.mock import catalog, snr
 
-    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_snr.LAUNCHES)
-    # host-clock split of the campaign: wrap the two SNR calls to mark when the
-    # host draws end, when the rows are on the card, when the SNRs are done
+    # wrap the two SNR calls to mark when the host draws end, when the rows
+    # are on the card, when the SNRs are done
     marks, seen = {}, {}
     batched, network = catalog.network_snr_batched, snr.network_snr
 
@@ -661,31 +677,104 @@ def mock_campaign_phase(dev, tag: str):
         seen["rows"] = (m1, m2, dl)
         return out
 
-    for cnt in counters:
-        for k in cnt:
-            cnt[k] = 0
     catalog.network_snr_batched, snr.network_snr = timed_batched, timed_network
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         inj = catalog.draw_injection_campaign(ndraw=MOCK_NDRAW, seed=MOCK_SEED, device=dev)
-        t_campaign = time.perf_counter()
-        summary = catalog.campaign_summary(inj, device=dev)
-        obs = catalog.add_observation_noise(inj)
-        t_obs = time.perf_counter()
-        cat = catalog.draw_one_year_catalog(len(inj["m1"]), obs, nsamp=MOCK_NSAMP, device=dev)
-        torch.cuda.synchronize()
-        t_cat = time.perf_counter()
+        t_end = time.perf_counter()
     finally:
         catalog.network_snr_batched, snr.network_snr = batched, network
-    launches = {k: v for cnt in counters for k, v in cnt.items()}
-
-    m1, m2, dl = seen["rows"]
-    n = m1.shape[0]
     split = dict(host_draws=marks["batched_in"] - t0, host_to_device=marks["network_in"] - marks["batched_in"],
                  device_snr=marks["network_out"] - marks["network_in"],
                  device_to_host=marks["batched_out"] - marks["network_out"],
-                 host_assembly=t_campaign - marks["batched_out"])
+                 host_assembly=t_end - marks["batched_out"])
+    return inj, seen["rows"], split
+
+
+def snr_against_twin(label: str, m1, m2, dl, inv_psd, grid):
+    """(max |kernel - twin|, exact zeros, kernel, twin) of kernel C on these
+    rows, inside rtol 2e-5 / atol 1e-6 with the same exact zeros, or raise."""
+    import torch
+
+    from bumpcosmology_torch.mock import cuda_snr
+
+    got = cuda_snr._snr_integral_cuda(m1, m2, dl, inv_psd, **grid)
+    ref = cuda_snr.snr_integral_plain(m1, m2, dl, inv_psd, **grid, chunk=PLAIN_CHUNK)
+    torch.cuda.synchronize()
+    if not torch.equal(got == 0, ref == 0):
+        raise AssertionError(f"{label}: the exact zeros (f_cut at or below f_min) differ between kernel and twin")
+    return check_close(label, got, ref, rtol=2e-5, atol=1e-6), int((ref == 0).sum()), got, ref
+
+
+def snr_float64(m1, m2, dl, inv_psd, grid):
+    """Kernel C's function with every operation in float64, on the stored
+    float32 grid and with the float32 row scalars that kernel and twin cut at
+    (``cuda_snr.row_scalars``): the sum that both are measured against."""
+    import torch
+
+    from bumpcosmology_torch.mock import cuda_snr
+    from bumpcosmology_torch.mock.waveform import C_SI, GPC_M, MSUN_S
+
+    f_min, f_max, n_f = grid["f_min"], grid["f_max"], grid["n_f"]
+    f = cuda_snr.log_grid(f_min, f_max, n_f, m1.device).double()
+    c_first, c_mid, c_last = cuda_snr.trapezoid_coefficients(f_min, f_max, n_f)
+    w = c_mid * f
+    w[0], w[-1] = c_first * f[0], c_last * f[-1]
+    g = w * inv_psd.double()
+    out = torch.empty(m1.shape[0], dtype=torch.float64, device=m1.device)
+    for lo in range(0, m1.shape[0], PLAIN_CHUNK):
+        sl = slice(lo, lo + PLAIN_CHUNK)
+        f_merg, f_ring, sigma, f_cut = (x.double()[:, None] for x in cuda_snr.row_scalars(m1[sl], m2[sl]))
+        a, b = m1[sl].double(), m2[sl].double()
+        mc_s = (a * b) ** 0.6 / (a + b) ** 0.2 * MSUN_S
+        a_newt = (math.sqrt(5.0 / 24.0) * math.pi ** (-2.0 / 3.0) * mc_s ** (5.0 / 6.0)
+                  * (C_SI / (dl[sl].double() * GPC_M)) * grid["amp_scale"])[:, None]
+        hw2 = (0.5 * sigma) ** 2
+        ring = (f_ring / f_merg) ** (-2.0 / 3.0) * hw2 / ((f - f_ring) ** 2 + hw2)
+        shape = torch.where(f < f_merg, (f / f_merg) ** (-7.0 / 6.0),
+                            torch.where(f < f_ring, (f / f_merg) ** (-2.0 / 3.0), ring))
+        amp = a_newt * f_merg ** (-7.0 / 6.0) * torch.where(f >= f_cut, 0.0, shape)
+        out[sl] = (amp * amp * g).sum(dim=1)
+    return out
+
+
+def distance_to(exact, x):
+    """(max |x - exact|, max |x - exact| / exact over the rows with exact > 0)."""
+    d = (x.double() - exact).abs()
+    live = exact > 0
+    return float(d.max()), float((d[live] / exact[live]).max())
+
+
+def mock_campaign_phase(dev, tag: str):
+    """Phase 6: the 10^7-draw injection campaign and the catalog after it,
+    through the port's entry points, then kernel C against its plain twin on
+    the campaign's own SNR rows and on knot rows.  Returns (kernel row, launch
+    counts)."""
+    import numpy as np
+    import torch
+
+    from bumpcosmology_torch.mock import catalog, cuda_snr, psd, snr
+    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+    from bumpcosmology_torch.testing import snr_knot_rows
+
+    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_snr.LAUNCHES)
+    for cnt in counters:
+        for k in cnt:
+            cnt[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inj, (m1, m2, dl), split = run_campaign(dev)
+    t_campaign = time.perf_counter()
+    summary = catalog.campaign_summary(inj, device=dev)
+    obs = catalog.add_observation_noise(inj)
+    t_obs = time.perf_counter()
+    cat = catalog.draw_one_year_catalog(len(inj["m1"]), obs, nsamp=MOCK_NSAMP, device=dev)
+    torch.cuda.synchronize()
+    t_cat = time.perf_counter()
+    launches = {k: v for cnt in counters for k, v in cnt.items()}
+
+    n = m1.shape[0]
     log(f"{tag} phase 6 campaign: {MOCK_NDRAW} draws, {n} rows computed on the card "
         f"({n / MOCK_NDRAW:.4f} pass the z / chirp-distance precut); wall {t_campaign - t0:.3f} s "
         f"(host clock, s: {json.dumps({k: round(v, 4) for k, v in split.items()})}); "
@@ -709,33 +798,36 @@ def mock_campaign_phase(dev, tag: str):
     if missing:
         raise AssertionError(f"campaign: kernels never launched on the mock path: {missing}")
 
-    # kernel C against its plain twin on the campaign's rows, then timed
+    # kernel C against its plain twin on the campaign's rows and on rows whose
+    # transition frequencies sit on the stored knots or one ulp beside them, then timed
     f_grid = snr.frequency_grid(device=dev)
     inv_psd = 1.0 / psd.PSDS["H1"](f_grid)
     grid = dict(f_min=float(f_grid[0]), f_max=float(f_grid[-1]), n_f=f_grid.shape[0], amp_scale=cuda_snr.AMP_SCALE)
-    got = cuda_snr._snr_integral_cuda(m1, m2, dl, inv_psd, **grid)
-    ref = cuda_snr.snr_integral_plain(m1, m2, dl, inv_psd, **grid, chunk=PLAIN_CHUNK)
-    torch.cuda.synchronize()
-    if not torch.equal(got == 0, ref == 0):
-        raise AssertionError("C: the exact zeros (f_cut below f_min) differ between kernel and plain twin")
-    err = check_close("C", got, ref, rtol=2e-5, atol=1e-6)
+    n_f = grid["n_f"]
+    stored = cuda_snr.log_grid(grid["f_min"], grid["f_max"], n_f, dev)  # the grid the kernel counts on
+    err, n_zeros, got, ref = snr_against_twin("C", m1, m2, dl, inv_psd, grid)
+    exact = snr_float64(m1, m2, dl, inv_psd, grid)
+    (kernel_abs, kernel_rel), (twin_abs, twin_rel) = distance_to(exact, got), distance_to(exact, ref)
+    del got, ref, exact
+    knot_rows = snr_knot_rows(stored, knots=range(0, n_f, 2), ratios=(0.2, 1.0))
+    err_knots, zeros_knots, _, _ = snr_against_twin("C knot rows", *knot_rows, inv_psd, grid)
     ms, call_ms = both_ms(lambda: cuda_snr._snr_integral_cuda(m1, m2, dl, inv_psd, **grid), launches=5, replays=2)
     plain_ms = cuda_ms(lambda: cuda_snr.snr_integral_plain(m1, m2, dl, inv_psd, **grid, chunk=PLAIN_CHUNK),
                        reps=3, warmup=1)
-    n_f = grid["n_f"]
-    ops, sfu, points = snr_work(m1, m2, cuda_snr.log_grid(grid["f_min"], grid["f_max"], n_f, dev))
     clock = max_sm_clock_hz()
-    t_bytes = (n * 16 + 2 * n_f * 4) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    t_sfu = sfu / (SFU_PER_CLOCK_PER_SM * H100_SMS * clock) * 1e3
-    bound = max(t_bytes, t_ops, t_sfu)
-    by = "bytes" if bound == t_bytes else "operations"
-    log(f"{tag} phase 6 kernel C (N={n}, n_f={n_f}; {int((ref == 0).sum())} exact zeros): max|err| {err:.3e} "
-        f"vs the plain twin; device {ms:.4f} ms (5 launches in one replayed CUDA graph, the wrapper's four small "
-        f"grid kernels included), call {call_ms:.4f} ms (plain {plain_ms:.4f} ms, chunks of {PLAIN_CHUNK}); live points "
-        f"{json.dumps(points)}; bound {bound:.5f} ms by {by} (bytes {t_bytes:.5f}, FP32 operations "
-        f"{t_ops:.5f}, special-function unit {t_sfu:.5f} at {clock / 1e6:.0f} MHz x {H100_SMS} SMs)")
-    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err, bound=(bound, by)), launches
+    bound, by, terms, points = snr_work(m1, m2, stored, clock)
+    log(f"{tag} phase 6 kernel C (N={n}, n_f={n_f}; {n_zeros} exact zeros): max|err| {err:.3e} vs the plain twin; "
+        f"against the float64 sum (same grid and cuts): kernel max abs {kernel_abs:.4e}, max rel {kernel_rel:.4e}; "
+        f"twin max abs {twin_abs:.4e}, max rel {twin_rel:.4e}; "
+        f"{knot_rows[0].shape[0]} knot rows ({zeros_knots} exact zeros): max|err| {err_knots:.3e}; device "
+        f"{ms:.5f} ms (5 calls in one replayed CUDA graph: the table and row launches of each, grid cached), call "
+        f"{call_ms:.4f} ms (plain {plain_ms:.4f} ms, chunks of {PLAIN_CHUNK}); live points by segment "
+        f"{json.dumps(points)} of {n * n_f}, ringdown {points['ringdown'] / n:.2f} a row")
+    log(f"{tag} phase 6 kernel C bound {bound:.6f} ms by {by}, the least work of these rows (ms: "
+        f"{json.dumps({k: round(v, 7) for k, v in terms.items()})}; special-function unit at {clock / 1e6:.0f} MHz "
+        f"x {H100_SMS} SMs)")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=max(err, err_knots),
+                bound=(bound, by)), launches
 
 
 if __name__ == "__main__":

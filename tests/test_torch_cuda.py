@@ -11,6 +11,7 @@ import torch
 
 from bumpcosmology_torch.mock import cuda_snr, psd, snr
 from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+from bumpcosmology_torch.testing import snr_knot_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -121,4 +122,46 @@ def test_snr_kernel_matches_plain(dev):
     ref = cuda_snr.snr_integral_plain(*args, inv_psd, **grid, chunk=4096)
     torch.cuda.synchronize()
     assert torch.equal(got == 0, ref == 0) and bool((ref == 0).any())
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-6)
+
+
+def _snr_rows(case, dev, f_grid):
+    """(m1, m2, dl) on the card for one of the shapes kernel C could get wrong."""
+    rng = np.random.default_rng(4)
+    if case == "every_kind":  # knots, light (ringdown cut at f_max, empty, all inspiral), heavy (exact zeros)
+        m1, m2, dl = (t.cpu().numpy() for t in snr_knot_rows(f_grid, knots=np.arange(0, 512, 5), ratios=(0.3,)))
+        light = np.array([1.2, 2.0, 3.0, 3.5, 4.0, 4.5, 5.0, 6.0, 2500.0, 3000.0])
+        m1 = np.concatenate([m1, light, np.exp(rng.uniform(np.log(5.0), np.log(2500.0), 3000))])
+        m2 = np.concatenate([m2, 0.8 * light, m1[-3000:] * rng.uniform(0.05, 1.0, 3000)])
+        dl = np.concatenate([dl, np.full(10, 0.5), np.exp(rng.uniform(np.log(0.01), np.log(40.0), 3000))])
+        perm = rng.permutation(len(m1))  # mix the kinds inside every warp
+        m1, m2, dl = m1[perm], m2[perm], dl[perm]
+    else:
+        n = {"n1": 1, "n257": 257, "tabulated_psd": 5000}[case]
+        m1 = np.exp(rng.uniform(np.log(5.0), np.log(300.0), n))
+        m2 = m1 * rng.uniform(0.05, 1.0, n)
+        dl = np.exp(rng.uniform(np.log(0.01), np.log(40.0), n))
+    return [torch.as_tensor(np.asarray(x, np.float32), device=dev) for x in (m1, m2, dl)]
+
+
+@pytest.mark.parametrize("case", ["n1", "n257", "every_kind", "tabulated_psd"])
+def test_snr_kernel_cases_match_plain(dev, case):
+    """One row, a row past a whole block, a block holding every kind of row
+    (transitions on a stored knot or one ulp beside it, ringdowns cut at f_max
+    or empty, all-inspiral rows, exact zeros), and a tabulated PSD (another
+    inv_psd on the same grid): the kernel against its twin at phase 6's limits."""
+    f_grid = snr.frequency_grid(device=dev)
+    grid = dict(f_min=float(f_grid[0]), f_max=float(f_grid[-1]), n_f=f_grid.shape[0])
+    args = _snr_rows(case, dev, cuda_snr.log_grid(**grid, device=dev))
+    if case == "tabulated_psd":
+        f = np.geomspace(10.0, 4096.0, 2000)
+        s_phys = psd.aligo_design_psd(torch.as_tensor(f)).numpy().astype(np.float64) * psd.PSD_SCALE
+        s_phys *= 1.0 + 0.3 * np.sin(f / 37.0)  # another shape than the design curve's
+        inv_psd = 1.0 / psd.tabulated_psd(f, s_phys)(f_grid)
+    else:
+        inv_psd = 1.0 / psd.PSDS["H1"](f_grid)
+    got = cuda_snr.snr_integral(*args, inv_psd, **grid)
+    ref = cuda_snr.snr_integral_plain(*args, inv_psd, **grid, chunk=4096)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.equal(got == 0, ref == 0)
     torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-6)

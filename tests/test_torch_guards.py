@@ -129,6 +129,9 @@ class _OnCuda:
     def __getattr__(self, name):
         return getattr(self._t, name)
 
+    def contiguous(self):
+        return _OnCuda(self._t.contiguous())
+
 
 def _lse_args(c=2, k=8, g=6, nobs=3, nsamp=4, nsel=5):
     n = nobs * nsamp + nsel
@@ -240,26 +243,83 @@ def test_bump_log_dn_rejects_other_devices():
         bump_log_dn(torch.ones(3, 5, device="meta"), 48)
 
 
+@pytest.fixture
+def snr_plain_calls(monkeypatch):
+    from bumpcosmology_torch.mock import cuda_snr
+
+    calls = []
+
+    def reached(*args, **kwargs):
+        calls.append(args)
+        raise AssertionError("a plain version was reached for a CUDA tensor")
+
+    monkeypatch.setattr(cuda_snr, "snr_integral_plain", reached)
+    monkeypatch.setattr(cuda_snr, "_snr_integral_segments_plain", reached)
+    return calls
+
+
+class _KernelReached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("fault", ["float64", "shape", "well_formed"])
+def test_snr_integral_never_takes_a_plain_version_for_a_cuda_tensor(snr_plain_calls, fault, monkeypatch):
+    """Kernel C's wrapper raises on what the kernel does not take, and goes
+    on to the C entry otherwise: here the card's allocations, the library and
+    the stream are stubbed, and the stubbed entry records its call and raises.
+    Neither plain rendering is a fallback, and a launch that raised is not counted."""
+    from bumpcosmology_torch.mock import cuda_snr
+    from bumpcosmology_torch.mock.cuda_snr import LAUNCHES, snr_integral
+
+    entered = []
+
+    class Library:
+        def snr_integral(self, *args):
+            entered.append(args)
+            raise _KernelReached
+
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k: empty(*a, **k))
+    monkeypatch.setattr(cuda_snr, "_grid", lambda f_min, f_max, n_f, dev: cuda_snr.log_grid(f_min, f_max, n_f, "cpu"))
+    monkeypatch.setattr(cuda_snr, "load_kernel", lambda name, signatures: Library())
+    monkeypatch.setattr(cuda_snr, "cuda_stream", lambda t: None)
+    rows = [torch.ones(5), torch.ones(5), torch.ones(5, dtype=torch.float64 if fault == "float64" else None)]
+    inv_psd = torch.ones(511 if fault == "shape" else 512)
+    before = dict(LAUNCHES)
+    with pytest.raises(Exception) as err:
+        snr_integral(*(_OnCuda(t) for t in rows), _OnCuda(inv_psd))
+    if fault == "well_formed":
+        assert isinstance(err.value, _KernelReached), err.value
+        assert [args[7:9] for args in entered] == [(5, 512)]  # n, n_f
+    else:
+        assert isinstance(err.value, ValueError) and ("dl_gpc" if fault == "float64" else "inv_psd") in str(err.value)
+        assert not entered
+    assert not snr_plain_calls and LAUNCHES == before
+
+
 def _extern_c_declarations(source: str):
     """{function: [ctypes type per argument]} of the ``extern "C" int f(...)``
-    definitions of a CUDA source: a pointer is ``c_void_p``, an ``int`` is ``c_int``."""
+    definitions of a CUDA source: a pointer is ``c_void_p``, an ``int`` is
+    ``c_int``, a ``float`` is ``c_float``."""
     import ctypes
 
+    scalars = {"int": ctypes.c_int, "float": ctypes.c_float}
     out = {}
     for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source):
         kinds = []
-        for arg in (a.strip() for a in args.split(",")):
+        for arg in (" ".join(a.split()) for a in args.split(",")):
             if "*" in arg:
                 kinds.append(ctypes.c_void_p)
             else:
-                assert re.fullmatch(r"int \w+", arg), f"{name}: argument {arg!r} is neither a pointer nor an int"
-                kinds.append(ctypes.c_int)
+                kind = re.fullmatch(r"(\w+) \w+", arg)
+                assert kind and kind.group(1) in scalars, f"{name}: argument {arg!r} is no pointer, int or float"
+                kinds.append(scalars[kind.group(1)])
         out[name] = kinds
     return out
 
 
 @pytest.mark.parametrize("source,module", [("bump", "ops.cuda_bump"), ("logwts", "ops.cuda_logwts"),
-                                           ("floor", "ops.launch_floor")])
+                                           ("floor", "ops.launch_floor"), ("snr", "mock.cuda_snr")])
 def test_ctypes_signatures_match_the_extern_c_declarations(source, module):
     """A mismatch cuts a pointer to 32 bits or shifts every argument after
     it, without any error; only the source can show it on a host without nvcc."""
