@@ -9,7 +9,7 @@ batched over chains.  Every PE sample and injection is one row of a shared
 and reduces them to the per-event and selection log-sum-exps (the ``lse``
 epilogue), so the ``(C, N)`` weights never reach device memory on this path.
 :func:`pop_cosmo_event_sel_logwts` returns the weights themselves (the ``rows``
-epilogue) for the effective-sample-size diagnostics.
+epilogue) for the trace's deterministic sites (:func:`pop_cosmo_deterministics`).
 
 This mirrors the JAX package's fused/Pallas route
 (``_cosmo_frame_logwts_fused``, ``likelihoods.py:339-361``): the log(dL)-keyed
@@ -27,15 +27,16 @@ import torch
 from bumpcosmology_torch.device import resolve_device
 from bumpcosmology_torch.inference.distributions import Normal, TruncatedNormal, Uniform
 from bumpcosmology_torch.inference.model import ModelSpec
-from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table
-from bumpcosmology_torch.models.mass import DEFAULT_N_GRID
+from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table, efunc
+from bumpcosmology_torch.models.mass import DEFAULT_N_GRID, MREF
 from bumpcosmology_torch.models.parameters import (
     CosmoParams,
     MassParams,
     PopulationParams,
     RedshiftParams,
 )
-from bumpcosmology_torch.models.population import build_population
+from bumpcosmology_torch.models.population import COORDS, QREF, build_population, log_dndmdqdv
+from bumpcosmology_torch.models.redshift import ZREF
 from bumpcosmology_torch.ops.cuda_logwts import cosmo_frame_logwts, cosmo_frame_logwts_lse, query_rows
 
 __all__ = [
@@ -50,6 +51,7 @@ __all__ = [
     "selection_neff_terms",
     "pop_cosmo_event_sel_logwts",
     "pop_cosmo_loglike",
+    "pop_cosmo_deterministics",
     "POP_COSMO_PRIORS",
     "pop_cosmo_model_spec",
 ]
@@ -188,6 +190,61 @@ def pop_cosmo_loglike(sites: Dict[str, torch.Tensor], data: PopCosmoData,
     lse_ev, lse_sel = cosmo_frame_logwts_lse(pop, det, qry, nobs, nsamp, plain)
     log_mu_sel = lse_sel - data.selection.log_ndraw
     return lse_ev.sum(-1) - nobs * math.log(nsamp) - nobs * log_mu_sel
+
+
+def _shared_deterministics(sites, pop, log_wts, log_sel_wts, log_ndraw, nobs: int):
+    """Rate, effective sample sizes and rate curves of ``C`` draws
+    (``_shared_deterministics``, the JAX package's ``likelihoods.py:518-546``)."""
+    log_mu_sel, neff_sel = selection_neff_terms(log_sel_wts, log_ndraw)
+    mu_sel = torch.exp(log_mu_sel)
+    # rate via the unit-normal reparameterization
+    R = nobs / mu_sel + math.sqrt(nobs) / mu_sel * sites["R_unit"]
+    neff = torch.exp(2.0 * torch.logsumexp(log_wts, -1) - torch.logsumexp(2.0 * log_wts, -1))
+
+    c = R.shape[0]
+    grid = lambda name: torch.as_tensor(COORDS[name], dtype=log_wts.dtype,  # noqa: E731
+                                        device=log_wts.device).expand(c, -1)
+    m_grid, q_grid, z_grid = grid("m_grid"), grid("q_grid"), grid("z_grid")
+    full = lambda v: torch.full_like(m_grid, v)  # noqa: E731
+    R_col = R[:, None]
+
+    def rate(m1, q, z):  # exp clamped at 80 nats, as the reference does
+        return torch.exp(torch.clamp_max(log_dndmdqdv(pop, m1, q, z), 80.0))
+
+    return {
+        "kappa": pop.params.redshift.kappa,
+        "neff_sel": neff_sel,
+        # MC noise of the -nobs log mu_sel term in nats
+        "selection_noise_nats": nobs / torch.sqrt(neff_sel),
+        "neff": neff,
+        "R": R,
+        "mdNdmdVdt_fixed_qz": m_grid * R_col * rate(m_grid, full(QREF), full(ZREF)),
+        "dNdqdVdt_fixed_mz": MREF * R_col * rate(full(MREF), q_grid, full(ZREF)),
+        "dNdVdt_fixed_mq": MREF * R_col * rate(full(MREF), full(QREF), z_grid),
+    }
+
+
+def _bump_extras(pop):
+    """The bump family's reparameterized sites (``_bump_extras``, ``likelihoods.py:549-551``)."""
+    return {"mbhmax": pop.params.mass.mbhmax, "fpl": pop.params.mass.fpl}
+
+
+def pop_cosmo_deterministics(sites: Dict[str, torch.Tensor], data: PopCosmoData,
+                             n_grid: int = DEFAULT_N_GRID, n_z: int = 1024, dl_bounds=None,
+                             qry=None, plain: bool = False) -> Dict[str, torch.Tensor]:
+    """Every deterministic trace site of the joint model for sites of shape
+    ``(C,)`` (``pop_cosmo_deterministics``, ``likelihoods.py:563-573``): the
+    shared set, ``mbhmax``, ``fpl`` and ``hz = h E(z)`` on ``COORDS["z_grid"]``.
+    The weights come from one kernel-B launch with the ``rows`` epilogue."""
+    nobs = data.events.a.shape[0]
+    pop, cosmo, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, dl_bounds, qry,
+                                                              plain)
+    out = _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
+    out.update(_bump_extras(pop))
+    z_grid = torch.as_tensor(COORDS["z_grid"], dtype=log_w.dtype, device=log_w.device)
+    cp = CosmoParams(*(x[:, None] for x in cosmo.params))
+    out["hz"] = cp.h * efunc(z_grid, cp)
+    return out
 
 
 _MASS_PRIORS = {

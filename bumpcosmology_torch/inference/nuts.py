@@ -1,5 +1,5 @@
-"""Batched multinomial NUTS with a dense mass matrix — sampling only (L2);
-counterpart of the sampling half of the JAX package's ``inference/nuts.py``.
+"""Batched multinomial NUTS with a dense mass matrix and Stan's windowed
+warmup (L2); counterpart of the JAX package's ``inference/nuts.py``.
 
 The JAX package ``vmap``s a per-chain ``while_loop``.  Here the same
 iterative scheme (tree doubling, progressive multinomial sampling, the
@@ -13,31 +13,46 @@ All chains that are still building a subtree share its leaf index, so the
 leaf index and the checkpoint pointer are plain integers; a chain that has
 stopped keeps its values through the masks.
 
-Mass-matrix products are elementwise multiply-and-sum in full fp32 (never a
-matmul, so TF32 cannot reach them).  Warmup (dual averaging, Welford,
-windows) and the diagnostics are not ported yet.
+Warmup runs the same way: the step-size search is a masked batch (one
+batched value+grad per doubling or halving for the chains still searching),
+and the dual-averaging, Welford and window updates act on every chain at
+once.  Each chain adapts its own step size and mass matrix unless
+``shared_mass`` pools the window's statistics.
+
+Mass-matrix products, Welford's outer products and the pooled sums are
+elementwise multiply-and-sum in full fp32 (never a matmul, so TF32 cannot
+reach them).  A window whose covariance is not positive definite keeps that
+chain's old matrices: ``torch.linalg.cholesky_ex`` reports it where the
+reference's Cholesky returns NaN.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from bumpcosmology_torch.device import resolve_device
 from bumpcosmology_torch.inference.model import value_and_grad
 
 __all__ = ["NutsConfig", "ChainState", "WarmupResult", "NutsStats", "SamplingResult",
-           "nuts_transition", "run_sampling"]
+           "nuts_transition", "warmup_schedule", "run_warmup", "run_sampling", "run_nuts"]
 
 _DIVERGENCE_THRESHOLD = 1000.0
 
 
 class NutsConfig(NamedTuple):
-    """Sampling settings.  The JAX package's warmup fields (target accept,
-    dual-averaging constants, mass pooling) arrive with the warmup port."""
-
     max_depth: int = 10
+    target_accept: float = 0.8
+    # dual averaging (Hoffman & Gelman 2014 defaults)
+    da_gamma: float = 0.05
+    da_t0: float = 10.0
+    da_kappa: float = 0.75
+    dense_mass: bool = True
+    # pool the window's Welford statistics over the chain batch (one shared mass matrix)
+    shared_mass: bool = False
 
 
 class ChainState(NamedTuple):
@@ -58,6 +73,20 @@ class WarmupResult(NamedTuple):
         f = lambda x: x.to(device=device, dtype=dtype)  # noqa: E731
         return WarmupResult(ChainState(*(f(x) for x in self.state)), f(self.eps), f(self.cov),
                             f(self.chol_cov))
+
+
+class _DualAveragingState(NamedTuple):
+    log_eps: torch.Tensor  # each (C,)
+    log_eps_bar: torch.Tensor
+    h_bar: torch.Tensor
+    mu: torch.Tensor
+    t: torch.Tensor
+
+
+class _WelfordState(NamedTuple):
+    count: torch.Tensor  # (C,)
+    mean: torch.Tensor  # (C, dim)
+    m2: torch.Tensor  # (C, dim, dim)
 
 
 class NutsStats(NamedTuple):
@@ -250,33 +279,258 @@ def nuts_transition(potential: Callable, state: ChainState, eps, cov, chol_cov,
     return ChainState(theta_prop, u_prop, grad_prop), stats
 
 
+def _find_reasonable_eps(potential: Callable, state: ChainState, p0, cov, max_steps: int = 60):
+    """Double or halve each chain's step from 1 until its one-step accept
+    probability crosses 0.5 (``_find_reasonable_eps``, nuts.py:432-465), from
+    the momentum ``p0`` (C, dim).  One batched value+grad per doubling or
+    halving, for the chains still searching; at most ``max_steps`` of them."""
+    h0 = state.u + _kinetic(p0, cov)
+
+    def accept_prob(eps, active):
+        _, p1, u1, _ = _leapfrog(_masked_vg(potential, active), state.theta, p0, state.grad, eps, cov)
+        h1 = u1 + _kinetic(p1, cov)
+        h1 = torch.where(torch.isnan(h1), math.inf, h1)
+        return torch.exp(torch.clamp_max(h0 - h1, 0.0))
+
+    eps = torch.ones_like(state.u)
+    ap = accept_prob(eps, torch.ones_like(eps, dtype=torch.bool))
+    up = ap > 0.5
+    factor = torch.where(up, 2.0, 0.5).to(eps.dtype)
+    for _ in range(max_steps):
+        searching = torch.where(up, ap > 0.5, ap < 0.5)
+        if not bool(searching.any()):  # one host sync per step
+            break
+        eps = torch.where(searching, eps * factor, eps)
+        ap = torch.where(searching, accept_prob(eps, searching), ap)
+    return eps
+
+
+def _da_init(eps) -> _DualAveragingState:
+    zero = torch.zeros_like(eps)
+    return _DualAveragingState(torch.log(eps), zero, zero, torch.log(10.0 * eps), zero)
+
+
+def _da_update(da: _DualAveragingState, accept_prob, cfg: NutsConfig) -> _DualAveragingState:
+    t = da.t + 1.0
+    eta_h = 1.0 / (t + cfg.da_t0)
+    h_bar = (1.0 - eta_h) * da.h_bar + eta_h * (cfg.target_accept - accept_prob)
+    log_eps = da.mu - torch.sqrt(t) / cfg.da_gamma * h_bar
+    eta_x = t ** (-cfg.da_kappa)
+    log_eps_bar = eta_x * log_eps + (1.0 - eta_x) * da.log_eps_bar
+    return _DualAveragingState(log_eps, log_eps_bar, h_bar, da.mu, t)
+
+
+def _welford_init(c: int, dim: int, like: torch.Tensor) -> _WelfordState:
+    return _WelfordState(like.new_zeros(c), like.new_zeros((c, dim)), like.new_zeros((c, dim, dim)))
+
+
+def _welford_update(w: _WelfordState, x) -> _WelfordState:
+    count = w.count + 1.0
+    delta = x - w.mean
+    mean = w.mean + delta / count[:, None]
+    m2 = w.m2 + delta[:, :, None] * (x - mean)[:, None, :]
+    return _WelfordState(count, mean, m2)
+
+
+def _welford_cov(w: _WelfordState, regularize: bool = True):
+    n = torch.clamp_min(w.count, 2.0)[:, None, None]
+    cov = w.m2 / (n - 1.0)
+    if regularize:  # Stan's shrinkage toward a scaled identity
+        shrink = n / (n + 5.0)
+        cov = shrink * cov + 1e-3 * (1.0 - shrink) * torch.eye(cov.shape[-1], dtype=cov.dtype,
+                                                                 device=cov.device)
+    return cov
+
+
+def _pool_welford(w: _WelfordState) -> _WelfordState:
+    """The chains' Welford states combined (Chan et al.), broadcast back over the chains."""
+    c = w.count.shape[0]
+    n_total = w.count.sum()
+    mean = (w.count[:, None] * w.mean).sum(0) / torch.clamp_min(n_total, 1.0)
+    delta = w.mean - mean
+    m2 = w.m2.sum(0) + (w.count[:, None, None] * delta[:, :, None] * delta[:, None, :]).sum(0)
+    return _WelfordState(n_total.expand(c), mean.expand_as(w.mean), m2.expand_as(w.m2))
+
+
+def _end_window(cov, chol, da: _DualAveragingState, wf: _WelfordState, shared_mass: bool = False):
+    """The window's mass-matrix update and the dual-averaging reset; a chain
+    whose new covariance has no Cholesky factor keeps its old matrices."""
+    if shared_mass:
+        wf = _pool_welford(wf)
+    new_cov = _welford_cov(wf)
+    new_chol, info = torch.linalg.cholesky_ex(new_cov)
+    bad = (info != 0) | torch.isnan(new_chol).flatten(1).any(1)
+    c, dim = wf.mean.shape
+    return (_w(bad, cov, new_cov), _w(bad, chol, new_chol), _da_init(torch.exp(da.log_eps)),
+            _welford_init(c, dim, cov))
+
+
+def warmup_schedule(num_warmup, init_buffer=75, term_buffer=50, base_window=25):
+    """Stan-style windows as segments ``[(n_steps, update_mass_at_end), ...]``:
+    fast buffers adapt the step size only; slow windows double in length and
+    each ends with a dense-mass update and a dual-averaging reset."""
+    if num_warmup < 20:
+        return [(num_warmup, False)] if num_warmup else []
+    if init_buffer + term_buffer + base_window > num_warmup:
+        scale = num_warmup / (init_buffer + term_buffer + base_window)
+        init_buffer = int(init_buffer * scale)
+        term_buffer = int(term_buffer * scale)
+        base_window = num_warmup - init_buffer - term_buffer
+    segments = [(init_buffer, False)]
+    start = init_buffer
+    size = base_window
+    while start < num_warmup - term_buffer:
+        end = start + size
+        if end + 2 * size > num_warmup - term_buffer:
+            end = num_warmup - term_buffer
+        segments.append((end - start, True))
+        start = end
+        size *= 2
+    if term_buffer:
+        segments.append((term_buffer, False))
+    return segments
+
+
+def _stack_stats(stats) -> NutsStats:
+    return NutsStats(*(torch.stack(xs, dim=1) for xs in zip(*stats)))
+
+
+def _generator(generator, seed, dev):
+    return generator if generator is not None else torch.Generator(device=dev).manual_seed(seed)
+
+
+def run_warmup(potential: Callable, theta0: torch.Tensor, num_warmup: int,
+               cfg: NutsConfig = NutsConfig(), generator: Optional[torch.Generator] = None,
+               seed: int = 0, device=None,
+               progress: Optional[Callable[[int, int, float], None]] = None):
+    """Windowed warmup of every chain of ``theta0`` (C, dim) (``run_warmup``,
+    nuts.py:663-711): returns ``(WarmupResult, NutsStats)``, the second with
+    each warmup transition's statistics, (C, num_warmup) each (``None``
+    without transitions).  The final step size is ``exp(log_eps_bar)``.
+
+    ``device=None`` means CUDA and raises without it.  The step-size search
+    starts from a standard-normal momentum and the identity mass matrix.
+    ``progress(step, num_warmup, mean_accept)`` is called after every transition.
+    """
+    dev = resolve_device(device)
+    gen = _generator(generator, seed, dev)
+    theta0 = theta0.to(dev)
+    c, dim = theta0.shape
+    u, grad = value_and_grad(potential, theta0)
+    state = ChainState(theta0, u, grad)
+    eye = torch.eye(dim, dtype=theta0.dtype, device=dev).expand(c, dim, dim).contiguous()
+    p0 = torch.randn((c, dim), generator=gen, device=dev, dtype=theta0.dtype)
+    eps = _find_reasonable_eps(potential, state, p0, eye)
+    cov, chol = eye, eye
+    da, wf = _da_init(eps), _welford_init(c, dim, theta0)
+    stats, step = [], 0
+    for n_steps, update_mass in warmup_schedule(num_warmup):
+        for _ in range(n_steps):
+            state, st = nuts_transition(potential, state, torch.exp(da.log_eps), cov, chol, gen,
+                                        cfg.max_depth)
+            da = _da_update(da, st.accept_prob, cfg)
+            wf = _welford_update(wf, state.theta)
+            stats.append(st)
+            step += 1
+            if progress is not None:
+                progress(step, num_warmup, float(st.accept_prob.mean()))
+        if update_mass:
+            cov, chol, da, wf = _end_window(cov, chol, da, wf, cfg.shared_mass)
+        else:  # a fast buffer's statistics are dropped; the step size carries on
+            wf = _welford_init(c, dim, theta0)
+    warm = WarmupResult(state, torch.exp(da.log_eps_bar), cov, chol)
+    return warm, (_stack_stats(stats) if stats else None)
+
+
+def sampling_checkpoint_file(checkpoint_path) -> str:
+    """``<path>.sampling.npz``, the mid-sampling checkpoint beside a warmup checkpoint."""
+    from bumpcosmology_torch.utils.checkpoint import checkpoint_file
+
+    return checkpoint_file(checkpoint_path)[: -len(".npz")] + ".sampling.npz"
+
+
+def _save_sampling_ckpt(path: str, done: int, gen: torch.Generator, state: ChainState, thetas, stats):
+    """The reference's array names and draws-first layout; ``key`` holds the
+    generator's state."""
+    payload = {"done": np.asarray(done), "key": gen.get_state().numpy(),
+               "state_theta": state.theta.cpu().numpy(), "state_u": state.u.cpu().numpy(),
+               "state_grad": state.grad.cpu().numpy(), "thetas": torch.stack(thetas).cpu().numpy()}
+    for name, xs in zip(NutsStats._fields, zip(*stats)):
+        payload["stats_" + name] = torch.stack(xs).cpu().numpy()
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **payload)
+    os.replace(tmp, path)
+
+
+def _load_sampling_ckpt(path: str, gen: torch.Generator, dtype, dev):
+    with np.load(path) as d:
+        if d["key"].dtype != np.uint8:
+            raise ValueError(f"{path}: 'key' is not a torch generator state (written by another package?)")
+        gen.set_state(torch.as_tensor(d["key"]))
+        t = lambda k: torch.as_tensor(d[k], device=dev)  # noqa: E731
+        state = ChainState(t("state_theta").to(dtype), t("state_u").to(dtype), t("state_grad").to(dtype))
+        thetas = list(t("thetas").to(dtype).unbind(0))
+        stats = [NutsStats(*s) for s in zip(*(t("stats_" + name).unbind(0) for name in NutsStats._fields))]
+        return state, thetas, stats
+
+
 def run_sampling(potential: Callable, warm: WarmupResult, num_samples: int,
                  cfg: NutsConfig = NutsConfig(), generator: Optional[torch.Generator] = None,
                  seed: int = 0, device=None,
-                 progress: Optional[Callable[[int, int], None]] = None) -> SamplingResult:
+                 progress: Optional[Callable[[int, int], None]] = None,
+                 checkpoint_path=None, checkpoint_every: int = 100) -> SamplingResult:
     """Post-warmup sampling of every chain of ``warm`` (``run_sampling``,
-    nuts.py:773-835, without the checkpoint file).
+    nuts.py:773-835).
 
     ``device=None`` means CUDA and raises without it.  The stored ``u`` and
     ``grad`` are recomputed with this package's potential first — a state
     saved by another implementation (e.g. the TPU bracket path at
     ``n_det=256``) carries that implementation's values — and the largest
     ``|Δu|`` is returned in the result.
+
+    With ``checkpoint_path``, the draws so far, the chain state and the
+    generator's state go to ``<path>.sampling.npz`` every ``checkpoint_every``
+    draws; a later call with the same path resumes there and makes the draws
+    an uninterrupted run would have made.  The file is removed at the end.
     """
     dev = resolve_device(device)
     warm = warm.to(dev)
-    gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(seed)
+    gen = _generator(generator, seed, dev)
     u, grad = value_and_grad(potential, warm.state.theta)
     max_abs_du = float((u - warm.state.u).abs().max())
     state = ChainState(warm.state.theta, u, grad)
     thetas, stats = [], []
-    for i in range(num_samples):
+    ckpt = sampling_checkpoint_file(checkpoint_path) if checkpoint_path is not None else None
+    if ckpt is not None and os.path.exists(ckpt):
+        state, thetas, stats = _load_sampling_ckpt(ckpt, gen, u.dtype, dev)
+        thetas, stats = thetas[:num_samples], stats[:num_samples]
+        if progress is not None:
+            progress(len(thetas), num_samples)
+    since_ckpt = 0
+    while len(thetas) < num_samples:
         state, st = nuts_transition(potential, state, warm.eps, warm.cov, warm.chol_cov, gen,
                                     cfg.max_depth)
         thetas.append(state.theta)
         stats.append(st)
+        since_ckpt += 1
+        if ckpt is not None and since_ckpt >= checkpoint_every and len(thetas) < num_samples:
+            _save_sampling_ckpt(ckpt, len(thetas), gen, state, thetas, stats)
+            since_ckpt = 0
         if progress is not None:
-            progress(i + 1, num_samples)
-    stacked = NutsStats(*(torch.stack(xs, dim=1) for xs in zip(*stats)))
-    return SamplingResult(torch.stack(thetas, dim=1), stacked,
+            progress(len(thetas), num_samples)
+    if ckpt is not None and os.path.exists(ckpt):
+        os.remove(ckpt)
+    return SamplingResult(torch.stack(thetas, dim=1), _stack_stats(stats),
                           WarmupResult(state, warm.eps, warm.cov, warm.chol_cov), max_abs_du)
+
+
+def run_nuts(potential: Callable, theta0: torch.Tensor, num_warmup: int = 1000,
+             num_samples: int = 1000, cfg: NutsConfig = NutsConfig(),
+             generator: Optional[torch.Generator] = None, seed: int = 0, device=None):
+    """Warmup, then sampling, from one generator (``run_nuts``, nuts.py:838-851):
+    returns ``(draws (C, num_samples, dim), NutsStats, warmup state, final state)``."""
+    dev = resolve_device(device)
+    gen = _generator(generator, seed, dev)
+    warm, _ = run_warmup(potential, theta0, num_warmup, cfg, generator=gen, device=dev)
+    res = run_sampling(potential, warm, num_samples, cfg, generator=gen, device=dev)
+    return res.thetas, res.stats, warm, res.warm

@@ -1,0 +1,192 @@
+"""Fitting: ModelSpec → posterior draws, statistics and adapted state
+(L4); counterpart of the JAX package's ``inference/sampler.py`` with its
+default sampler, ``"nuts"``.
+
+Chains run as one batch on ``device`` (``None`` means CUDA).  The
+deterministic sites are a separate post-pass in chunks of draws, each chunk
+one chain batch of the model, so the NUTS loop carries no predictive-grid
+work.  One ``torch.Generator`` drives the prior draws, the warmup and the
+sampling, in that order.
+"""
+from __future__ import annotations
+
+import os
+import time
+import warnings
+from typing import Callable, Dict, NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+
+from bumpcosmology_torch.device import resolve_device
+from bumpcosmology_torch.inference.diagnostics import summary
+from bumpcosmology_torch.inference.model import ModelSpec, constrain, make_potential, prior_sample
+from bumpcosmology_torch.inference.nuts import NutsConfig, WarmupResult, run_sampling, run_warmup
+from bumpcosmology_torch.utils.checkpoint import checkpoint_file, load_warmup, save_warmup
+
+__all__ = ["FitResult", "fit", "compute_deterministics"]
+
+
+def _finite_prior_init(spec: ModelSpec, potential: Callable, gen: torch.Generator, num_chains: int,
+                       max_tries: int = 50) -> torch.Tensor:
+    """Prior draws (unconstrained, ``(num_chains, dim)``) with a finite
+    potential: only the chains whose potential is not finite are redrawn, up
+    to ``max_tries`` times (``_finite_prior_init``, sampler.py:34-56).  A prior
+    draw can put every PE sample of an event outside the bump's support,
+    where the likelihood is exactly zero."""
+    theta = prior_sample(spec, gen, (num_chains,))
+    for _ in range(max_tries):
+        with torch.no_grad():
+            bad = ~torch.isfinite(potential(theta))
+        if not bool(bad.any()):
+            return theta
+        theta = torch.where(bad[:, None], prior_sample(spec, gen, (num_chains,)), theta)
+    raise RuntimeError(
+        f"could not find finite-potential initializations for {int(bad.sum())} "
+        f"chain(s) after {max_tries} prior redraws — check the model/data"
+    )
+
+
+class FitResult(NamedTuple):
+    posterior: Dict[str, np.ndarray]  # site -> (chains, draws) or (chains, draws, k)
+    sample_stats: Dict[str, np.ndarray]
+    warmup_state: WarmupResult  # adapted state (checkpointable)
+    final_state: WarmupResult  # post-sampling state (for continuation)
+    timings: Dict[str, float]
+
+    def summary(self):
+        return summary({k: v for k, v in self.posterior.items() if np.ndim(v) == 2})
+
+
+def compute_deterministics(spec: ModelSpec, theta: torch.Tensor,
+                           det_fn: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]],
+                           batch_size: int = 128) -> Dict[str, np.ndarray]:
+    """Deterministic sites of every draw of ``theta`` (chains, draws, dim):
+    ``det_fn`` takes batched sites ``(B,)`` and is called on chunks of
+    ``batch_size`` draws (``compute_deterministics``, sampler.py:70-86)."""
+    nchains, ndraws, dim = theta.shape
+    flat = theta.reshape(nchains * ndraws, dim)
+    chunks = []
+    with torch.no_grad():
+        for lo in range(0, flat.shape[0], batch_size):
+            out = det_fn(constrain(spec, flat[lo:lo + batch_size]))
+            chunks.append({k: v.cpu().numpy() for k, v in out.items()})
+    return {k: np.concatenate([ch[k] for ch in chunks]).reshape((nchains, ndraws) + chunks[0][k].shape[1:])
+            for k in chunks[0]}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def fit(
+    spec: ModelSpec,
+    seed: Union[int, torch.Generator] = 0,
+    num_warmup: int = 1000,
+    num_samples: int = 1000,
+    num_chains: int = 4,
+    cfg: NutsConfig = NutsConfig(),
+    deterministics_fn: Optional[Callable] = None,
+    init_theta=None,
+    warmup_state: Optional[WarmupResult] = None,
+    checkpoint_path: Optional[str] = None,
+    sampler: str = "nuts",
+    verbose: bool = True,
+    device=None,
+) -> FitResult:
+    """Run NUTS on ``spec``: constrained posterior, statistics and states
+    (``fit``, sampler.py:126-324).
+
+    ``seed`` is an int or a ``torch.Generator`` on ``device``.  ``device``
+    (``None`` means CUDA; it raises without it) must be where ``spec``'s data
+    lie.  ``warmup_state`` skips adaptation; so does an existing warmup
+    checkpoint at ``checkpoint_path``, which is otherwise written after
+    warmup, beside the mid-sampling checkpoint.  ``deterministics_fn`` takes
+    batched sites and returns batched deterministic sites.
+    """
+    dev = resolve_device(device)
+    if spec.device.type != dev.type:
+        raise ValueError(f"the spec's data lie on {spec.device}, but the fit was asked to run on {dev}")
+    if sampler in ("chees", "nuts+chees"):
+        raise NotImplementedError(f"sampler={sampler!r} is not ported yet (ROADMAP.md, Queue 1 item 5)")
+    if sampler != "nuts":
+        raise ValueError(f"unknown sampler {sampler!r}; use 'nuts'")
+    gen = seed if isinstance(seed, torch.Generator) else torch.Generator(device=dev).manual_seed(seed)
+    potential = make_potential(spec)
+    timings: Dict[str, float] = {}
+
+    if warmup_state is None and checkpoint_path is not None and os.path.exists(checkpoint_file(checkpoint_path)):
+        warmup_state = load_warmup(checkpoint_path, device=dev)
+        if verbose:
+            print(f"[fit] resuming from warmup checkpoint {checkpoint_path}")
+    if warmup_state is None:
+        if init_theta is None:
+            init_theta = _finite_prior_init(spec, potential, gen, num_chains)
+        init_theta = torch.as_tensor(init_theta, dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        progress = None
+        if verbose:
+            def progress(step, total, accept):
+                if step % 100 == 0 or step == total:
+                    print(f"[fit] warmup {step}/{total} (accept {accept:.2f}, "
+                          f"{time.perf_counter() - t0:.0f}s)", flush=True)
+        warm, _ = run_warmup(potential, init_theta, num_warmup, cfg, generator=gen, device=dev,
+                             progress=progress)
+        _sync(dev)
+        timings["warmup_s"] = time.perf_counter() - t0
+        if verbose:
+            print(f"[fit] warmup: {num_warmup} steps x {num_chains} chains in {timings['warmup_s']:.1f}s")
+        if checkpoint_path is not None:
+            save_warmup(checkpoint_path, warm)
+            if verbose:
+                print(f"[fit] warmup checkpoint saved to {checkpoint_path}")
+    else:
+        warm = warmup_state
+
+    t0 = time.perf_counter()
+    sample_progress = None
+    if verbose:
+        def sample_progress(done, total):
+            if done % 100 == 0 or done == total:
+                print(f"[fit] sampling {done}/{total} ({time.perf_counter() - t0:.0f}s)", flush=True)
+    res = run_sampling(potential, warm, num_samples, cfg, generator=gen, device=dev,
+                       progress=sample_progress, checkpoint_path=checkpoint_path)
+    _sync(dev)
+    timings["sampling_s"] = time.perf_counter() - t0
+
+    with torch.no_grad():
+        posterior = {name: v.cpu().numpy() for name, v in constrain(spec, res.thetas).items()}
+    st = res.stats
+    sample_stats = {
+        "accept_prob": st.accept_prob, "diverging": st.diverging, "tree_depth": st.tree_depth,
+        "n_leapfrog": st.n_leapfrog, "potential_energy": st.energy, "step_size": st.step_size,
+    }
+    sample_stats = {k: v.cpu().numpy() for k, v in sample_stats.items()}
+
+    if deterministics_fn is not None:
+        t0 = time.perf_counter()
+        posterior.update(compute_deterministics(spec, res.thetas, deterministics_fn))
+        timings["deterministics_s"] = time.perf_counter() - t0
+
+    if verbose:
+        total = num_chains * num_samples
+        sam_s = timings["sampling_s"]
+        scalar = {k: v for k, v in posterior.items() if np.ndim(v) == 2}
+        ess_min = min(s["ess"] for s in summary(scalar).values()) if scalar else float("nan")
+        print(f"[fit] sampling: {total} draws in {sam_s:.1f}s ({total / sam_s:.1f} draws/s, "
+              f"min-ESS/s {ess_min / sam_s:.2f}, divergences {sample_stats['diverging'].sum():.0f})")
+    if "selection_noise_nats" in posterior:
+        noise = float(np.median(posterior["selection_noise_nats"]))
+        if verbose:
+            print(f"[fit] selection-integral MC noise: {noise:.2f} nats (median)")
+        if noise > 1.0:
+            warnings.warn(
+                f"selection-integral MC noise {noise:.2f} nats > 1.0: the posterior itself is "
+                "likely corrupted by pseudo-modes from the finite injection set — increase the "
+                "number of selection injections (docs/DESIGN.md §5a)",
+                stacklevel=2,
+            )
+
+    return FitResult(posterior=posterior, sample_stats=sample_stats, warmup_state=warm,
+                     final_state=res.warm, timings=timings)

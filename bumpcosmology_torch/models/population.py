@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from bumpcosmology_torch.models.mass import (
@@ -20,7 +21,7 @@ from bumpcosmology_torch.models.mass import (
 from bumpcosmology_torch.models.parameters import PopulationParams, RedshiftParams
 from bumpcosmology_torch.models.redshift import log_dndv
 
-__all__ = ["QREF", "PopulationIntensity", "build_population", "log_dndmdqdv"]
+__all__ = ["QREF", "PopulationIntensity", "build_population", "log_dndmdqdv", "COORDS"]
 
 QREF = 1.0
 
@@ -56,3 +57,11 @@ def log_dndmdqdv(pop: PopulationIntensity, m1: torch.Tensor, q: torch.Tensor, z:
         + log_dndv(z, col)
     )
 
+
+# Posterior-predictive output grids (``intensity_models.py:275-279``): the
+# deterministic rate curves recorded in the trace are evaluated on these axes.
+COORDS = {
+    "m_grid": np.exp(np.linspace(np.log(5.0), np.log(150.0), 128)),
+    "q_grid": np.linspace(0.0, 1.0, 129)[1:],
+    "z_grid": np.expm1(np.linspace(np.log1p(0.0), np.log1p(3.0), 128)),
+}

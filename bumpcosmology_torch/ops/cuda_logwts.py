@@ -59,8 +59,9 @@ def query_rows(a, q, dl, log_pdraw) -> torch.Tensor:
 
 def _bracket(pos, n: int):
     """(lo, t, slope): the fused path's ``_interp_unit_gather`` bracket; the
-    slope term of a gradient is taken where ``pos - lo`` lies in [0, 1]."""
-    lo = torch.floor(pos).clamp(0, n - 2)
+    slope term of a gradient is taken where ``pos - lo`` lies in [0, 1].  A NaN
+    position takes ``lo = 0``, as the kernel's ``fmaxf`` does."""
+    lo = torch.floor(pos).nan_to_num(nan=0.0).clamp(0, n - 2)
     traw = pos - lo
     return lo.long(), traw.clamp(0.0, 1.0), (traw >= 0.0) & (traw <= 1.0)
 

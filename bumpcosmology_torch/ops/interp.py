@@ -44,9 +44,11 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
 
 def unit_bracket(x: torch.Tensor, x0, dx, n: int):
     """(lo, t) of a uniform grid ``x0 + k*dx``, ``k < n``: ``lo`` clipped to
-    [0, n-2] and ``t`` to [0, 1], as ``_interp_unit_gather`` does."""
+    [0, n-2] and ``t`` to [0, 1], as ``_interp_unit_gather`` does.  A NaN
+    position takes ``lo = 0`` and gives NaN (a diverging trajectory reaches
+    NaN parameters; the gather must not see an index cast from NaN)."""
     pos = (x - x0) / dx
-    lo = torch.floor(pos).clamp(0, n - 2)
+    lo = torch.floor(pos).nan_to_num(nan=0.0).clamp(0, n - 2)
     t = (pos - lo).clamp(0.0, 1.0)
     return lo.long(), t
 

@@ -1,7 +1,9 @@
-"""Loading an adapted sampler state (L4); counterpart of
-the JAX package's ``utils/checkpoint.py::load_warmup``.
+"""Saving and loading an adapted sampler state (L4); counterpart of the JAX
+package's ``utils/checkpoint.py``.
 
-The ``.npz`` holds ``theta u grad eps cov chol_cov`` with a leading chain axis.
+The ``.npz`` holds ``theta u grad eps cov chol_cov`` with a leading chain
+axis, the layout the JAX package writes and reads: a file written by either
+package loads in the other.
 """
 from __future__ import annotations
 
@@ -11,13 +13,19 @@ import torch
 from bumpcosmology_torch.device import resolve_device
 from bumpcosmology_torch.inference.nuts import ChainState, WarmupResult
 
-__all__ = ["checkpoint_file", "load_warmup"]
+__all__ = ["checkpoint_file", "save_warmup", "load_warmup"]
 
 
 def checkpoint_file(path) -> str:
     """``np.savez`` appends ``.npz`` to a path without it; readers must agree."""
     path = str(path)
     return path if path.endswith(".npz") else path + ".npz"
+
+
+def save_warmup(path, warm: WarmupResult) -> None:
+    arrays = dict(zip(("theta", "u", "grad"), warm.state))
+    arrays.update(eps=warm.eps, cov=warm.cov, chol_cov=warm.chol_cov)
+    np.savez(checkpoint_file(path), **{k: v.detach().cpu().numpy() for k, v in arrays.items()})
 
 
 def load_warmup(path, device=None, dtype=torch.float32) -> WarmupResult:

@@ -9,7 +9,8 @@ It drives the port's main path — the flagship joint population + flat-wCDM
 fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
 24,576 injections: 38,912 queries per chain), ``n_grid=256``, ``n_z=1024``,
 16 chains sampled with dense-mass NUTS from ``benchmarks/flagship_warmup16.npz``
-— and holds every CUDA kernel against its plain PyTorch twin:
+(phase 5) and fitted from prior draws to a trace (phase 7) — and holds every
+CUDA kernel against its plain PyTorch twin:
 
 1. build every kernel from ``bumpcosmology_torch/csrc`` (one nvcc per source),
    and time the card's launch floor: an empty kernel through the same ctypes
@@ -46,7 +47,20 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
    1e-6, the same exact zeros.  Kernel and twin are also measured (not held)
    against the same sum in float64 on the campaign's rows.  C's bound is the
    least work of its function on the campaign's rows (bytes, FP32 operations,
-   special-function results; the constants' comment has the tally).
+   special-function results; the constants' comment has the tally);
+7. the fit from prior draws: ``run_pop_cosmo_fit`` at the flagship's width
+   (the catalog's columns taken back to the source frame on the host, 16
+   chains, ``n_grid=256``, ``n_z=1024``), cut in depth to 30 warmup steps —
+   windows of 15, 5 (ending in one mass-matrix update) and 10 — and 10 draws
+   at ``max_depth`` 6, with every launch count set to 0 just before and read
+   just after: kernels A and B's ``lse`` epilogue must have launched once per
+   batched value+grad (forward alone for the prior draws' potentials), B's
+   ``rows`` forward once per chunk of the deterministics.  The adapted step
+   sizes must be finite and positive, each covariance symmetric with a
+   Cholesky factor, every posterior site and statistic finite at (16, 10[,
+   k]), the trace must read back equal, and the deterministics through the
+   kernels must match the plain path on the same draws within
+   |d|/(1+|ref|) < 2e-4.
 
 Every kernel is timed twice: ``ms`` is its device time (20 launches captured
 in one CUDA graph and replayed, so the host's queueing rate is out of the
@@ -77,6 +91,8 @@ SEED = 20261016
 N_GRID, N_Z = 256, 1024
 N_DRAWS = 5
 MAX_DEPTH = 10
+# phase 7: the fit from prior draws, cut in depth (warmup_schedule(30): 15, 5 with a mass update, 10)
+FIT_CHAINS, FIT_WARMUP, FIT_SAMPLES, FIT_DEPTH = 16, 30, 10, 6
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -543,8 +559,12 @@ def main() -> int:
 
     # ---- phase 6: the mock injection campaign through kernel C ------------
     rows["snr_integral"], mock_launches = mock_campaign_phase(dev, tag)
-    launches["snr_integral"] = mock_launches["snr_integral"]
     phase_done("6_mock_campaign")
+
+    # ---- phase 7: the fit from prior draws to a trace ----------------------
+    launches = fit_phase(dev, tag)
+    launches["snr_integral"] = mock_launches["snr_integral"]
+    phase_done("7_fit")
     log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
 
     sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
@@ -565,7 +585,10 @@ def main() -> int:
             raise AssertionError(f"{name}: {row['ms']:.6f} ms on the device is below its bound {b_ms:.6f} ms, "
                                  "so the bound does not count the least work")
         status = "ok: built, matches its plain twin, launched on the main path"
-        if name == "logwts_bwd":
+        if name == "logwts_fwd":
+            status = ("ok: built, matches its plain twin; launched on the main path by the fit's deterministics "
+                      "(one launch per chunk of 128 draws)")
+        elif name == "logwts_bwd":
             status = ("ok: built, matches its plain twin; launched in the phase-3 comparison only "
                       "(the main path's gradient takes the lse epilogue)")
         kernels.append(dict(name=name, route="cuda", source=sources[name.split("_")[0]],
@@ -828,6 +851,194 @@ def mock_campaign_phase(dev, tag: str):
         f"x {H100_SMS} SMs)")
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, max_abs_err=max(err, err_knots),
                 bound=(bound, by)), launches
+
+
+def flagship_source_tables():
+    """The flagship catalog as ``run_pop_cosmo_fit``'s input: source-frame
+    columns recovered on the host, the inverse of the stage's own conversion
+    (z from dL at Planck18, m1 = m1_det / (1 + z), the weight divided by the
+    Jacobian the stage multiplies in)."""
+    import numpy as np
+
+    from bumpcosmology_torch.data.weights import dm1sqz_dm1ddqdl, planck18_z_of_dl_np
+
+    with np.load(CATALOG) as d:
+        cat = {k: np.asarray(d[k], dtype=np.float64) for k in d.files}
+
+    def source(m1d, q, dl, log_pdraw):
+        z = planck18_z_of_dl_np(dl)
+        m1 = m1d / (1.0 + z)
+        return m1, q, z, np.exp(log_pdraw) / dm1sqz_dm1ddqdl(m1, q, z)
+
+    nobs, nsamp = cat["ev_a"].shape
+    m1, q, z, wt = source(*(cat[k].ravel() for k in ("ev_a", "ev_q", "ev_c", "ev_lp")))
+    pe = dict(m1=m1, q=q, z=z, wt=wt, evt=np.repeat(np.arange(nobs), nsamp))
+    m1, q, z, pdraw = source(*(cat[k] for k in ("sel_a", "sel_q", "sel_c", "sel_lp")))
+    sel = dict(m1=m1, q=q, z=z, pdraw=pdraw, ndraw=np.full(m1.shape, math.exp(float(cat["sel_ln"]))))
+    return pe, sel
+
+
+def fit_phase(dev, tag: str):
+    """Phase 7: ``run_pop_cosmo_fit`` from prior draws to a trace at the
+    flagship's width, cut in depth.  The samplers are wrapped only to observe:
+    the step-size search's and each warmup transition's value+grads (kernel
+    B's ``lse`` backward count), the warmup statistics and the draws.  Returns
+    the launch counts of the run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bumpcosmology_torch.inference import nuts, sampler
+    from bumpcosmology_torch.inference.diagnostics import summary
+    from bumpcosmology_torch.inference.likelihoods import dl_bounds_of, pop_cosmo_deterministics, query_table
+    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+    from bumpcosmology_torch.pipeline.config import FitConfig, PathsConfig, PipelineConfig
+    from bumpcosmology_torch.pipeline.stages import pop_cosmo_data_from_tables, run_pop_cosmo_fit
+    from bumpcosmology_torch.utils.trace import load_trace
+
+    pe, sel = flagship_source_tables()
+    n_vg = lambda: cuda_logwts.LAUNCHES["logwts_lse_bwd"]  # noqa: E731  (one per batched value+grad)
+    seen, marks = {}, []
+    real = {"eps": nuts._find_reasonable_eps, "warmup": sampler.run_warmup, "sampling": sampler.run_sampling,
+            "fit": sampler.fit}
+
+    def eps_search(*args, **kwargs):
+        before = n_vg()
+        eps = real["eps"](*args, **kwargs)
+        seen.update(eps_search_vg=n_vg() - before, eps0=eps.clone())
+        marks.append((0, n_vg(), time.perf_counter()))
+        return eps
+
+    def warmup(*args, progress=None, **kwargs):
+        def mark(step, total, accept):
+            marks.append((step, n_vg(), time.perf_counter()))
+            if progress is not None:
+                progress(step, total, accept)
+        seen["warmup_vg0"] = n_vg()
+        warm, stats = real["warmup"](*args, progress=mark, **kwargs)
+        seen["warm_stats"] = stats
+        return warm, stats
+
+    def sampling(*args, **kwargs):
+        before = n_vg()
+        out = real["sampling"](*args, **kwargs)
+        seen.update(thetas=out.thetas, sampling_vg=n_vg() - before)
+        return out
+
+    def fit(spec, *args, **kwargs):
+        seen["spec"] = spec
+        return real["fit"](spec, *args, **kwargs)
+
+    cfg_fit = FitConfig(num_warmup=FIT_WARMUP, num_samples=FIT_SAMPLES, num_chains=FIT_CHAINS, max_depth=FIT_DEPTH,
+                        n_grid=N_GRID, n_z=N_Z)
+    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES)
+    nuts._find_reasonable_eps, sampler.run_warmup, sampler.run_sampling, sampler.fit = (
+        eps_search, warmup, sampling, fit)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = PipelineConfig(paths=PathsConfig(data_dir=tmp), fit=cfg_fit)
+            for cnt in counters:
+                for k in cnt:
+                    cnt[k] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_pop_cosmo_fit(cfg, pe, sel, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for cnt in counters for k, v in cnt.items()}
+            trace = load_trace(Path(tmp) / "trace_cosmo.npz")
+    finally:
+        nuts._find_reasonable_eps, sampler.run_warmup, sampler.run_sampling, sampler.fit = (
+            real["eps"], real["warmup"], real["sampling"], real["fit"])
+
+    # the kernels on the path: once per batched value+grad, the forward alone for the prior draws' potentials
+    c, n_draws = FIT_CHAINS, FIT_CHAINS * FIT_SAMPLES
+    n_prior = launches["logwts_lse_fwd"] - launches["logwts_lse_bwd"]
+    n_chunks = -(-n_draws // 128)
+    if not (launches["bump_bwd"] == launches["logwts_lse_bwd"] > 0 and 1 <= n_prior <= 50
+            and launches["logwts_fwd"] == n_chunks and launches["bump_fwd"] == launches["logwts_lse_fwd"] + n_chunks
+            and launches["logwts_bwd"] == 0):
+        raise AssertionError(f"fit: launches are not one of each kernel per value+grad, {n_chunks} rows "
+                             f"forwards for the deterministics: {launches}")
+    warm = res.warmup_state
+    if warm.eps.shape != (c,) or not bool(torch.isfinite(warm.eps).all()) or not bool((warm.eps > 0).all()):
+        raise AssertionError(f"fit: adapted step sizes {warm.eps.tolist()}")
+    asym = float(((warm.cov - warm.cov.mT).abs().amax((1, 2)) / warm.cov.abs().amax((1, 2))).max())
+    info = torch.linalg.cholesky_ex(warm.cov).info
+    if asym > 1e-5 or bool((info != 0).any()):
+        raise AssertionError(f"fit: adapted covariances asymmetric by {asym:.2e} or without a Cholesky factor "
+                             f"(info {info.tolist()})")
+    for group, arrays in (("posterior", res.posterior), ("sample_stats", res.sample_stats)):
+        for k, v in arrays.items():
+            if v.shape[:2] != (c, FIT_SAMPLES) or not np.isfinite(v).all():
+                raise AssertionError(f"fit: {group} {k} of shape {v.shape} is not finite at ({c}, {FIT_SAMPLES})")
+    for group in ("posterior", "sample_stats"):
+        stored, made = getattr(trace, group), getattr(res, group)
+        if sorted(stored) != sorted(made) or not all(np.array_equal(stored[k], made[k]) for k in made):
+            raise AssertionError(f"fit: the trace's {group} does not read back equal")
+    if trace.attrs != {"model": "pop_cosmo", "family": "bump"} or sorted(trace.coords) != ["m_grid", "q_grid",
+                                                                                             "z_grid"]:
+        raise AssertionError(f"fit: trace attrs {trace.attrs}, coords {sorted(trace.coords)}")
+
+    # the deterministics through the kernels against the plain path, on the run's own draws
+    data = pop_cosmo_data_from_tables(pe, sel, dev)
+    bounds, qry = dl_bounds_of(data), query_table(data)
+    det = {plain: sampler.compute_deterministics(
+        seen["spec"], seen["thetas"], lambda s, plain=plain: pop_cosmo_deterministics(s, data, N_GRID, N_Z, bounds,
+                                                                                      qry, plain=plain))
+        for plain in (False, True)}
+    worst = {}
+    for k, ref in det[True].items():
+        for label, got in (("kernels", det[False][k]), ("trace", res.posterior[k])):
+            d = float((np.abs(got.astype(np.float64) - ref) / (1.0 + np.abs(ref))).max())
+            worst[k] = max(worst.get(k, 0.0), d)
+            if not d < 2e-4:
+                raise AssertionError(f"fit: deterministic {k} ({label}) against the plain path: "
+                                     f"|d|/(1+|ref|) = {d:.3e} (limit 2e-4)")
+
+    # what the run did, by warmup segment
+    st = seen["warm_stats"]
+    vg_at = {step: (v, t) for step, v, t in marks}
+    segments, start = [], 0
+    for n_steps, update in nuts.warmup_schedule(FIT_WARMUP):
+        sl = slice(start, start + n_steps)
+        per = [vg_at[i + 1][0] - vg_at[i][0] for i in range(start, start + n_steps)]
+        segments.append(dict(
+            steps=n_steps, mass_update_at_end=update, value_grads=int(sum(per)),
+            value_grads_per_transition=[min(per), round(sum(per) / n_steps, 2), max(per)],
+            seconds=round(vg_at[start + n_steps][1] - vg_at[start][1], 3),
+            mean_accept=round(float(st.accept_prob[:, sl].mean()), 4),
+            mean_tree_depth=round(float(st.tree_depth[:, sl].float().mean()), 3),
+            step_size_median_min_max=[float(f"{x:.4g}") for x in (st.step_size[:, sl].median(),
+                                                                   st.step_size[:, sl].min(),
+                                                                   st.step_size[:, sl].max())]))
+        start += n_steps
+    warm_vg = marks[-1][1] - seen["warmup_vg0"]
+    samp_vg = seen["sampling_vg"]
+    t = res.timings
+    ss = res.sample_stats
+    scalar = {k: v for k, v in res.posterior.items() if v.ndim == 2}
+    diag = summary(scalar)
+    ess_min = min(d["ess"] for d in diag.values())
+    rhat_max = max(d["rhat"] for d in diag.values())
+    eps = warm.eps
+    log(f"{tag} phase 7 run_pop_cosmo_fit from prior draws ({c} chains, {FIT_WARMUP} warmup steps, {FIT_SAMPLES} "
+        f"draws, max_depth {FIT_DEPTH}, n_grid {N_GRID}, n_z {N_Z}): {wall:.2f} s wall (host clock); warmup "
+        f"{t['warmup_s']:.2f} s ({warm_vg} batched value+grads, {1e3 * t['warmup_s'] / warm_vg:.2f} ms each, the "
+        f"step-size search's {seen['eps_search_vg']} included), sampling {t['sampling_s']:.2f} s ({samp_vg} batched "
+        f"value+grads, {1e3 * t['sampling_s'] / samp_vg:.2f} ms each; {n_draws / t['sampling_s']:.3f} draws/s), "
+        f"deterministics {t['deterministics_s']:.2f} s; {n_prior} potential evaluation(s) for the prior draws")
+    log(f"{tag} phase 7 warmup by segment: {json.dumps(segments)}")
+    log(f"{tag} phase 7 step sizes: after the search median {float(seen['eps0'].median()):.4g} (min "
+        f"{float(seen['eps0'].min()):.4g}, max {float(seen['eps0'].max()):.4g}); adapted (exp log_eps_bar) median "
+        f"{float(eps.median()):.4g} (min {float(eps.min()):.4g}, max {float(eps.max()):.4g}); sampling: mean accept "
+        f"{float(ss['accept_prob'].mean()):.3f}, mean tree depth {float(ss['tree_depth'].mean()):.2f}, divergences "
+        f"{int(ss['diverging'].sum())}; largest covariance asymmetry {asym:.2e}")
+    log(f"{tag} phase 7 diagnostics over {len(scalar)} scalar sites, from {FIT_SAMPLES} draws x {c} chains after "
+        f"{FIT_WARMUP} warmup steps (not an ESS/s measurement): min ESS {ess_min:.1f}, max R-hat {rhat_max:.3f}; "
+        f"deterministics kernels vs plain, largest |d|/(1+|ref|) {max(worst.values()):.2e}; launches {launches}")
+    return launches
 
 
 if __name__ == "__main__":

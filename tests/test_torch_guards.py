@@ -3,11 +3,13 @@
 * Importing the port pulls in neither JAX nor the JAX package.
 * No file of the port, and not ``chip_smoke.py``, names either package.
 * Entry points given ``device=None`` (meaning CUDA) raise on a host without
-  CUDA instead of carrying on on the CPU.
+  CUDA instead of carrying on on the CPU: the data loaders, the model spec,
+  the samplers, ``fit`` and the joint-fit stage, the mock campaign.
 * A kernel wrapper given a CUDA tensor raises on what the kernel does not take
   and never takes the plain twin.
 * The ctypes signatures agree with the ``extern "C"`` declarations they bind.
 """
+import functools
 import json
 import pathlib
 import re
@@ -21,8 +23,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "bumpcosmology_torch"
 
 
+@functools.lru_cache(maxsize=None)
 def _modules_after_importing_the_port():
-    """``sys.modules`` of a fresh interpreter that imported every port module."""
+    """``sys.modules`` of a fresh interpreter that imported every port module (one run per process)."""
     code = (
         "import sys, json, pkgutil, importlib, bumpcosmology_torch\n"
         "for m in pkgutil.walk_packages(bumpcosmology_torch.__path__, 'bumpcosmology_torch.'):\n"
@@ -31,7 +34,7 @@ def _modules_after_importing_the_port():
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    return json.loads(r.stdout.splitlines()[-1])
+    return tuple(json.loads(r.stdout.splitlines()[-1]))
 
 
 def test_import_leaves_jax_out():
@@ -55,6 +58,15 @@ def _hits(files, pattern):
 def test_no_port_file_names_the_jax_packages(pattern):
     files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
     assert not _hits(files, pattern)
+
+
+@pytest.mark.parametrize("name", ["inference/sampler.py", "inference/diagnostics.py", "utils/trace.py",
+                                  "utils/io.py", "pipeline/config.py", "pipeline/stages.py"])
+def test_the_guards_cover_the_fit_modules(name):
+    """The grep guard scans the fit's modules, and the import guard imports them."""
+    assert PORT / name in list(PORT.rglob("*.py"))
+    module = "bumpcosmology_torch." + name[:-3].replace("/", ".")
+    assert module in _modules_after_importing_the_port()
 
 
 def test_chip_smoke_imports_neither_package():
@@ -93,6 +105,35 @@ def test_run_sampling_raises_without_cuda(no_cuda):
     warm = load_warmup(ROOT / "benchmarks" / "flagship_warmup16.npz", device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         run_sampling(lambda th: (th * th).sum(-1), warm, 1)
+
+
+def _fit_entry_points():
+    import numpy as np
+
+    from bumpcosmology_torch.inference.distributions import Normal
+    from bumpcosmology_torch.inference.model import ModelSpec
+    from bumpcosmology_torch.inference.nuts import run_nuts, run_warmup
+    from bumpcosmology_torch.inference.sampler import fit
+    from bumpcosmology_torch.pipeline.config import PipelineConfig
+    from bumpcosmology_torch.pipeline.stages import run_pop_cosmo_fit
+
+    spec = ModelSpec(priors={"x": Normal(0.0, 1.0)}, loglike=lambda s: 0.0 * s["x"])
+    pot = lambda th: (th * th).sum(-1)  # noqa: E731
+    one = np.ones(4)
+    pe = {"m1": 30.0 * one, "q": 0.8 * one, "z": 0.5 * one, "wt": one, "evt": np.array([0, 0, 1, 1])}
+    sel = {"m1": 30.0 * one, "q": 0.8 * one, "z": 0.5 * one, "pdraw": one, "ndraw": 10.0 * one}
+    return {
+        "fit": lambda: fit(spec, 0, num_warmup=2, num_samples=2, num_chains=2),
+        "run_warmup": lambda: run_warmup(pot, torch.zeros(2, 3), 2),
+        "run_nuts": lambda: run_nuts(pot, torch.zeros(2, 3), 2, 2),
+        "run_pop_cosmo_fit": lambda: run_pop_cosmo_fit(PipelineConfig(), pe, sel),
+    }
+
+
+@pytest.mark.parametrize("entry", ["fit", "run_warmup", "run_nuts", "run_pop_cosmo_fit"])
+def test_fit_entry_points_raise_without_cuda(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _fit_entry_points()[entry]()
 
 
 def _mock_entry_points():

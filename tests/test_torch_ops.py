@@ -105,3 +105,22 @@ def test_table_fetch_is_full_fp32():
     import bumpcosmology_torch.inference.likelihoods  # noqa: F401  (the whole main path)
 
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_unit_bracket_takes_a_nan_position_as_the_reference_does():
+    """A diverging trajectory reaches NaN parameters: the gather must not see
+    an index cast from NaN (it raised here; JAX's gather clamps).  The value is
+    NaN, as JAX's; kernel B's twin takes the same bracket (index 0, as the
+    kernel's ``fmaxf``)."""
+    from bumpcosmology_torch.ops import cuda_logwts
+
+    fp = np.linspace(0.0, 1.0, 8, dtype=np.float32)
+    x = np.array([0.3, np.nan, np.inf, -np.inf], np.float32)
+    ref = jinterp._interp_unit_gather(jnp.asarray(x), 0.0, 0.125, jnp.asarray(fp))
+    got = tinterp.interp_unit_spaced(torch.as_tensor(x), 0.0, 0.125, torch.as_tensor(fp))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+    assert np.isnan(got[1].item())
+    batched = tinterp.interp_unit_spaced(torch.as_tensor(x)[None], 0.0, 0.125, torch.as_tensor(fp)[None])
+    assert torch.equal(batched[0].isnan(), got.isnan())
+    lo, t, slope = cuda_logwts._bracket(torch.tensor([2.5, float("nan")]), 8)
+    assert lo.tolist() == [2, 0] and t.isnan().tolist() == [False, True] and slope.tolist() == [True, False]
