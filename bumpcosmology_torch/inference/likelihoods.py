@@ -1,20 +1,25 @@
-"""The joint population + flat-wCDM likelihood, PISN-bump family (L2);
-counterpart of the JAX package's ``inference/likelihoods.py``.
+"""The PISN-bump family's likelihoods (L2); counterpart of the JAX package's
+``inference/likelihoods.py``: the joint population + flat-wCDM model and the
+population-only model at fixed Planck18, both batched over chains.
 
     log L = Σ_events [ logsumexp_samples(log w) − log nsamp ]  −  nobs·log μ_sel
     log μ_sel = logsumexp_injections(log w_sel) − log Ndraw
 
-batched over chains.  Every PE sample and injection is one row of a shared
+**Joint model.** Every PE sample and injection is one row of a shared
 ``(N, 4)`` query table; one kernel-B launch weighs all of them for all chains
 and reduces them to the per-event and selection log-sum-exps (the ``lse``
 epilogue), so the ``(C, N)`` weights never reach device memory on this path.
 :func:`pop_cosmo_event_sel_logwts` returns the weights themselves (the ``rows``
 epilogue) for the trace's deterministic sites (:func:`pop_cosmo_deterministics`).
-
 This mirrors the JAX package's fused/Pallas route
 (``_cosmo_frame_logwts_fused``, ``likelihoods.py:339-361``): the log(dL)-keyed
 detector table is built at ``n_z`` points, as ``likelihoods.py:472`` does
 (the TPU bracket path's ``n_det`` has no counterpart here).
+
+**Population-only model.** The rows are source-frame (m1, q, z), weighed at
+a fixed cosmology (:class:`FixedCosmoGrid`), so kernel B does not apply: the
+JAX package computes these weights in XLA, and the port in plain PyTorch with
+autograd (:func:`pop_loglike`).  Kernel A still builds the bump table.
 """
 from __future__ import annotations
 
@@ -27,7 +32,12 @@ import torch
 from bumpcosmology_torch.device import resolve_device
 from bumpcosmology_torch.inference.distributions import Normal, TruncatedNormal, Uniform
 from bumpcosmology_torch.inference.model import ModelSpec
-from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table, efunc
+from bumpcosmology_torch.models.cosmology import (
+    build_cosmology,
+    build_detector_table,
+    efunc,
+    planck18_log_dvdz_grid,
+)
 from bumpcosmology_torch.models.mass import DEFAULT_N_GRID, MREF
 from bumpcosmology_torch.models.parameters import (
     CosmoParams,
@@ -38,11 +48,15 @@ from bumpcosmology_torch.models.parameters import (
 from bumpcosmology_torch.models.population import COORDS, QREF, build_population, log_dndmdqdv
 from bumpcosmology_torch.models.redshift import ZREF
 from bumpcosmology_torch.ops.cuda_logwts import cosmo_frame_logwts, cosmo_frame_logwts_lse, query_rows
+from bumpcosmology_torch.ops.interp import interp_unit_spaced
 
 __all__ = [
     "EventData",
     "SelectionData",
+    "FixedCosmoGrid",
+    "PopData",
     "PopCosmoData",
+    "make_pop_data",
     "make_pop_cosmo_data",
     "population_from_sites",
     "cosmo_from_sites",
@@ -52,28 +66,60 @@ __all__ = [
     "pop_cosmo_event_sel_logwts",
     "pop_cosmo_loglike",
     "pop_cosmo_deterministics",
+    "pop_rows",
+    "pop_loglike",
+    "pop_deterministics",
+    "POP_PRIORS",
     "POP_COSMO_PRIORS",
+    "pop_model_spec",
     "pop_cosmo_model_spec",
 ]
 
 
 class EventData(NamedTuple):
-    """Per-event detector-frame PE samples, (nobs, nsamp) each."""
+    """Per-event PE samples, (nobs, nsamp) each: source-frame (m1, q, z) for
+    the population-only model, detector-frame (m1_det, q, dL) for the joint one."""
 
-    a: torch.Tensor  # m1_det
+    a: torch.Tensor  # m1 or m1_det
     q: torch.Tensor
-    c: torch.Tensor  # dL [Gpc]
+    c: torch.Tensor  # z or dL [Gpc]
     log_pdraw: torch.Tensor
 
 
 class SelectionData(NamedTuple):
     """Detected injections (nsel,) and the log of the number drawn."""
 
-    a: torch.Tensor
+    a: torch.Tensor  # m1 or m1_det
     q: torch.Tensor
-    c: torch.Tensor
+    c: torch.Tensor  # z or dL
     log_pdraw: torch.Tensor
     log_ndraw: torch.Tensor  # scalar
+
+
+class FixedCosmoGrid(NamedTuple):
+    """log[4π dVc/dz/(1+z)] at fixed Planck18 on the knots ``u0 + k du`` of
+    u = log1p(z) (``FixedCosmoGrid``, the JAX package's ``likelihoods.py:129-143``)."""
+
+    u0: float
+    du: float
+    log_dv: torch.Tensor  # (n,)
+
+    def log_dvdz_dt(self, z: torch.Tensor) -> torch.Tensor:
+        """The measure at redshifts ``z`` of any shape: a gather and lerp in full fp32."""
+        return interp_unit_spaced(torch.log1p(z), self.u0, self.du, self.log_dv)
+
+
+class PopData(NamedTuple):
+    events: EventData  # source frame (m1, q, z)
+    selection: SelectionData
+    planck: FixedCosmoGrid
+
+    def to(self, device) -> "PopData":
+        return PopData(
+            EventData(*(x.to(device) for x in self.events)),
+            SelectionData(*(x.to(device) for x in self.selection)),
+            self.planck._replace(log_dv=self.planck.log_dv.to(device)),
+        )
 
 
 class PopCosmoData(NamedTuple):
@@ -94,6 +140,31 @@ def _log_pdraw(pdraw, dtype, device):
     if np.any(pdraw <= 0) or not np.all(np.isfinite(pdraw)):
         raise ValueError("pdraw must be strictly positive and finite")
     return torch.as_tensor(np.log(pdraw), dtype=dtype, device=device)
+
+
+def make_pop_data(m1s, qs, zs, pdraw, m1s_sel, qs_sel, zs_sel, pdraw_sel, ndraw,
+                  dtype=torch.float32, device=None) -> PopData:
+    """Assemble source-frame :class:`PopData` from raw arrays on ``device``
+    (``None`` means CUDA), with the Planck18 measure at 1024 knots to z = 100."""
+    dev = resolve_device(device)
+    zgrid, log_dv = planck18_log_dvdz_grid()
+    du = np.log1p(zgrid[-1]) / (len(zgrid) - 1)
+    # the z = 0 knot is -inf (no comoving volume); the lerp f_lo + t (f_hi - f_lo)
+    # would make NaN of it at t = 0, so it is clamped to a finite value that is
+    # zero weight in float32, as the JAX package clamps it
+    finite_min = np.min(log_dv[np.isfinite(log_dv)])
+    log_dv = np.where(np.isfinite(log_dv), log_dv, finite_min - 200.0)
+    # u0 and du rounded to the table's dtype, as the JAX package stores them
+    as_dtype = lambda x: float(torch.tensor(x, dtype=dtype))  # noqa: E731
+    planck = FixedCosmoGrid(u0=0.0, du=as_dtype(du), log_dv=torch.as_tensor(log_dv, dtype=dtype, device=dev))
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)  # noqa: E731
+    ev = EventData(a=t(m1s), q=t(qs), c=t(zs), log_pdraw=_log_pdraw(pdraw, dtype, dev))
+    sel = SelectionData(
+        a=t(m1s_sel), q=t(qs_sel), c=t(zs_sel),
+        log_pdraw=_log_pdraw(pdraw_sel, dtype, dev),
+        log_ndraw=torch.log(torch.tensor(float(ndraw), dtype=dtype, device=dev)),
+    )
+    return PopData(events=ev, selection=sel, planck=planck)
 
 
 def make_pop_cosmo_data(m1s_det, qs, dls, pdraw, m1s_det_sel, qs_sel, dls_sel, pdraw_sel, ndraw,
@@ -247,6 +318,55 @@ def pop_cosmo_deterministics(sites: Dict[str, torch.Tensor], data: PopCosmoData,
     return out
 
 
+def pop_rows(data: PopData) -> torch.Tensor:
+    """(4, N) rows [m1, q, z, log pdraw]: every PE sample, then every injection."""
+    ev, sel = data.events, data.selection
+    return torch.stack([torch.cat([e.reshape(-1), x]) for e, x in
+                        ((ev.a, sel.a), (ev.q, sel.q), (ev.c, sel.c), (ev.log_pdraw, sel.log_pdraw))])
+
+
+def _pop_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopData, n_grid: int = DEFAULT_N_GRID,
+                          rows=None, plain: bool = False):
+    """``(pop, log_wts (C, nobs, nsamp), log_sel_wts (C, nsel))``: the
+    population-only model's source-frame weights (``_pop_event_sel_logwts``,
+    the JAX package's ``likelihoods.py:274-288``), every row of every chain in
+    one :func:`log_dndmdqdv` call (m1 and m2 share one table lookup).
+
+    ``rows`` is :func:`pop_rows` of ``data`` (computed if not given);
+    ``plain=True`` builds the bump table with kernel A's plain twin."""
+    nobs, nsamp = data.events.a.shape
+    m1, q, z, log_pdraw = pop_rows(data) if rows is None else rows
+    pop = build_population(population_from_sites(sites), n_grid, plain)
+    c = pop.mass_table.log_bump.shape[0]
+    log_w = (log_dndmdqdv(pop, m1.expand(c, -1), q.expand(c, -1), z.expand(c, -1))
+             + data.planck.log_dvdz_dt(z) - log_pdraw)
+    n_ev = nobs * nsamp
+    return pop, log_w[:, :n_ev].reshape(c, nobs, nsamp), log_w[:, n_ev:]
+
+
+def pop_loglike(sites: Dict[str, torch.Tensor], data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None,
+                plain: bool = False) -> torch.Tensor:
+    """Population-only log-likelihood for sites of shape ``(C,)``; returns
+    ``(C,)`` (``pop_loglike``, the JAX package's ``likelihoods.py:292-305``)."""
+    nobs, nsamp = data.events.a.shape
+    _, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, plain)
+    log_like = torch.logsumexp(log_w, -1) - math.log(nsamp)
+    log_mu_sel = torch.logsumexp(log_sel_w, -1) - data.selection.log_ndraw
+    return log_like.sum(-1) - nobs * log_mu_sel
+
+
+def pop_deterministics(sites: Dict[str, torch.Tensor], data: PopData, n_grid: int = DEFAULT_N_GRID,
+                       rows=None, plain: bool = False) -> Dict[str, torch.Tensor]:
+    """Every deterministic trace site of the population-only model for sites
+    of shape ``(C,)`` (``pop_deterministics``, ``likelihoods.py:554-560``): the
+    shared set, ``mbhmax`` and ``fpl``."""
+    nobs = data.events.a.shape[0]
+    pop, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, plain)
+    out = _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
+    out.update(_bump_extras(pop))
+    return out
+
+
 _MASS_PRIORS = {
     "a": TruncatedNormal(2.35, 2.0, low=-1.65, high=6.35),
     "b": TruncatedNormal(1.9, 2.0, low=-2.1, high=5.9),
@@ -272,7 +392,23 @@ _COSMO_PRIORS = {
 
 _RATE_PRIORS = {"R_unit": Normal(0.0, 1.0)}
 
+POP_PRIORS = {**_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
 POP_COSMO_PRIORS = {**_COSMO_PRIORS, **_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
+
+
+def pop_model_spec(data: PopData, n_grid: int = DEFAULT_N_GRID, device=None, plain: bool = False) -> ModelSpec:
+    """The population-only model as a :class:`ModelSpec` (12 sites) with
+    ``data`` on ``device`` (``None`` means CUDA; raises without it).  The
+    rows are stacked here, once; ``plain=True`` builds the bump table with
+    kernel A's plain twin (the on-card comparison uses it)."""
+    dev = resolve_device(device)
+    data = data.to(dev)
+    rows = pop_rows(data)
+    return ModelSpec(
+        priors=dict(POP_PRIORS),
+        loglike=lambda sites: pop_loglike(sites, data, n_grid, rows, plain),
+        device=dev,
+    )
 
 
 def pop_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,

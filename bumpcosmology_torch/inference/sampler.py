@@ -1,12 +1,13 @@
 """Fitting: ModelSpec → posterior draws, statistics and adapted state
 (L4); counterpart of the JAX package's ``inference/sampler.py`` with its
-default sampler, ``"nuts"``.
+three samplers: ``"nuts"``, ``"chees"`` and ``"nuts+chees"``
+(:mod:`bumpcosmology_torch.inference.chees`).
 
 Chains run as one batch on ``device`` (``None`` means CUDA).  The
 deterministic sites are a separate post-pass in chunks of draws, each chunk
-one chain batch of the model, so the NUTS loop carries no predictive-grid
-work.  One ``torch.Generator`` drives the prior draws, the warmup and the
-sampling, in that order.
+one chain batch of the model, so the sampling loop carries no
+predictive-grid work.  One ``torch.Generator`` drives the prior draws, the
+warmup and the sampling, in that order.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from bumpcosmology_torch.device import resolve_device
+from bumpcosmology_torch.inference.chees import run_chees, run_chees_from_warmup
 from bumpcosmology_torch.inference.diagnostics import summary
 from bumpcosmology_torch.inference.model import ModelSpec, constrain, make_potential, prior_sample
 from bumpcosmology_torch.inference.nuts import NutsConfig, WarmupResult, run_sampling, run_warmup
@@ -80,6 +82,36 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _fit_chees(spec, potential, gen, num_warmup, num_samples, num_chains, deterministics_fn, verbose,
+               dev) -> FitResult:
+    """The self-contained ChEES-HMC backend of :func:`fit` (``_fit_chees``,
+    sampler.py:89-123): from prior draws, with its own adaptation."""
+    timings: Dict[str, float] = {}
+    init_theta = _finite_prior_init(spec, potential, gen, num_chains)
+    t0 = time.perf_counter()
+    res = run_chees(potential, init_theta, num_warmup=num_warmup, num_samples=num_samples, generator=gen,
+                    device=dev, verbose=verbose)
+    _sync(dev)
+    timings["sampling_s"] = time.perf_counter() - t0
+    with torch.no_grad():
+        posterior = {name: v.cpu().numpy() for name, v in constrain(spec, res.thetas).items()}
+    sample_stats = _chees_stats(res)
+    if deterministics_fn is not None:
+        posterior.update(compute_deterministics(spec, res.thetas, deterministics_fn))
+    if verbose:
+        print(f"[fit/chees] {num_chains * num_samples} draws in {timings['sampling_s']:.1f}s "
+              f"({res.n_leapfrog} leapfrogs/draw, eps={res.eps:.4g})")
+    return FitResult(posterior=posterior, sample_stats=sample_stats, warmup_state=res.warm,
+                     final_state=res.warm, timings=timings)
+
+
+def _chees_stats(res) -> Dict[str, np.ndarray]:
+    """ChEES's sample statistics; ``n_leapfrog`` holds the mean count."""
+    acc = res.accept.cpu().numpy()
+    return {"accept_prob": acc, "diverging": res.diverging.cpu().numpy(),
+            "n_leapfrog": np.full_like(acc, res.n_leapfrog)}
+
+
 def fit(
     spec: ModelSpec,
     seed: Union[int, torch.Generator] = 0,
@@ -92,28 +124,36 @@ def fit(
     warmup_state: Optional[WarmupResult] = None,
     checkpoint_path: Optional[str] = None,
     sampler: str = "nuts",
+    chees_num_adapt: int = 150,
     verbose: bool = True,
     device=None,
 ) -> FitResult:
-    """Run NUTS on ``spec``: constrained posterior, statistics and states
+    """Sample ``spec``: constrained posterior, statistics and states
     (``fit``, sampler.py:126-324).
+
+    ``sampler`` is ``"nuts"``, ``"chees"`` (self-contained ChEES-HMC from
+    prior draws; it ignores ``init_theta``, ``warmup_state`` and
+    ``checkpoint_path``) or ``"nuts+chees"`` (the NUTS warmup, then
+    ``chees_num_adapt`` iterations of trajectory-length adaptation and
+    fixed-length jittered sampling on the NUTS kernel).
 
     ``seed`` is an int or a ``torch.Generator`` on ``device``.  ``device``
     (``None`` means CUDA; it raises without it) must be where ``spec``'s data
     lie.  ``warmup_state`` skips adaptation; so does an existing warmup
     checkpoint at ``checkpoint_path``, which is otherwise written after
-    warmup, beside the mid-sampling checkpoint.  ``deterministics_fn`` takes
-    batched sites and returns batched deterministic sites.
+    warmup (beside NUTS's mid-sampling checkpoint).  ``deterministics_fn``
+    takes batched sites and returns batched deterministic sites.
     """
     dev = resolve_device(device)
     if spec.device.type != dev.type:
         raise ValueError(f"the spec's data lie on {spec.device}, but the fit was asked to run on {dev}")
-    if sampler in ("chees", "nuts+chees"):
-        raise NotImplementedError(f"sampler={sampler!r} is not ported yet (ROADMAP.md, Queue 1 item 5)")
-    if sampler != "nuts":
-        raise ValueError(f"unknown sampler {sampler!r}; use 'nuts'")
     gen = seed if isinstance(seed, torch.Generator) else torch.Generator(device=dev).manual_seed(seed)
     potential = make_potential(spec)
+    if sampler == "chees":
+        return _fit_chees(spec, potential, gen, num_warmup, num_samples, num_chains, deterministics_fn, verbose,
+                          dev)
+    if sampler not in ("nuts", "nuts+chees"):
+        raise ValueError(f"unknown sampler {sampler!r}; use 'nuts', 'chees', or 'nuts+chees'")
     timings: Dict[str, float] = {}
 
     if warmup_state is None and checkpoint_path is not None and os.path.exists(checkpoint_file(checkpoint_path)):
@@ -145,28 +185,36 @@ def fit(
         warm = warmup_state
 
     t0 = time.perf_counter()
-    sample_progress = None
-    if verbose:
-        def sample_progress(done, total):
-            if done % 100 == 0 or done == total:
-                print(f"[fit] sampling {done}/{total} ({time.perf_counter() - t0:.0f}s)", flush=True)
-    res = run_sampling(potential, warm, num_samples, cfg, generator=gen, device=dev,
-                       progress=sample_progress, checkpoint_path=checkpoint_path)
-    _sync(dev)
-    timings["sampling_s"] = time.perf_counter() - t0
+    if sampler == "nuts+chees":
+        # NUTS-quality windowed adaptation (above), then fixed-length jittered
+        # HMC: no ragged trees, and only the trajectory length is adapted here
+        res = run_chees_from_warmup(potential, warm, num_adapt=chees_num_adapt, num_samples=num_samples,
+                                    generator=gen, device=dev, verbose=verbose)
+        _sync(dev)
+        timings["sampling_s"] = time.perf_counter() - t0
+        thetas, final, sample_stats = res.thetas, res.warm, _chees_stats(res)
+    else:
+        sample_progress = None
+        if verbose:
+            def sample_progress(done, total):
+                if done % 100 == 0 or done == total:
+                    print(f"[fit] sampling {done}/{total} ({time.perf_counter() - t0:.0f}s)", flush=True)
+        res = run_sampling(potential, warm, num_samples, cfg, generator=gen, device=dev,
+                           progress=sample_progress, checkpoint_path=checkpoint_path)
+        _sync(dev)
+        timings["sampling_s"] = time.perf_counter() - t0
+        thetas, final, st = res.thetas, res.warm, res.stats
+        sample_stats = {
+            "accept_prob": st.accept_prob, "diverging": st.diverging, "tree_depth": st.tree_depth,
+            "n_leapfrog": st.n_leapfrog, "potential_energy": st.energy, "step_size": st.step_size,
+        }
+        sample_stats = {k: v.cpu().numpy() for k, v in sample_stats.items()}
 
     with torch.no_grad():
-        posterior = {name: v.cpu().numpy() for name, v in constrain(spec, res.thetas).items()}
-    st = res.stats
-    sample_stats = {
-        "accept_prob": st.accept_prob, "diverging": st.diverging, "tree_depth": st.tree_depth,
-        "n_leapfrog": st.n_leapfrog, "potential_energy": st.energy, "step_size": st.step_size,
-    }
-    sample_stats = {k: v.cpu().numpy() for k, v in sample_stats.items()}
-
+        posterior = {name: v.cpu().numpy() for name, v in constrain(spec, thetas).items()}
     if deterministics_fn is not None:
         t0 = time.perf_counter()
-        posterior.update(compute_deterministics(spec, res.thetas, deterministics_fn))
+        posterior.update(compute_deterministics(spec, thetas, deterministics_fn))
         timings["deterministics_s"] = time.perf_counter() - t0
 
     if verbose:
@@ -189,4 +237,4 @@ def fit(
             )
 
     return FitResult(posterior=posterior, sample_stats=sample_stats, warmup_state=warm,
-                     final_state=res.warm, timings=timings)
+                     final_state=final, timings=timings)

@@ -33,6 +33,7 @@ __all__ = [
     "dl_at_z",
     "dvc_and_ddl_at_z",
     "planck18_table",
+    "planck18_log_dvdz_grid",
 ]
 
 HUBBLE_DISTANCE_H = 2.99792458  # c / (100 km/s/Mpc) in Gpc
@@ -155,3 +156,13 @@ def planck18_table(device=None, dtype=torch.float32, n: int = 8192) -> Cosmology
         u0=0.0, du=math.log1p(DEFAULT_ZMAX) / (n - 1),
         z=z, dc=dc[None], dl=dl[None], ddl=ddl[None], dvc=dvc[None],
     )
+
+
+def planck18_log_dvdz_grid(zmax: float = DEFAULT_ZMAX, n: int = DEFAULT_NZ):
+    """``(z, log[4 pi dVc/dz / (1+z)])`` at fixed Planck18, float64 numpy on a
+    log1p(z)-uniform grid, ``-inf`` at z = 0: the measure the population-only
+    likelihood interpolates (``planck18_log_dvdz_grid``, the JAX package's
+    ``models/cosmology.py:286-301``).  ``dvc`` already spans the 4 pi of sky."""
+    z, _, _, _, dvc = _planck18_numpy(zmax, n)
+    log_dvc = np.log(dvc, out=np.full_like(dvc, -np.inf), where=dvc > 0)
+    return z, np.where(z > 0, log_dvc - np.log1p(z), -np.inf)

@@ -1,5 +1,25 @@
 """L0 numerics and the hand-written CUDA kernels; see the JAX package's ``ops``.
 
-``cuda_bump`` (kernel A) and ``cuda_logwts`` (kernel B) replace the Pallas
-kernels ``ops/pallas_bump.py`` and ``ops/pallas_logwts.py`` of the JAX package.
+The package exports the JAX package's public ``ops`` helpers that the port
+has, except the two whose names are those of their modules (``interp`` and
+``logsumexp``: take them from ``ops.interp`` and ``ops.logsumexp``), so that
+``ops.interp`` stays the module.  The mesh-sharded log-sum-exp and the TPU
+interpolation-method switch have no counterpart.  ``cuda_bump`` (kernel A)
+and ``cuda_logwts`` (kernel B) replace the Pallas kernels
+``ops/pallas_bump.py`` and ``ops/pallas_logwts.py`` of the JAX package.
 """
+from bumpcosmology_torch.ops.integrate import cumtrapz, log_cumtrapz, log_trapz, trapz
+from bumpcosmology_torch.ops.interp import interp_unit_spaced, inverse_interp
+from bumpcosmology_torch.ops.logsumexp import log_neff, logmeanexp, neff
+
+__all__ = [
+    "cumtrapz",
+    "trapz",
+    "log_trapz",
+    "log_cumtrapz",
+    "interp_unit_spaced",
+    "inverse_interp",
+    "logmeanexp",
+    "log_neff",
+    "neff",
+]

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["interp", "interp_unit_spaced", "interp_unit_spaced_columns", "unit_bracket"]
+__all__ = ["interp", "inverse_interp", "interp_unit_spaced", "interp_unit_spaced_columns", "unit_bracket"]
 
 
 def _take(fp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -40,6 +40,12 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     t = torch.where(pos, (x - x_lo) / torch.where(pos, denom, torch.ones_like(denom)), 0.0)
     t = t.clamp(0.0, 1.0)  # constant extrapolation at both ends
     return f_lo + t * (f_hi - f_lo)
+
+
+def inverse_interp(y: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """The ``x`` at which ``interp(x, xp, fp)`` equals ``y``, for ``fp``
+    strictly increasing (the distance tables): ``interp(y, fp, xp)``."""
+    return interp(y, fp, xp)
 
 
 def unit_bracket(x: torch.Tensor, x0, dx, n: int):

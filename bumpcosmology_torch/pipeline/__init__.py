@@ -1,1 +1,1 @@
-"""The pipeline stages of the port (L4/L6); the joint fit stage so far."""
+"""The pipeline stages of the port (L4/L6): the population-only and joint fits."""

@@ -27,7 +27,7 @@ class PathsConfig:
 
 @dataclass
 class FitConfig:
-    """NUTS configuration (``run_fit.py:11-14``, ``run_cosmo_fit.py:17-19``)."""
+    """Sampler configuration (``run_fit.py:11-14``, ``run_cosmo_fit.py:17-19``)."""
 
     num_warmup: int = 1000
     num_samples: int = 1000
@@ -41,7 +41,9 @@ class FitConfig:
     n_chain_shards: int = 1  # mesh rows for the chains axis (not ported: one card)
     shared_mass: bool = False  # pool mass-matrix adaptation across chains
     mass_family: str = "bump"  # only the PISN-bump family is ported
-    sampler: str = "nuts"  # "chees" and "nuts+chees" are not ported
+    # "nuts" (reference parity), "chees", or "nuts+chees" (NUTS warmup +
+    # fixed-length jittered sampling — the ragged-tree-free TPU config)
+    sampler: str = "nuts"
 
 
 @dataclass

@@ -1,5 +1,7 @@
 """Synthetic inputs for the tests and the on-card check.
 
+* :func:`synthetic_pop_data`: source-frame catalogs, the same numpy draws
+  as the JAX package's ``testing.py::synthetic_pop_data``.
 * :func:`synthetic_pop_cosmo_data`: detector-frame catalogs; counterpart of
   the JAX package's ``testing.py::synthetic_pop_cosmo_data``.  Same numpy
   draws from the seed; dL comes from this package's fixed Planck18 table, so
@@ -16,10 +18,10 @@ import math
 import numpy as np
 import torch
 
-from bumpcosmology_torch.inference.likelihoods import PopCosmoData, make_pop_cosmo_data
+from bumpcosmology_torch.inference.likelihoods import PopCosmoData, PopData, make_pop_cosmo_data, make_pop_data
 from bumpcosmology_torch.models.cosmology import dl_at_z, planck18_table
 
-__all__ = ["synthetic_pop_cosmo_data", "snr_knot_rows"]
+__all__ = ["synthetic_pop_data", "synthetic_pop_cosmo_data", "snr_knot_rows"]
 
 
 def _source_frame(nobs, nsamp, nsel, seed):
@@ -33,6 +35,11 @@ def _source_frame(nobs, nsamp, nsel, seed):
     z_s = rng.uniform(0.02, 1.5, size=nsel)
     pd_s = rng.uniform(0.5, 2.0, size=nsel)
     return m1, q, z, pdraw, m1_s, q_s, z_s, pd_s
+
+
+def synthetic_pop_data(nobs=56, nsamp=128, nsel=1024, seed=0, device=None) -> PopData:
+    """A source-frame catalog (m1, q, z) on ``device`` (``None`` means CUDA)."""
+    return make_pop_data(*_source_frame(nobs, nsamp, nsel, seed), ndraw=float(nsel * 100), device=device)
 
 
 def synthetic_pop_cosmo_data(nobs=56, nsamp=128, nsel=1024, seed=0, device=None) -> PopCosmoData:

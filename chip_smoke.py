@@ -9,8 +9,10 @@ It drives the port's main path — the flagship joint population + flat-wCDM
 fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
 24,576 injections: 38,912 queries per chain), ``n_grid=256``, ``n_z=1024``,
 16 chains sampled with dense-mass NUTS from ``benchmarks/flagship_warmup16.npz``
-(phase 5) and fitted from prior draws to a trace (phase 7) — and holds every
-CUDA kernel against its plain PyTorch twin:
+(phase 5) and fitted from prior draws to a trace (phase 7) — and the paths
+beside it: the mock campaign (phase 6), the population-only fit (phase 8) and
+the ChEES samplers (phase 9); and it holds every CUDA kernel against its plain
+PyTorch twin:
 
 1. build every kernel from ``bumpcosmology_torch/csrc`` (one nvcc per source),
    and time the card's launch floor: an empty kernel through the same ctypes
@@ -60,9 +62,30 @@ CUDA kernel against its plain PyTorch twin:
    Cholesky factor, every posterior site and statistic finite at (16, 10[,
    k]), the trace must read back equal, and the deterministics through the
    kernels must match the plain path on the same draws within
-   |d|/(1+|ref|) < 2e-4.
+   |d|/(1+|ref|) < 2e-4;
+8. the population-only fit from prior draws: ``run_pop_fit`` on the same
+   catalog taken back to the source frame (56 x 256 PE samples and 24,576
+   injections, ``n_grid=256``), 16 chains, the same 30 warmup steps and 10
+   draws at ``max_depth`` 5, with the checks of phase 7: kernel A forward
+   and backward once per batched value+grad (the forward alone for the prior
+   draws' potentials and each chunk of deterministics), kernel B never (the
+   source-frame weights are plain torch); the potential through kernel A
+   against its plain twin at the adapted state (phase 4's limits), and its
+   value+grad timed with CUDA events;
+9. the ChEES samplers, every launch count set to 0 just before and read
+   just after each: (a) ``fit(sampler="nuts+chees")`` on the joint model from
+   the committed adapted state, 10 iterations adapting T and 10 draws, kernel
+   A and B's ``lse`` once per batched value+grad (the recompute of the stored
+   state and every leapfrog), B's ``rows`` once per chunk of deterministics,
+   then one ChEES iteration under the profiler and one trajectory under
+   ``torch.cuda.set_sync_debug_mode("warn")`` (its synchronizations are
+   printed, not held); (b) ``run_chees`` on the population-only potential
+   from phase 8's prior draws (``warmup_schedule(30)``, 10 draws, at most 64
+   leapfrogs a trajectory), kernel A once per batched value+grad.
 
-Every kernel is timed twice: ``ms`` is its device time (20 launches captured
+The ``kernels`` line's ``launches`` are phase 7's (the joint fit, C: phase
+6's campaign); ``launches_by_path`` adds phases 8 and 9.  Every kernel is
+timed twice: ``ms`` is its device time (20 launches captured
 in one CUDA graph and replayed, so the host's queueing rate is out of the
 figure), ``call_ms`` the time of one call of its Python wrapper as the main
 path pays it (CUDA events around 20 eager calls).
@@ -91,8 +114,10 @@ SEED = 20261016
 N_GRID, N_Z = 256, 1024
 N_DRAWS = 5
 MAX_DEPTH = 10
-# phase 7: the fit from prior draws, cut in depth (warmup_schedule(30): 15, 5 with a mass update, 10)
-FIT_CHAINS, FIT_WARMUP, FIT_SAMPLES, FIT_DEPTH = 16, 30, 10, 6
+# phases 7 and 8: the fits from prior draws, cut in depth (warmup_schedule(30): 15, 5 with a mass update, 10)
+FIT_CHAINS, FIT_WARMUP, FIT_SAMPLES, FIT_DEPTH, POP_FIT_DEPTH = 16, 30, 10, 6, 5
+# phase 9: ChEES; 9a the hybrid from the committed adapted state, 9b run_chees from phase 8's prior draws
+CHEES_ADAPT, CHEES_SAMPLES, CHEES_WARMUP, CHEES_MAX_LEAPFROGS = 10, 10, 30, 64
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -249,6 +274,7 @@ def main() -> int:
     from bumpcosmology_torch.inference.likelihoods import (
         cosmo_from_sites,
         dl_bounds_of,
+        pop_cosmo_deterministics,
         pop_cosmo_event_sel_logwts,
         pop_cosmo_model_spec,
         population_from_sites,
@@ -553,18 +579,32 @@ def main() -> int:
     log(f"{tag} phase 5 diagnostics on the last draw of {c} chains (rows epilogue): neff_sel min "
         f"{float(neff_sel.min()):.1f}, median {float(neff_sel.median()):.1f}; per-event neff min "
         f"{float(neff.min()):.2f}, median {float(neff.median()):.2f} of {nsamp} samples")
+    vg_per_s_nuts = n_vg / wall
     phase_done("5_sampling")
-    log(f"{tag} phase 5 profile: " + device_busy_share(pot, out.warm))
+    log(f"{tag} phase 5 profile: " + device_busy_share(
+        lambda: run_sampling(pot, out.warm, 1, NutsConfig(max_depth=4), seed=SEED + 1), "one draw at max_depth 4"))
     phase_done("5_profile")
 
     # ---- phase 6: the mock injection campaign through kernel C ------------
     rows["snr_integral"], mock_launches = mock_campaign_phase(dev, tag)
     phase_done("6_mock_campaign")
 
-    # ---- phase 7: the fit from prior draws to a trace ----------------------
-    launches = fit_phase(dev, tag)
+    # ---- phase 7: the joint fit from prior draws to a trace --------------
+    launches = fit_phase(dev, tag, "joint")[0]
     launches["snr_integral"] = mock_launches["snr_integral"]
     phase_done("7_fit")
+
+    # ---- phase 8: the population-only fit from prior draws to a trace ----
+    pop_launches, pop_spec, pop_theta0 = fit_phase(dev, tag, "pop")
+    phase_done("8_pop_fit")
+
+    # ---- phase 9: the ChEES samplers -----------------------------------
+    hybrid_launches = chees_hybrid_phase(
+        dev, tag, spec, warm, lambda s: pop_cosmo_deterministics(s, spec_data, N_GRID, N_Z, spec_bounds, qry),
+        vg_per_s_nuts)
+    phase_done("9a_nuts_chees")
+    chees_launches = chees_pop_phase(dev, tag, pop_spec, pop_theta0)
+    phase_done("9b_chees_pop")
     log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
 
     sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
@@ -591,8 +631,12 @@ def main() -> int:
         elif name == "logwts_bwd":
             status = ("ok: built, matches its plain twin; launched in the phase-3 comparison only "
                       "(the main path's gradient takes the lse epilogue)")
+        by_path = {"7_joint_fit": launches[name]} if name != "snr_integral" else {"6_mock_campaign": launches[name]}
+        if name != "snr_integral":
+            by_path.update({"8_pop_fit": pop_launches[name], "9a_nuts_chees": hybrid_launches[name],
+                            "9b_chees_pop": chees_launches[name]})
         kernels.append(dict(name=name, route="cuda", source=sources[name.split("_")[0]],
-                            replaces=replaces[name], launches=launches[name],
+                            replaces=replaces[name], launches=launches[name], launches_by_path=by_path,
                             max_abs_err=row["max_abs_err"], ms=row["ms"], call_ms=row["call_ms"],
                             plain_ms=row["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
                             status=status))
@@ -603,25 +647,24 @@ def main() -> int:
     return 0
 
 
-def device_busy_share(potential, warm, max_depth: int = 4) -> str:
-    """Share of the wall time of one short NUTS draw (``max_depth`` 4: at
-    most 15 batched value+grads) in which the card runs a kernel, from a
-    ``torch.profiler`` trace (CUDA activity).  A full-depth draw makes some
+def device_busy_share(run, label: str) -> str:
+    """Share of the wall time of ``run()`` in which the card runs a kernel,
+    from a ``torch.profiler`` trace (CUDA activity).  ``run`` is kept short
+    (at most some 15 batched value+grads): a full-depth NUTS draw makes some
     10^6 device activities, which take the profiler minutes to collect."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from bumpcosmology_torch.inference.nuts import NutsConfig, run_sampling
-    from bumpcosmology_torch.ops import cuda_logwts
+    from bumpcosmology_torch.ops import cuda_bump
 
     torch.cuda.synchronize()
-    vg0 = cuda_logwts.LAUNCHES["logwts_lse_fwd"]
+    vg0 = cuda_bump.LAUNCHES["bump_bwd"]  # one per batched value+grad, on either model
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_sampling(potential, warm, 1, NutsConfig(max_depth=max_depth), seed=SEED + 1)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    n_vg = cuda_logwts.LAUNCHES["logwts_lse_fwd"] - vg0
+    n_vg = cuda_bump.LAUNCHES["bump_bwd"] - vg0
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         return "device busy share not measured (the profiler recorded no device activity)"
@@ -634,11 +677,197 @@ def device_busy_share(potential, warm, max_depth: int = 4) -> str:
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return (f"one draw at max_depth {max_depth} under the profiler: {n_vg} batched value+grads, "
+    return (f"{label} under the profiler: {n_vg} batched value+grads, "
             f"{len(events)} device activities ({len(events) / max(n_vg, 1):.0f} per value+grad), "
             f"device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.1f} ms wall "
             f"(busy share {busy / wall_us:.4f}, idle share {1 - busy / wall_us:.4f}); top device time: "
             + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top))
+
+
+def _counting_hmc_steps(steps: list):
+    """Wrap ``chees._hmc_step`` to record each trajectory's leapfrog count;
+    returns the function that restores it."""
+    from bumpcosmology_torch.inference import chees
+
+    real = chees._hmc_step
+
+    def counted(vg, state, eps, n_steps, *args):
+        steps.append(n_steps)
+        return real(vg, state, eps, n_steps, *args)
+
+    chees._hmc_step = counted
+    return lambda: setattr(chees, "_hmc_step", real)
+
+
+def _zero_counters():
+    import torch
+
+    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+
+    for cnt in (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES):
+        for k in cnt:
+            cnt[k] = 0
+    torch.cuda.synchronize()
+
+
+def _read_counters():
+    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+
+    return {k: v for cnt in (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES) for k, v in cnt.items()}
+
+
+def chees_hybrid_phase(dev, tag: str, spec, warm, det_fn, vg_per_s_nuts: float):
+    """Phase 9a: ``fit(sampler="nuts+chees")`` on the joint model at full
+    width from the committed adapted state (``CHEES_ADAPT`` iterations of
+    trajectory-length adaptation, ``CHEES_SAMPLES`` draws), with every launch
+    count set to 0 just before and read just after: kernel A and kernel B's
+    ``lse`` epilogue once per batched value+grad (the state's recompute and
+    every leapfrog), B's ``rows`` forward once per chunk of the
+    deterministics.  Then one ChEES iteration under the profiler, and one
+    trajectory under ``torch.cuda.set_sync_debug_mode("warn")`` (the
+    synchronizations are counted, not held).  Returns the launch counts."""
+    import traceback
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from bumpcosmology_torch.inference import chees, sampler
+    from bumpcosmology_torch.inference.model import make_potential
+    from bumpcosmology_torch.inference.nuts import ChainState
+
+    seen, steps = {}, []
+    real_run = sampler.run_chees_from_warmup
+
+    def run(*args, **kwargs):
+        seen["res"] = real_run(*args, **kwargs)
+        return seen["res"]
+
+    restore = _counting_hmc_steps(steps)
+    sampler.run_chees_from_warmup = run
+    try:
+        _zero_counters()
+        t0 = time.perf_counter()
+        res = sampler.fit(spec, SEED, num_samples=CHEES_SAMPLES, num_chains=FIT_CHAINS, deterministics_fn=det_fn,
+                          warmup_state=warm, sampler="nuts+chees", chees_num_adapt=CHEES_ADAPT, verbose=False,
+                          device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters()
+    finally:
+        restore()
+        sampler.run_chees_from_warmup = real_run
+    ch = seen["res"]
+    c, n_chunks = FIT_CHAINS, -(-FIT_CHAINS * CHEES_SAMPLES // 128)
+    n_vg = 1 + sum(steps)  # the warm state's recompute, then one per leapfrog
+    if not (launches["bump_bwd"] == launches["logwts_lse_bwd"] == launches["logwts_lse_fwd"] == n_vg
+            and launches["bump_fwd"] == n_vg + n_chunks and launches["logwts_fwd"] == n_chunks
+            and launches["logwts_bwd"] == 0):
+        raise AssertionError(f"nuts+chees: launches are not one of each kernel per value+grad ({n_vg}) and one "
+                             f"rows forward per chunk ({n_chunks}): {launches}")
+    if len(steps) != CHEES_ADAPT + CHEES_SAMPLES:
+        raise AssertionError(f"nuts+chees: {len(steps)} trajectories, not {CHEES_ADAPT} + {CHEES_SAMPLES}")
+    for group, arrays in (("posterior", res.posterior), ("sample_stats", res.sample_stats)):
+        for k, v in arrays.items():
+            if v.shape[:2] != (c, CHEES_SAMPLES) or not np.isfinite(v).all():
+                raise AssertionError(f"nuts+chees: {group} {k} of shape {v.shape} is not finite at "
+                                     f"({c}, {CHEES_SAMPLES})")
+    acc = res.sample_stats["accept_prob"]
+    if not (math.isfinite(ch.trajectory_length) and ch.trajectory_length > 0 and ch.eps > 0
+            and ((acc >= 0) & (acc <= 1)).all()):
+        raise AssertionError(f"nuts+chees: T {ch.trajectory_length}, eps {ch.eps}, accept {acc.min()}-{acc.max()}")
+    if ch.max_abs_du >= 0.05:
+        raise AssertionError(f"nuts+chees: recomputed u differs from the stored state by {ch.max_abs_du:.4f} nats")
+    t = res.timings
+    log(f"{tag} phase 9a fit(sampler='nuts+chees') on the joint model ({c} chains from the committed adapted "
+        f"state, {CHEES_ADAPT} adaptation iterations, {CHEES_SAMPLES} draws, n_grid {N_GRID}, n_z {N_Z}): "
+        f"{wall:.2f} s wall (host clock), sampling {t['sampling_s']:.2f} s, deterministics "
+        f"{t['deterministics_s']:.2f} s; T {ch.trajectory_length:.4g}, eps {ch.eps:.4g}, n_leapfrog (mean count) "
+        f"{ch.n_leapfrog}, leapfrogs by trajectory: adaptation {steps[:CHEES_ADAPT]}, sampling {steps[CHEES_ADAPT:]}; "
+        f"mean accept {float(acc.mean()):.3f}, divergences {int(res.sample_stats['diverging'].sum())}, "
+        f"max |du| of the recompute {ch.max_abs_du:.5f}; {n_vg} batched value+grads, "
+        f"{1e3 * t['sampling_s'] / n_vg:.2f} ms each, {n_vg / t['sampling_s']:.1f}/s (NUTS in phase 5: "
+        f"{vg_per_s_nuts:.1f}/s); {c * CHEES_SAMPLES / t['sampling_s']:.3f} draws/s with the adaptation; "
+        f"launches {launches}")
+
+    # one adaptation iteration under the profiler, then one trajectory under the sync debug mode
+    pot = make_potential(spec)
+    final = res.final_state
+    state = ChainState(*final.state)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n = min(ch.n_leapfrog, 12)
+    adam = chees._adam_init(ch.trajectory_length, state.theta)
+    args = (final.eps, n, final.cov, final.chol_cov)
+    log(f"{tag} phase 9a profile: " + device_busy_share(
+        lambda: chees._t_adapt_iteration(pot, state, *args, adam, *chees._draws(gen, state.theta),
+                                         chees.CheesConfig()), f"one ChEES iteration of {n} leapfrogs"))
+    xi, uniform = chees._draws(gen, state.theta)
+    chees._hmc_step(chees._vg(pot), state, *args, xi, uniform)  # once outside the count
+    torch.cuda.synchronize()
+    syncs = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()[:-1] if Path(f.filename).name != "warnings.py"]
+        # the trajectory's own (enabling the mode warns once from the setter itself), innermost frame first
+        if "synchroniz" in str(message) and any(f.name == "_hmc_step" for f in frames):
+            syncs.append(" <- ".join(f"{Path(f.filename).parent.name}/{Path(f.filename).name}:{f.lineno} {f.name}"
+                                     for f in reversed(frames[-6:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            chees._hmc_step(chees._vg(pot), state, *args, xi, uniform)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = sorted(set(syncs))
+    log(f"{tag} phase 9a synchronizations in one trajectory of {n} leapfrogs under "
+        f"torch.cuda.set_sync_debug_mode('warn'): {len(syncs)}" + (f", from {sites}" if sites else ""))
+    return launches
+
+
+def chees_pop_phase(dev, tag: str, spec, theta0):
+    """Phase 9b: ``run_chees`` on the population-only potential from phase 8's
+    prior draws (``CHEES_WARMUP`` steps of Stan's windows, ``CHEES_SAMPLES``
+    draws, at most ``CHEES_MAX_LEAPFROGS`` a trajectory, which bounds the
+    phase's time while the step size still adapts), with every launch count
+    set to 0 just before and read just after: kernel A forward and backward
+    once per batched value+grad, kernel B never.  Returns the launch counts."""
+    import torch
+
+    from bumpcosmology_torch.inference import chees
+    from bumpcosmology_torch.inference.model import make_potential
+
+    steps = []
+    restore = _counting_hmc_steps(steps)
+    try:
+        _zero_counters()
+        t0 = time.perf_counter()
+        res = chees.run_chees(make_potential(spec), theta0, num_warmup=CHEES_WARMUP, num_samples=CHEES_SAMPLES,
+                              cfg=chees.CheesConfig(max_leapfrogs=CHEES_MAX_LEAPFROGS), seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters()
+    finally:
+        restore()
+    n_vg = 1 + sum(steps)  # the start's value+grad, then one per leapfrog
+    if not (launches["bump_fwd"] == launches["bump_bwd"] == n_vg
+            and not any(v for k, v in launches.items() if k.startswith("logwts"))):
+        raise AssertionError(f"chees: kernel A not once per value+grad ({n_vg}), or kernel B launched: {launches}")
+    c, dim = theta0.shape
+    if (res.thetas.shape != (c, CHEES_SAMPLES, dim) or not bool(torch.isfinite(res.thetas).all())
+            or not math.isfinite(res.trajectory_length) or not res.eps > 0):
+        raise AssertionError(f"chees: draws of shape {tuple(res.thetas.shape)} finite "
+                             f"{bool(torch.isfinite(res.thetas).all())}, T {res.trajectory_length}, eps {res.eps}")
+    log(f"{tag} phase 9b run_chees on the pop potential ({c} chains from phase 8's prior draws, "
+        f"warmup_schedule({CHEES_WARMUP}), {CHEES_SAMPLES} draws, max_leapfrogs {CHEES_MAX_LEAPFROGS}): {wall:.2f} s "
+        f"wall (host clock), {n_vg} batched value+grads, {1e3 * wall / n_vg:.2f} ms each; adapted eps "
+        f"{res.eps:.4g}, T {res.trajectory_length:.4g}, n_leapfrog (mean count) {res.n_leapfrog}; leapfrogs by "
+        f"trajectory: warmup {steps[:CHEES_WARMUP]}, sampling {steps[CHEES_WARMUP:]}; sampling mean accept "
+        f"{float(res.accept.mean()):.3f}, divergences {int(res.diverging.sum())}; launches {launches}")
+    return launches
 
 
 def max_sm_clock_hz() -> float:
@@ -878,30 +1107,38 @@ def flagship_source_tables():
     return pe, sel
 
 
-def fit_phase(dev, tag: str):
-    """Phase 7: ``run_pop_cosmo_fit`` from prior draws to a trace at the
-    flagship's width, cut in depth.  The samplers are wrapped only to observe:
-    the step-size search's and each warmup transition's value+grads (kernel
-    B's ``lse`` backward count), the warmup statistics and the draws.  Returns
-    the launch counts of the run."""
+def fit_phase(dev, tag: str, model: str):
+    """Phase 7 (``model="joint"``: ``run_pop_cosmo_fit``) or phase 8
+    (``model="pop"``: ``run_pop_fit``): the fit from prior draws to a trace at
+    the flagship's width, cut in depth.  The samplers are wrapped only to
+    observe: the prior draws, the step-size search's and each warmup
+    transition's value+grads (kernel A's backward count, one per batched
+    value+grad on either model), the warmup statistics and the draws.
+    Returns (the launch counts of the run, the spec, the prior draws)."""
     import tempfile
 
     import numpy as np
     import torch
 
+    from bumpcosmology_torch.inference import likelihoods as lk
     from bumpcosmology_torch.inference import nuts, sampler
     from bumpcosmology_torch.inference.diagnostics import summary
-    from bumpcosmology_torch.inference.likelihoods import dl_bounds_of, pop_cosmo_deterministics, query_table
-    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+    from bumpcosmology_torch.inference.model import make_potential, value_and_grad
+    from bumpcosmology_torch.ops import cuda_bump
+    from bumpcosmology_torch.pipeline import stages
     from bumpcosmology_torch.pipeline.config import FitConfig, PathsConfig, PipelineConfig
-    from bumpcosmology_torch.pipeline.stages import pop_cosmo_data_from_tables, run_pop_cosmo_fit
     from bumpcosmology_torch.utils.trace import load_trace
 
+    joint = model == "joint"
+    phase = 7 if joint else 8
+    depth = FIT_DEPTH if joint else POP_FIT_DEPTH
+    run_stage, trace_name = ((stages.run_pop_cosmo_fit, stages.COSMO_TRACE_NAME) if joint
+                             else (stages.run_pop_fit, stages.TRACE_NAME))
     pe, sel = flagship_source_tables()
-    n_vg = lambda: cuda_logwts.LAUNCHES["logwts_lse_bwd"]  # noqa: E731  (one per batched value+grad)
+    n_vg = lambda: cuda_bump.LAUNCHES["bump_bwd"]  # noqa: E731  (one per batched value+grad)
     seen, marks = {}, []
     real = {"eps": nuts._find_reasonable_eps, "warmup": sampler.run_warmup, "sampling": sampler.run_sampling,
-            "fit": sampler.fit}
+            "fit": sampler.fit, "init": sampler._finite_prior_init}
 
     def eps_search(*args, **kwargs):
         before = n_vg()
@@ -930,71 +1167,83 @@ def fit_phase(dev, tag: str):
         seen["spec"] = spec
         return real["fit"](spec, *args, **kwargs)
 
-    cfg_fit = FitConfig(num_warmup=FIT_WARMUP, num_samples=FIT_SAMPLES, num_chains=FIT_CHAINS, max_depth=FIT_DEPTH,
+    def init(*args, **kwargs):
+        seen["prior_theta"] = real["init"](*args, **kwargs)
+        return seen["prior_theta"]
+
+    cfg_fit = FitConfig(num_warmup=FIT_WARMUP, num_samples=FIT_SAMPLES, num_chains=FIT_CHAINS, max_depth=depth,
                         n_grid=N_GRID, n_z=N_Z)
-    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES)
-    nuts._find_reasonable_eps, sampler.run_warmup, sampler.run_sampling, sampler.fit = (
-        eps_search, warmup, sampling, fit)
+    nuts._find_reasonable_eps, sampler.run_warmup, sampler.run_sampling, sampler.fit, sampler._finite_prior_init = (
+        eps_search, warmup, sampling, fit, init)
     try:
         with tempfile.TemporaryDirectory() as tmp:
             cfg = PipelineConfig(paths=PathsConfig(data_dir=tmp), fit=cfg_fit)
-            for cnt in counters:
-                for k in cnt:
-                    cnt[k] = 0
-            torch.cuda.synchronize()
+            _zero_counters()
             t0 = time.perf_counter()
-            res = run_pop_cosmo_fit(cfg, pe, sel, device=dev)
+            res = run_stage(cfg, pe, sel, device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {k: v for cnt in counters for k, v in cnt.items()}
-            trace = load_trace(Path(tmp) / "trace_cosmo.npz")
+            launches = _read_counters()
+            trace = load_trace(Path(tmp) / trace_name)
     finally:
-        nuts._find_reasonable_eps, sampler.run_warmup, sampler.run_sampling, sampler.fit = (
-            real["eps"], real["warmup"], real["sampling"], real["fit"])
+        nuts._find_reasonable_eps, sampler.run_warmup, sampler.run_sampling, sampler.fit, sampler._finite_prior_init = (
+            real["eps"], real["warmup"], real["sampling"], real["fit"], real["init"])
 
-    # the kernels on the path: once per batched value+grad, the forward alone for the prior draws' potentials
+    # the kernels on the path: once per batched value+grad, the forward alone for the prior draws'
+    # potentials and for each chunk of the deterministics (kernel B's rows forward on the joint model)
     c, n_draws = FIT_CHAINS, FIT_CHAINS * FIT_SAMPLES
-    n_prior = launches["logwts_lse_fwd"] - launches["logwts_lse_bwd"]
     n_chunks = -(-n_draws // 128)
-    if not (launches["bump_bwd"] == launches["logwts_lse_bwd"] > 0 and 1 <= n_prior <= 50
-            and launches["logwts_fwd"] == n_chunks and launches["bump_fwd"] == launches["logwts_lse_fwd"] + n_chunks
-            and launches["logwts_bwd"] == 0):
-        raise AssertionError(f"fit: launches are not one of each kernel per value+grad, {n_chunks} rows "
+    if joint:
+        n_prior = launches["logwts_lse_fwd"] - launches["logwts_lse_bwd"]
+        ok = (launches["bump_bwd"] == launches["logwts_lse_bwd"] > 0 and launches["logwts_fwd"] == n_chunks
+              and launches["bump_fwd"] == launches["logwts_lse_fwd"] + n_chunks and launches["logwts_bwd"] == 0)
+    else:  # no kernel B: the population-only weights are plain torch
+        n_prior = launches["bump_fwd"] - launches["bump_bwd"] - n_chunks
+        ok = launches["bump_bwd"] > 0 and not any(v for k, v in launches.items() if k.startswith("logwts"))
+    if not (ok and 1 <= n_prior <= 50):
+        raise AssertionError(f"fit ({model}): launches are not one of each kernel per value+grad, {n_chunks} "
                              f"forwards for the deterministics: {launches}")
     warm = res.warmup_state
     if warm.eps.shape != (c,) or not bool(torch.isfinite(warm.eps).all()) or not bool((warm.eps > 0).all()):
-        raise AssertionError(f"fit: adapted step sizes {warm.eps.tolist()}")
+        raise AssertionError(f"fit ({model}): adapted step sizes {warm.eps.tolist()}")
     asym = float(((warm.cov - warm.cov.mT).abs().amax((1, 2)) / warm.cov.abs().amax((1, 2))).max())
     info = torch.linalg.cholesky_ex(warm.cov).info
     if asym > 1e-5 or bool((info != 0).any()):
-        raise AssertionError(f"fit: adapted covariances asymmetric by {asym:.2e} or without a Cholesky factor "
-                             f"(info {info.tolist()})")
+        raise AssertionError(f"fit ({model}): adapted covariances asymmetric by {asym:.2e} or without a Cholesky "
+                             f"factor (info {info.tolist()})")
     for group, arrays in (("posterior", res.posterior), ("sample_stats", res.sample_stats)):
         for k, v in arrays.items():
             if v.shape[:2] != (c, FIT_SAMPLES) or not np.isfinite(v).all():
-                raise AssertionError(f"fit: {group} {k} of shape {v.shape} is not finite at ({c}, {FIT_SAMPLES})")
+                raise AssertionError(f"fit ({model}): {group} {k} of shape {v.shape} is not finite at "
+                                     f"({c}, {FIT_SAMPLES})")
     for group in ("posterior", "sample_stats"):
         stored, made = getattr(trace, group), getattr(res, group)
         if sorted(stored) != sorted(made) or not all(np.array_equal(stored[k], made[k]) for k in made):
-            raise AssertionError(f"fit: the trace's {group} does not read back equal")
-    if trace.attrs != {"model": "pop_cosmo", "family": "bump"} or sorted(trace.coords) != ["m_grid", "q_grid",
-                                                                                             "z_grid"]:
-        raise AssertionError(f"fit: trace attrs {trace.attrs}, coords {sorted(trace.coords)}")
+            raise AssertionError(f"fit ({model}): the trace's {group} does not read back equal")
+    attrs = {"model": "pop_cosmo" if joint else "pop", "family": "bump"}
+    if trace.attrs != attrs or sorted(trace.coords) != ["m_grid", "q_grid", "z_grid"]:
+        raise AssertionError(f"fit ({model}): trace attrs {trace.attrs}, coords {sorted(trace.coords)}")
 
     # the deterministics through the kernels against the plain path, on the run's own draws
-    data = pop_cosmo_data_from_tables(pe, sel, dev)
-    bounds, qry = dl_bounds_of(data), query_table(data)
-    det = {plain: sampler.compute_deterministics(
-        seen["spec"], seen["thetas"], lambda s, plain=plain: pop_cosmo_deterministics(s, data, N_GRID, N_Z, bounds,
-                                                                                      qry, plain=plain))
-        for plain in (False, True)}
+    if joint:
+        data = stages.pop_cosmo_data_from_tables(pe, sel, dev)
+        bounds, qry = lk.dl_bounds_of(data), lk.query_table(data)
+        det_fn = lambda s, plain: lk.pop_cosmo_deterministics(s, data, N_GRID, N_Z, bounds, qry,  # noqa: E731
+                                                              plain=plain)
+    else:
+        data = stages.pop_data_from_tables(pe, sel, dev)
+        rows = lk.pop_rows(data)
+        det_fn = lambda s, plain: lk.pop_deterministics(s, data, N_GRID, rows, plain=plain)  # noqa: E731
+    det = {plain: sampler.compute_deterministics(seen["spec"], seen["thetas"],
+                                                 lambda s, plain=plain: det_fn(s, plain))
+           for plain in (False, True)}
     worst = {}
     for k, ref in det[True].items():
         for label, got in (("kernels", det[False][k]), ("trace", res.posterior[k])):
             d = float((np.abs(got.astype(np.float64) - ref) / (1.0 + np.abs(ref))).max())
             worst[k] = max(worst.get(k, 0.0), d)
             if not d < 2e-4:
-                raise AssertionError(f"fit: deterministic {k} ({label}) against the plain path: "
+                raise AssertionError(f"fit ({model}): deterministic {k} ({label}) against the plain path: "
                                      f"|d|/(1+|ref|) = {d:.3e} (limit 2e-4)")
 
     # what the run did, by warmup segment
@@ -1023,22 +1272,41 @@ def fit_phase(dev, tag: str):
     ess_min = min(d["ess"] for d in diag.values())
     rhat_max = max(d["rhat"] for d in diag.values())
     eps = warm.eps
-    log(f"{tag} phase 7 run_pop_cosmo_fit from prior draws ({c} chains, {FIT_WARMUP} warmup steps, {FIT_SAMPLES} "
-        f"draws, max_depth {FIT_DEPTH}, n_grid {N_GRID}, n_z {N_Z}): {wall:.2f} s wall (host clock); warmup "
-        f"{t['warmup_s']:.2f} s ({warm_vg} batched value+grads, {1e3 * t['warmup_s'] / warm_vg:.2f} ms each, the "
-        f"step-size search's {seen['eps_search_vg']} included), sampling {t['sampling_s']:.2f} s ({samp_vg} batched "
-        f"value+grads, {1e3 * t['sampling_s'] / samp_vg:.2f} ms each; {n_draws / t['sampling_s']:.3f} draws/s), "
-        f"deterministics {t['deterministics_s']:.2f} s; {n_prior} potential evaluation(s) for the prior draws")
-    log(f"{tag} phase 7 warmup by segment: {json.dumps(segments)}")
-    log(f"{tag} phase 7 step sizes: after the search median {float(seen['eps0'].median()):.4g} (min "
+    stage_name = run_stage.__name__
+    log(f"{tag} phase {phase} {stage_name} from prior draws ({c} chains, {FIT_WARMUP} warmup steps, {FIT_SAMPLES} "
+        f"draws, max_depth {depth}, n_grid {N_GRID}" + (f", n_z {N_Z}" if joint else "") + f"): {wall:.2f} s wall "
+        f"(host clock); warmup {t['warmup_s']:.2f} s ({warm_vg} batched value+grads, "
+        f"{1e3 * t['warmup_s'] / warm_vg:.2f} ms each, the step-size search's {seen['eps_search_vg']} included), "
+        f"sampling {t['sampling_s']:.2f} s ({samp_vg} batched value+grads, {1e3 * t['sampling_s'] / samp_vg:.2f} ms "
+        f"each; {n_draws / t['sampling_s']:.3f} draws/s), deterministics {t['deterministics_s']:.2f} s; {n_prior} "
+        f"potential evaluation(s) for the prior draws")
+    log(f"{tag} phase {phase} warmup by segment: {json.dumps(segments)}")
+    log(f"{tag} phase {phase} step sizes: after the search median {float(seen['eps0'].median()):.4g} (min "
         f"{float(seen['eps0'].min()):.4g}, max {float(seen['eps0'].max()):.4g}); adapted (exp log_eps_bar) median "
         f"{float(eps.median()):.4g} (min {float(eps.min()):.4g}, max {float(eps.max()):.4g}); sampling: mean accept "
         f"{float(ss['accept_prob'].mean()):.3f}, mean tree depth {float(ss['tree_depth'].mean()):.2f}, divergences "
         f"{int(ss['diverging'].sum())}; largest covariance asymmetry {asym:.2e}")
-    log(f"{tag} phase 7 diagnostics over {len(scalar)} scalar sites, from {FIT_SAMPLES} draws x {c} chains after "
-        f"{FIT_WARMUP} warmup steps (not an ESS/s measurement): min ESS {ess_min:.1f}, max R-hat {rhat_max:.3f}; "
-        f"deterministics kernels vs plain, largest |d|/(1+|ref|) {max(worst.values()):.2e}; launches {launches}")
-    return launches
+    log(f"{tag} phase {phase} diagnostics over {len(scalar)} scalar sites, from {FIT_SAMPLES} draws x {c} chains "
+        f"after {FIT_WARMUP} warmup steps (not an ESS/s measurement): min ESS {ess_min:.1f}, max R-hat "
+        f"{rhat_max:.3f}; deterministics kernels vs plain, largest |d|/(1+|ref|) {max(worst.values()):.2e}; "
+        f"launches {launches}")
+    if not joint:  # the population-only potential's value+grad at the adapted state, kernel A against its twin
+        pot = make_potential(seen["spec"])
+        pot_plain = make_potential(lk.pop_model_spec(data, N_GRID, device=dev, plain=True))
+        theta = warm.state.theta
+        (u_k, g_k), (u_p, g_p) = value_and_grad(pot, theta), value_and_grad(pot_plain, theta)
+        du = float(((u_k - u_p).abs() / (1.0 + u_p.abs())).max())
+        dg = float(((g_k - g_p).abs() / (1.0 + g_p.abs())).max())
+        if du >= 2e-4 or dg >= 5e-3:
+            raise AssertionError(f"pop potential: kernel vs plain |dU|/(1+|U|) {du:.3e}, |dgrad|/(1+|grad|) {dg:.3e}")
+        vg_ms = cuda_ms(lambda: value_and_grad(pot, theta), reps=10)
+        vg_plain_ms = cuda_ms(lambda: value_and_grad(pot_plain, theta), reps=10)
+        log(f"{tag} phase 8 pop potential (C={c}, 12 sites, {data.events.a.numel() + data.selection.a.numel()} "
+            f"rows): |dU|/(1+|U|) {du:.3e}, |dgrad|/(1+|grad|) {dg:.3e} against the plain path; batched value+grad "
+            f"{vg_ms:.3f} ms with kernel A, {vg_plain_ms:.3f} ms with its plain twin (CUDA events, mean of 10)")
+        log(f"{tag} phase 8 profile: " + device_busy_share(
+            lambda: [value_and_grad(pot, theta) for _ in range(3)], "three pop value+grads"))
+    return launches, seen["spec"], seen["prior_theta"]
 
 
 if __name__ == "__main__":

@@ -158,13 +158,14 @@ def test_fit_resumes_from_a_warmup_checkpoint_without_adapting(tmp_path, capsys)
 
 
 def test_fit_rejects_what_is_not_ported():
-    spec = _gauss_spec()
-    for sampler in ("chees", "nuts+chees"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            fit(spec, 0, sampler=sampler, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        stages.run_pop_cosmo_fit(config.PipelineConfig(fit=config.FitConfig(mass_family="plpeak")), {}, {},
-                                 device="cpu")
+    """Mass families other than the bump raise in both stages (Queue 1 item 6);
+    an unknown sampler raises ValueError with the JAX package's message."""
+    cfg = config.PipelineConfig(fit=config.FitConfig(mass_family="plpeak"))
+    for stage in (stages.run_pop_fit, stages.run_pop_cosmo_fit):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            stage(cfg, {}, {}, device="cpu")
+    with pytest.raises(ValueError, match="unknown sampler 'hmc'; use 'nuts', 'chees', or 'nuts\\+chees'"):
+        fit(_gauss_spec(), 0, sampler="hmc", device="cpu")
 
 
 def test_sample_stat_keys_equal_those_of_jax_fit():

@@ -60,8 +60,9 @@ def test_no_port_file_names_the_jax_packages(pattern):
     assert not _hits(files, pattern)
 
 
-@pytest.mark.parametrize("name", ["inference/sampler.py", "inference/diagnostics.py", "utils/trace.py",
-                                  "utils/io.py", "pipeline/config.py", "pipeline/stages.py"])
+@pytest.mark.parametrize("name", ["inference/sampler.py", "inference/chees.py", "inference/diagnostics.py",
+                                  "utils/trace.py", "utils/io.py", "pipeline/config.py", "pipeline/stages.py",
+                                  "ops/logsumexp.py"])
 def test_the_guards_cover_the_fit_modules(name):
     """The grep guard scans the fit's modules, and the import guard imports them."""
     assert PORT / name in list(PORT.rglob("*.py"))
@@ -110,12 +111,16 @@ def test_run_sampling_raises_without_cuda(no_cuda):
 def _fit_entry_points():
     import numpy as np
 
+    from bumpcosmology_torch.inference.chees import run_chees, run_chees_from_warmup
     from bumpcosmology_torch.inference.distributions import Normal
+    from bumpcosmology_torch.inference.likelihoods import pop_model_spec
     from bumpcosmology_torch.inference.model import ModelSpec
     from bumpcosmology_torch.inference.nuts import run_nuts, run_warmup
     from bumpcosmology_torch.inference.sampler import fit
     from bumpcosmology_torch.pipeline.config import PipelineConfig
-    from bumpcosmology_torch.pipeline.stages import run_pop_cosmo_fit
+    from bumpcosmology_torch.pipeline.stages import run_pop_cosmo_fit, run_pop_fit
+    from bumpcosmology_torch.testing import synthetic_pop_data
+    from bumpcosmology_torch.utils.checkpoint import load_warmup
 
     spec = ModelSpec(priors={"x": Normal(0.0, 1.0)}, loglike=lambda s: 0.0 * s["x"])
     pot = lambda th: (th * th).sum(-1)  # noqa: E731
@@ -127,10 +132,17 @@ def _fit_entry_points():
         "run_warmup": lambda: run_warmup(pot, torch.zeros(2, 3), 2),
         "run_nuts": lambda: run_nuts(pot, torch.zeros(2, 3), 2, 2),
         "run_pop_cosmo_fit": lambda: run_pop_cosmo_fit(PipelineConfig(), pe, sel),
+        "run_pop_fit": lambda: run_pop_fit(PipelineConfig(), pe, sel),
+        "pop_model_spec": lambda: pop_model_spec(synthetic_pop_data(2, 3, 4, device="cpu")),
+        "synthetic_pop_data": lambda: synthetic_pop_data(2, 3, 4),
+        "run_chees": lambda: run_chees(pot, torch.zeros(2, 3), 2, 2),
+        "run_chees_from_warmup": lambda: run_chees_from_warmup(
+            pot, load_warmup(ROOT / "benchmarks" / "flagship_warmup16.npz", device="cpu"), 2, 2),
     }
 
 
-@pytest.mark.parametrize("entry", ["fit", "run_warmup", "run_nuts", "run_pop_cosmo_fit"])
+@pytest.mark.parametrize("entry", ["fit", "run_warmup", "run_nuts", "run_pop_cosmo_fit", "run_pop_fit",
+                                   "pop_model_spec", "synthetic_pop_data", "run_chees", "run_chees_from_warmup"])
 def test_fit_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         _fit_entry_points()[entry]()
