@@ -14,15 +14,17 @@ import torch
 from bumpcosmology_torch.device import resolve_device
 from bumpcosmology_torch.inference.likelihoods import EventData, PopCosmoData, SelectionData
 from bumpcosmology_torch.inference.nuts import ChainState, WarmupResult
+from bumpcosmology_torch.models.brokenpl import BrokenPLMassParams, BrokenPLPopulationParams
 from bumpcosmology_torch.models.parameters import (
     CosmoParams,
     MassParams,
     PopulationParams,
     RedshiftParams,
 )
+from bumpcosmology_torch.models.plpeak import PLPeakMassParams, PLPeakPopulationParams
 
-__all__ = ["tensor", "theta_batch", "population_params", "cosmo_params", "pop_cosmo_data",
-           "warmup_result", "columns"]
+__all__ = ["tensor", "theta_batch", "population_params", "plpeak_params", "brokenpl_params", "cosmo_params",
+           "pop_cosmo_data", "warmup_result", "columns"]
 
 
 def columns(frame) -> dict:
@@ -50,6 +52,18 @@ def _leaves(cls, obj, device):
 def population_params(p, device=None) -> PopulationParams:
     """``PopulationParams`` (mass + redshift leaves) → batched ``(C,)`` leaves."""
     return PopulationParams(_leaves(MassParams, p.mass, device), _leaves(RedshiftParams, p.redshift, device))
+
+
+def plpeak_params(p, device=None) -> PLPeakPopulationParams:
+    """``PLPeakPopulationParams`` (mass + redshift leaves) → batched ``(C,)`` leaves."""
+    return PLPeakPopulationParams(_leaves(PLPeakMassParams, p.mass, device),
+                                  _leaves(RedshiftParams, p.redshift, device))
+
+
+def brokenpl_params(p, device=None) -> BrokenPLPopulationParams:
+    """``BrokenPLPopulationParams`` (mass + redshift leaves) → batched ``(C,)`` leaves."""
+    return BrokenPLPopulationParams(_leaves(BrokenPLMassParams, p.mass, device),
+                                    _leaves(RedshiftParams, p.redshift, device))
 
 
 def cosmo_params(p, device=None) -> CosmoParams:

@@ -1,25 +1,35 @@
-"""The PISN-bump family's likelihoods (L2); counterpart of the JAX package's
-``inference/likelihoods.py``: the joint population + flat-wCDM model and the
-population-only model at fixed Planck18, both batched over chains.
+"""The population likelihoods of the three mass families (L2); counterpart
+of the JAX package's ``inference/likelihoods.py``: the joint population +
+flat-wCDM model and the population-only model at fixed Planck18, both
+batched over chains, and the registry :data:`MASS_FAMILIES`.
 
     log L = Σ_events [ logsumexp_samples(log w) − log nsamp ]  −  nobs·log μ_sel
     log μ_sel = logsumexp_injections(log w_sel) − log Ndraw
 
-**Joint model.** Every PE sample and injection is one row of a shared
-``(N, 4)`` query table; one kernel-B launch weighs all of them for all chains
-and reduces them to the per-event and selection log-sum-exps (the ``lse``
-epilogue), so the ``(C, N)`` weights never reach device memory on this path.
-:func:`pop_cosmo_event_sel_logwts` returns the weights themselves (the ``rows``
-epilogue) for the trace's deterministic sites (:func:`pop_cosmo_deterministics`).
-This mirrors the JAX package's fused/Pallas route
-(``_cosmo_frame_logwts_fused``, ``likelihoods.py:339-361``): the log(dL)-keyed
-detector table is built at ``n_z`` points, as ``likelihoods.py:472`` does
-(the TPU bracket path's ``n_det`` has no counterpart here).
+**Routes by family.** ``build`` ``(sites, n_grid) → intensity`` selects a
+family, ``None`` the PISN bump, as in the JAX package.
 
-**Population-only model.** The rows are source-frame (m1, q, z), weighed at
-a fixed cosmology (:class:`FixedCosmoGrid`), so kernel B does not apply: the
-JAX package computes these weights in XLA, and the port in plain PyTorch with
-autograd (:func:`pop_loglike`).  Kernel A still builds the bump table.
+* The bump, joint model: the JAX package's fused/Pallas route
+  (``_cosmo_frame_logwts_fused``, ``likelihoods.py:339-361``).  Every PE
+  sample and injection is one row of a shared ``(N, 4)`` query table; one
+  kernel-B launch weighs all of them for all chains against the log(dL)-keyed
+  detector table, built at ``n_z`` points as ``likelihoods.py:472`` does, and
+  reduces them to the per-event and selection log-sum-exps (the ``lse``
+  epilogue).  Its deterministics take kernel B's ``rows`` epilogue
+  (:func:`pop_cosmo_event_sel_logwts`), a choice of the port: the JAX
+  package's take its non-fused route.
+* POWER-LAW+PEAK and BROKEN POWER LAW, joint model: kernel B hard-codes the
+  bump's table layout, and the JAX package sends only the bump's intensity
+  to its Pallas kernel (``likelihoods.py:351-356``).  The potential takes
+  the XLA branch of ``_cosmo_frame_logwts_fused`` in plain PyTorch with
+  autograd (the detector table at ``n_z`` points, one bracket per row shared
+  by the chains); the deterministics take the non-fused
+  ``_cosmo_frame_logwts`` (``likelihoods.py:308-323``: ``z_at_dl`` and
+  ``dvc_and_ddl_at_z`` on the cosmology table), as the JAX package's do.
+* Population-only model, every family: the rows are source-frame (m1, q, z)
+  weighed at a fixed cosmology (:class:`FixedCosmoGrid`) in plain PyTorch
+  with autograd (:func:`pop_loglike`), as the JAX package computes them in
+  XLA; kernel A builds the bump's table.
 """
 from __future__ import annotations
 
@@ -35,8 +45,15 @@ from bumpcosmology_torch.inference.model import ModelSpec
 from bumpcosmology_torch.models.cosmology import (
     build_cosmology,
     build_detector_table,
+    dvc_and_ddl_at_z,
     efunc,
     planck18_log_dvdz_grid,
+    z_at_dl,
+)
+from bumpcosmology_torch.models.brokenpl import (
+    BrokenPLMassParams,
+    BrokenPLPopulationParams,
+    build_brokenpl_population,
 )
 from bumpcosmology_torch.models.mass import DEFAULT_N_GRID, MREF
 from bumpcosmology_torch.models.parameters import (
@@ -45,10 +62,11 @@ from bumpcosmology_torch.models.parameters import (
     PopulationParams,
     RedshiftParams,
 )
+from bumpcosmology_torch.models.plpeak import PLPeakMassParams, PLPeakPopulationParams, build_plpeak_population
 from bumpcosmology_torch.models.population import COORDS, QREF, build_population, log_dndmdqdv
 from bumpcosmology_torch.models.redshift import ZREF
 from bumpcosmology_torch.ops.cuda_logwts import cosmo_frame_logwts, cosmo_frame_logwts_lse, query_rows
-from bumpcosmology_torch.ops.interp import interp_unit_spaced
+from bumpcosmology_torch.ops.interp import interp_unit_spaced, unit_bracket
 
 __all__ = [
     "EventData",
@@ -73,6 +91,26 @@ __all__ = [
     "POP_COSMO_PRIORS",
     "pop_model_spec",
     "pop_cosmo_model_spec",
+    "plpeak_from_sites",
+    "plpeak_loglike",
+    "plpeak_cosmo_loglike",
+    "plpeak_deterministics",
+    "plpeak_cosmo_deterministics",
+    "PLPEAK_PRIORS",
+    "PLPEAK_COSMO_PRIORS",
+    "plpeak_model_spec",
+    "plpeak_cosmo_model_spec",
+    "brokenpl_from_sites",
+    "brokenpl_loglike",
+    "brokenpl_cosmo_loglike",
+    "brokenpl_deterministics",
+    "brokenpl_cosmo_deterministics",
+    "BROKENPL_PRIORS",
+    "BROKENPL_COSMO_PRIORS",
+    "brokenpl_model_spec",
+    "brokenpl_cosmo_model_spec",
+    "MassFamily",
+    "MASS_FAMILIES",
 ]
 
 
@@ -229,36 +267,85 @@ def _frame_tables(sites, n_grid: int, n_z: int, dl_bounds, plain: bool):
     return pop, cosmo, build_detector_table(cosmo, dl_bounds[0], dl_bounds[1], n=n_z)
 
 
+def _cosmo_frame_logwts(pop, cosmo, rows) -> torch.Tensor:
+    """``(C, N)`` detector-frame weights of the ``(4, N)`` rows [m1_det, q,
+    dL, log pdraw] on the cosmology table: z = z(dL) by the table's inverse,
+    m1 = m1_det/(1+z), times the full Jacobian (``_cosmo_frame_logwts``, the
+    JAX package's ``likelihoods.py:308-323``)."""
+    a, q, dl, log_pdraw = rows
+    c = cosmo.dl.shape[0]
+    z = z_at_dl(cosmo, dl.expand(c, -1))
+    m1 = a / (1.0 + z)
+    dvc, ddl = dvc_and_ddl_at_z(cosmo, z)
+    return (log_dndmdqdv(pop, m1, q.expand(c, -1), z) - 2.0 * torch.log1p(z) + torch.log(dvc)
+            - torch.log(ddl) - log_pdraw)
+
+
+def _cosmo_frame_logwts_fused(pop, det, qry) -> torch.Tensor:
+    """``(C, N)`` detector-frame weights of the ``(N, 4)`` query rows through
+    the log(dL)-keyed detector table: the XLA branch of the JAX package's
+    ``_cosmo_frame_logwts_fused`` (``likelihoods.py:358-361``), for the
+    families kernel B does not take.  The bracket on the table's uniform
+    grid depends on the row alone, so one ``(N,)`` bracket serves every chain."""
+    c, k = det.cols.shape[:2]
+    lo, t = unit_bracket(qry[:, 2], det.v0, det.dv, k)
+    f_lo, f_hi = det.cols[:, lo], det.cols[:, lo + 1]  # (C, N, 2)
+    zj = f_lo + t[:, None] * (f_hi - f_lo)
+    z, log_jac = zj[..., 0], zj[..., 1]
+    m1 = qry[:, 0] / (1.0 + z)
+    return log_dndmdqdv(pop, m1, qry[:, 1].expand(c, -1), z) - 2.0 * torch.log1p(z) + log_jac - qry[:, 3]
+
+
 def pop_cosmo_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopCosmoData,
                                n_grid: int = DEFAULT_N_GRID, n_z: int = 1024, dl_bounds=None,
-                               qry=None, plain: bool = False):
+                               qry=None, plain: bool = False, build=None):
     """``(pop, cosmo, log_wts (C, nobs, nsamp), log_sel_wts (C, nsel))``: the
     per-row detector-frame weights that the deterministics (``neff``,
-    ``neff_sel``, ``selection_noise_nats``) consume; the fused branch of the
-    JAX package's ``_pop_cosmo_event_sel_logwts`` (``likelihoods.py:472-476``),
-    one kernel-B launch with the ``rows`` epilogue."""
+    ``neff_sel``, ``selection_noise_nats``) consume.
+
+    The bump (``build=None``): one kernel-B launch with the ``rows`` epilogue,
+    the fused branch of the JAX package's ``_pop_cosmo_event_sel_logwts``
+    (``likelihoods.py:472-476``), ``dl_bounds`` defaulting to the data's.
+    Another family: with ``dl_bounds``, the fused route in plain PyTorch;
+    without, the non-fused route, as the JAX package's deterministics take it."""
     nobs, nsamp = data.events.a.shape
-    dl_bounds = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
-    qry = query_table(data) if qry is None else qry
-    pop, cosmo, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
-    log_w = cosmo_frame_logwts(pop, det, qry, plain)  # (C, N)
+    if build is None:
+        dl_bounds = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
+        qry = query_table(data) if qry is None else qry
+        pop, cosmo, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
+        log_w = cosmo_frame_logwts(pop, det, qry, plain)  # (C, N)
+    else:
+        pop = build(sites, n_grid)
+        cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
+        if dl_bounds is None:
+            log_w = _cosmo_frame_logwts(pop, cosmo, pop_rows(data))
+        else:
+            det = build_detector_table(cosmo, dl_bounds[0], dl_bounds[1], n=n_z)
+            log_w = _cosmo_frame_logwts_fused(pop, det, query_table(data) if qry is None else qry)
     n_ev = nobs * nsamp
     return pop, cosmo, log_w[:, :n_ev].reshape(-1, nobs, nsamp), log_w[:, n_ev:]
 
 
 def pop_cosmo_loglike(sites: Dict[str, torch.Tensor], data: PopCosmoData,
                       n_grid: int = DEFAULT_N_GRID, n_z: int = 1024, dl_bounds=None,
-                      qry=None, plain: bool = False) -> torch.Tensor:
+                      qry=None, plain: bool = False, build=None) -> torch.Tensor:
     """Joint log-likelihood for sites of shape ``(C,)``; returns ``(C,)``.
 
-    ``qry`` is :func:`query_table` of ``data`` (computed if not given);
-    ``plain=True`` takes the kernels' plain twins whatever the device.
+    ``qry`` is :func:`query_table` of ``data`` (computed if not given).  The
+    bump (``build=None``) goes through kernel B's ``lse`` epilogue (``dl_bounds``
+    defaulting to the data's; ``plain=True`` takes the kernels' plain twins
+    whatever the device); another family through
+    :func:`pop_cosmo_event_sel_logwts`'s plain routes.
     """
     nobs, nsamp = data.events.a.shape
-    dl_bounds = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
-    qry = query_table(data) if qry is None else qry
-    pop, _, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
-    lse_ev, lse_sel = cosmo_frame_logwts_lse(pop, det, qry, nobs, nsamp, plain)
+    if build is None:
+        dl_bounds = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
+        qry = query_table(data) if qry is None else qry
+        pop, _, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
+        lse_ev, lse_sel = cosmo_frame_logwts_lse(pop, det, qry, nobs, nsamp, plain)
+    else:
+        _, _, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, dl_bounds, qry, build=build)
+        lse_ev, lse_sel = torch.logsumexp(log_w, -1), torch.logsumexp(log_sel_w, -1)
     log_mu_sel = lse_sel - data.selection.log_ndraw
     return lse_ev.sum(-1) - nobs * math.log(nsamp) - nobs * log_mu_sel
 
@@ -312,10 +399,15 @@ def pop_cosmo_deterministics(sites: Dict[str, torch.Tensor], data: PopCosmoData,
                                                               plain)
     out = _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
     out.update(_bump_extras(pop))
-    z_grid = torch.as_tensor(COORDS["z_grid"], dtype=log_w.dtype, device=log_w.device)
-    cp = CosmoParams(*(x[:, None] for x in cosmo.params))
-    out["hz"] = cp.h * efunc(z_grid, cp)
+    out["hz"] = _hz(cosmo, log_w)
     return out
+
+
+def _hz(cosmo, like: torch.Tensor) -> torch.Tensor:
+    """h E(z) on ``COORDS["z_grid"]``, ``(C, 128)``."""
+    z_grid = torch.as_tensor(COORDS["z_grid"], dtype=like.dtype, device=like.device)
+    cp = CosmoParams(*(x[:, None] for x in cosmo.params))
+    return cp.h * efunc(z_grid, cp)
 
 
 def pop_rows(data: PopData) -> torch.Tensor:
@@ -326,18 +418,19 @@ def pop_rows(data: PopData) -> torch.Tensor:
 
 
 def _pop_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopData, n_grid: int = DEFAULT_N_GRID,
-                          rows=None, plain: bool = False):
+                          rows=None, plain: bool = False, build=None):
     """``(pop, log_wts (C, nobs, nsamp), log_sel_wts (C, nsel))``: the
     population-only model's source-frame weights (``_pop_event_sel_logwts``,
     the JAX package's ``likelihoods.py:274-288``), every row of every chain in
-    one :func:`log_dndmdqdv` call (m1 and m2 share one table lookup).
+    one :func:`log_dndmdqdv` call.
 
     ``rows`` is :func:`pop_rows` of ``data`` (computed if not given);
-    ``plain=True`` builds the bump table with kernel A's plain twin."""
+    ``build`` ``(sites, n_grid) → intensity`` selects the family (``None``:
+    the bump, whose table kernel A builds, or its plain twin with ``plain=True``)."""
     nobs, nsamp = data.events.a.shape
     m1, q, z, log_pdraw = pop_rows(data) if rows is None else rows
-    pop = build_population(population_from_sites(sites), n_grid, plain)
-    c = pop.mass_table.log_bump.shape[0]
+    pop = build_population(population_from_sites(sites), n_grid, plain) if build is None else build(sites, n_grid)
+    c = next(iter(sites.values())).shape[0]
     log_w = (log_dndmdqdv(pop, m1.expand(c, -1), q.expand(c, -1), z.expand(c, -1))
              + data.planck.log_dvdz_dt(z) - log_pdraw)
     n_ev = nobs * nsamp
@@ -345,11 +438,12 @@ def _pop_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopData, n_grid:
 
 
 def pop_loglike(sites: Dict[str, torch.Tensor], data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, build=None) -> torch.Tensor:
     """Population-only log-likelihood for sites of shape ``(C,)``; returns
-    ``(C,)`` (``pop_loglike``, the JAX package's ``likelihoods.py:292-305``)."""
+    ``(C,)`` (``pop_loglike``, the JAX package's ``likelihoods.py:292-305``).
+    ``build`` selects the family (``None``: the bump)."""
     nobs, nsamp = data.events.a.shape
-    _, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, plain)
+    _, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, plain, build)
     log_like = torch.logsumexp(log_w, -1) - math.log(nsamp)
     log_mu_sel = torch.logsumexp(log_sel_w, -1) - data.selection.log_ndraw
     return log_like.sum(-1) - nobs * log_mu_sel
@@ -396,19 +490,33 @@ POP_PRIORS = {**_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
 POP_COSMO_PRIORS = {**_COSMO_PRIORS, **_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
 
 
+def _pop_spec(priors, data: PopData, n_grid: int, device, plain: bool = False, build=None) -> ModelSpec:
+    dev = resolve_device(device)
+    data = data.to(dev)
+    rows = pop_rows(data)
+    return ModelSpec(priors=dict(priors), loglike=lambda sites: pop_loglike(sites, data, n_grid, rows, plain, build),
+                     device=dev)
+
+
+def _cosmo_spec(priors, data: PopCosmoData, n_grid: int, n_z: int, device, plain: bool = False,
+                build=None) -> ModelSpec:
+    dev = resolve_device(device)
+    data = data.to(dev)
+    bounds = dl_bounds_of(data)
+    qry = query_table(data)
+    return ModelSpec(
+        priors=dict(priors),
+        loglike=lambda sites: pop_cosmo_loglike(sites, data, n_grid, n_z, bounds, qry, plain, build),
+        device=dev,
+    )
+
+
 def pop_model_spec(data: PopData, n_grid: int = DEFAULT_N_GRID, device=None, plain: bool = False) -> ModelSpec:
     """The population-only model as a :class:`ModelSpec` (12 sites) with
     ``data`` on ``device`` (``None`` means CUDA; raises without it).  The
     rows are stacked here, once; ``plain=True`` builds the bump table with
     kernel A's plain twin (the on-card comparison uses it)."""
-    dev = resolve_device(device)
-    data = data.to(dev)
-    rows = pop_rows(data)
-    return ModelSpec(
-        priors=dict(POP_PRIORS),
-        loglike=lambda sites: pop_loglike(sites, data, n_grid, rows, plain),
-        device=dev,
-    )
+    return _pop_spec(POP_PRIORS, data, n_grid, device, plain)
 
 
 def pop_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
@@ -420,12 +528,203 @@ def pop_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: 
     builds the same potential on the kernels' plain twins (the on-card
     comparison uses it; the main path does not).
     """
-    dev = resolve_device(device)
-    data = data.to(dev)
-    bounds = dl_bounds_of(data)
-    qry = query_table(data)
-    return ModelSpec(
-        priors=dict(POP_COSMO_PRIORS),
-        loglike=lambda sites: pop_cosmo_loglike(sites, data, n_grid, n_z, bounds, qry, plain),
-        device=dev,
-    )
+    return _cosmo_spec(POP_COSMO_PRIORS, data, n_grid, n_z, device, plain)
+
+
+# ---------------------------------------------------------------------------
+# POWER-LAW+PEAK (models/plpeak.py) and BROKEN POWER LAW (models/brokenpl.py):
+# the same likelihood skeleton, through ``build``.  Their deterministics are
+# the shared set without the bump's extras (plus ``hz`` for the joint model).
+# ---------------------------------------------------------------------------
+
+
+def _redshift_from_sites(sites) -> RedshiftParams:
+    return RedshiftParams(lam=sites["lam"], kappa=sites["lam"] + sites["dkappa"], zp=sites["zp"])
+
+
+def plpeak_from_sites(sites: Dict[str, torch.Tensor]) -> PLPeakPopulationParams:
+    """Site dict → PLPeak parameters: every mass site direct, ``kappa = lam + dkappa``."""
+    return PLPeakPopulationParams(mass=PLPeakMassParams(*(sites[k] for k in PLPeakMassParams._fields)),
+                                  redshift=_redshift_from_sites(sites))
+
+
+def _build_plpeak(sites, n_grid):
+    return build_plpeak_population(plpeak_from_sites(sites), n_m=n_grid)
+
+
+def brokenpl_from_sites(sites: Dict[str, torch.Tensor]) -> BrokenPLPopulationParams:
+    """Site dict → BrokenPL parameters: every mass site direct, ``kappa = lam + dkappa``."""
+    return BrokenPLPopulationParams(mass=BrokenPLMassParams(*(sites[k] for k in BrokenPLMassParams._fields)),
+                                    redshift=_redshift_from_sites(sites))
+
+
+def _build_brokenpl(sites, n_grid):
+    return build_brokenpl_population(brokenpl_from_sites(sites), n_m=n_grid)
+
+
+def _family_deterministics(build, sites, data: PopData, n_grid: int, rows=None):
+    nobs = data.events.a.shape[0]
+    pop, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, build=build)
+    return _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
+
+
+def _family_cosmo_deterministics(build, sites, data: PopCosmoData, n_grid: int, n_z: int):
+    """The non-fused route (no ``dl_bounds``), as the JAX package's family deterministics take."""
+    nobs = data.events.a.shape[0]
+    pop, cosmo, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, build=build)
+    out = _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
+    out["hz"] = _hz(cosmo, log_w)
+    return out
+
+
+def plpeak_loglike(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None) -> torch.Tensor:
+    """Population-only log-likelihood under POWER-LAW+PEAK."""
+    return pop_loglike(sites, data, n_grid, rows, build=_build_plpeak)
+
+
+def plpeak_cosmo_loglike(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
+                         dl_bounds=None, qry=None) -> torch.Tensor:
+    """Joint log-likelihood under POWER-LAW+PEAK (fused route with ``dl_bounds``)."""
+    return pop_cosmo_loglike(sites, data, n_grid, n_z, dl_bounds, qry, build=_build_plpeak)
+
+
+def plpeak_deterministics(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None):
+    """Deterministic sites of the PLPeak population-only fit (the shared set)."""
+    return _family_deterministics(_build_plpeak, sites, data, n_grid, rows)
+
+
+def plpeak_cosmo_deterministics(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024):
+    """Deterministic sites of the PLPeak joint fit (the shared set + ``hz``)."""
+    return _family_cosmo_deterministics(_build_plpeak, sites, data, n_grid, n_z)
+
+
+def brokenpl_loglike(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None) -> torch.Tensor:
+    """Population-only log-likelihood under BROKEN POWER LAW."""
+    return pop_loglike(sites, data, n_grid, rows, build=_build_brokenpl)
+
+
+def brokenpl_cosmo_loglike(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
+                           dl_bounds=None, qry=None) -> torch.Tensor:
+    """Joint log-likelihood under BROKEN POWER LAW (fused route with ``dl_bounds``)."""
+    return pop_cosmo_loglike(sites, data, n_grid, n_z, dl_bounds, qry, build=_build_brokenpl)
+
+
+def brokenpl_deterministics(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None):
+    """Deterministic sites of the BrokenPL population-only fit (the shared set)."""
+    return _family_deterministics(_build_brokenpl, sites, data, n_grid, rows)
+
+
+def brokenpl_cosmo_deterministics(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024):
+    """Deterministic sites of the BrokenPL joint fit (the shared set + ``hz``)."""
+    return _family_cosmo_deterministics(_build_brokenpl, sites, data, n_grid, n_z)
+
+
+# POWER-LAW+PEAK hyperpriors: the GWTC-3 fiducial analysis ranges.
+_PLPEAK_MASS_PRIORS = {
+    "alpha": Uniform(-4.0, 12.0),
+    "beta_q": Uniform(-4.0, 12.0),
+    "mmin": Uniform(2.0, 10.0),
+    "mmax": Uniform(30.0, 100.0),
+    "lam_peak": Uniform(0.0, 1.0),
+    "mu_m": Uniform(20.0, 50.0),
+    "sigma_m": Uniform(1.0, 10.0),
+    "delta_m": Uniform(0.0, 10.0),
+}
+
+PLPEAK_PRIORS = {**_PLPEAK_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
+PLPEAK_COSMO_PRIORS = {**_COSMO_PRIORS, **_PLPEAK_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
+
+# BROKEN POWER LAW hyperpriors: the LVK appendix-B analysis ranges.
+_BROKENPL_MASS_PRIORS = {
+    "alpha1": Uniform(-4.0, 12.0),
+    "alpha2": Uniform(-4.0, 12.0),
+    "bfrac": Uniform(0.0, 1.0),
+    "beta_q": Uniform(-4.0, 12.0),
+    "mmin": Uniform(2.0, 10.0),
+    "mmax": Uniform(50.0, 200.0),
+    "delta_m": Uniform(0.0, 10.0),
+}
+
+BROKENPL_PRIORS = {**_BROKENPL_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
+BROKENPL_COSMO_PRIORS = {**_COSMO_PRIORS, **_BROKENPL_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
+
+
+def plpeak_model_spec(data: PopData, n_grid: int = DEFAULT_N_GRID, device=None) -> ModelSpec:
+    """The POWER-LAW+PEAK population-only model (12 sites) on ``device`` (``None`` means CUDA)."""
+    return _pop_spec(PLPEAK_PRIORS, data, n_grid, device, build=_build_plpeak)
+
+
+def plpeak_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
+                            device=None) -> ModelSpec:
+    """The joint POWER-LAW+PEAK + flat-wCDM model (15 sites) on ``device`` (``None`` means CUDA)."""
+    return _cosmo_spec(PLPEAK_COSMO_PRIORS, data, n_grid, n_z, device, build=_build_plpeak)
+
+
+def brokenpl_model_spec(data: PopData, n_grid: int = DEFAULT_N_GRID, device=None) -> ModelSpec:
+    """The BROKEN POWER LAW population-only model (11 sites) on ``device`` (``None`` means CUDA)."""
+    return _pop_spec(BROKENPL_PRIORS, data, n_grid, device, build=_build_brokenpl)
+
+
+def brokenpl_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
+                              device=None) -> ModelSpec:
+    """The joint BROKEN POWER LAW + flat-wCDM model (14 sites) on ``device`` (``None`` means CUDA)."""
+    return _cosmo_spec(BROKENPL_COSMO_PRIORS, data, n_grid, n_z, device, build=_build_brokenpl)
+
+
+# ---------------------------------------------------------------------------
+# Mass-family registry: the fit stages dispatch here
+# ---------------------------------------------------------------------------
+
+
+class MassFamily(NamedTuple):
+    """Everything a fit stage needs for one mass-model family (``MassFamily``,
+    the JAX package's ``likelihoods.py:872-891``).  ``build`` is the per-draw
+    intensity constructor (``None``: the bump, through kernels A and B); the
+    traces are ``.npz`` stores, the bump keeping the unsuffixed names."""
+
+    build: object  # Optional[(sites, n_grid) -> intensity]
+    pop_priors: Dict[str, object]
+    cosmo_priors: Dict[str, object]
+    pop_spec: object  # (data, n_grid, device) -> ModelSpec
+    cosmo_spec: object  # (data, n_grid, n_z, device) -> ModelSpec
+    pop_det: object  # (sites, data, n_grid) -> deterministic sites
+    cosmo_det: object  # (sites, data, n_grid, n_z) -> deterministic sites
+    trace_name: str
+    cosmo_trace_name: str
+
+
+MASS_FAMILIES: Dict[str, MassFamily] = {
+    "bump": MassFamily(
+        build=None,
+        pop_priors=POP_PRIORS,
+        cosmo_priors=POP_COSMO_PRIORS,
+        pop_spec=pop_model_spec,
+        cosmo_spec=pop_cosmo_model_spec,
+        pop_det=pop_deterministics,
+        cosmo_det=pop_cosmo_deterministics,
+        trace_name="trace.npz",
+        cosmo_trace_name="trace_cosmo.npz",
+    ),
+    "plpeak": MassFamily(
+        build=_build_plpeak,
+        pop_priors=PLPEAK_PRIORS,
+        cosmo_priors=PLPEAK_COSMO_PRIORS,
+        pop_spec=plpeak_model_spec,
+        cosmo_spec=plpeak_cosmo_model_spec,
+        pop_det=plpeak_deterministics,
+        cosmo_det=plpeak_cosmo_deterministics,
+        trace_name="trace_plpeak.npz",
+        cosmo_trace_name="trace_cosmo_plpeak.npz",
+    ),
+    "brokenpl": MassFamily(
+        build=_build_brokenpl,
+        pop_priors=BROKENPL_PRIORS,
+        cosmo_priors=BROKENPL_COSMO_PRIORS,
+        pop_spec=brokenpl_model_spec,
+        cosmo_spec=brokenpl_cosmo_model_spec,
+        pop_det=brokenpl_deterministics,
+        cosmo_det=brokenpl_cosmo_deterministics,
+        trace_name="trace_brokenpl.npz",
+        cosmo_trace_name="trace_cosmo_brokenpl.npz",
+    ),
+}

@@ -1,8 +1,12 @@
 """Joint BBH population intensity over (m1, q, z) (L1); counterpart of
-the JAX package's ``models/population.py`` (PISN-bump family only):
+the JAX package's ``models/population.py``.  For the PISN-bump family:
 
     log dN/dm1 dq dV dt = log dN/dm(m1) + log dN/dm(q m1)
                         + beta log[(m1 + m2) / (MREF (1 + QREF))] + log m1 + log dN/dV(z)
+
+:func:`log_dndmdqdv` takes any family's intensity: the other families
+(:mod:`~bumpcosmology_torch.models.plpeak`, :mod:`~bumpcosmology_torch.models.brokenpl`)
+answer through their own ``log_dndmdqdv`` method, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,9 +43,12 @@ def build_population(params: PopulationParams, n_grid: int = DEFAULT_N_GRID,
                                params=params)
 
 
-def log_dndmdqdv(pop: PopulationIntensity, m1: torch.Tensor, q: torch.Tensor, z: torch.Tensor):
-    """log dN/dm1/dq/dV/dt at ``(C, M)`` queries; both mass evaluations share
-    one table lookup."""
+def log_dndmdqdv(pop, m1: torch.Tensor, q: torch.Tensor, z: torch.Tensor):
+    """log dN/dm1/dq/dV/dt at ``(C, M)`` queries.  An intensity that is not a
+    :class:`PopulationIntensity` answers through its own ``log_dndmdqdv``;
+    for the bump, both mass evaluations share one table lookup."""
+    if not isinstance(pop, PopulationIntensity):
+        return pop.log_dndmdqdv(m1, q, z)
     m2 = q * m1
     beta = pop.params.mass.beta[:, None]
     m1_b, m2_b = torch.broadcast_tensors(m1, m2)

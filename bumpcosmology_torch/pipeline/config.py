@@ -1,13 +1,19 @@
-"""Run configuration (L6); a copy of the fit's part of the JAX package's
-``pipeline/config.py``: :class:`PathsConfig` and :class:`FitConfig` with
-the same fields and defaults, held by a :class:`PipelineConfig`.
+"""Run configuration (L6); a copy of the JAX package's ``pipeline/config.py``
+for the stages the port has: :class:`PathsConfig`, :class:`IngestConfig`,
+:class:`FitConfig` and :class:`MockConfig` with the same fields and defaults,
+held by a :class:`PipelineConfig` that loads a JSON file and
+``section.key=value`` overrides.  The SBC, score-check, LOO, compare and PPC
+sections come with their stages.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Dict, Optional
 
-__all__ = ["PathsConfig", "FitConfig", "PipelineConfig"]
+__all__ = ["PathsConfig", "IngestConfig", "FitConfig", "MockConfig", "PipelineConfig"]
 
 
 @dataclass
@@ -26,6 +32,24 @@ class PathsConfig:
 
 
 @dataclass
+class IngestConfig:
+    """PE/selection extraction (``draw_pe_samples.py:11-14``,
+    ``draw_selection_samples.py:8-11``); the mock fit inputs draw their
+    selection rows with ``sel_seed``."""
+
+    nsamp_pe: int = 128
+    nsamp_sel: int = 1024
+    pe_seed: int = 232970088
+    sel_seed: int = 727228188
+    far_threshold: float = 1.0
+    # offline fallback of the data stages (not ported yet): rehearsal fixtures
+    rehearsal_fallback: bool = False
+    rehearsal_events: int = 8
+    rehearsal_campaign_ndraw: int = 200_000
+    rehearsal_seed: int = 11
+
+
+@dataclass
 class FitConfig:
     """Sampler configuration (``run_fit.py:11-14``, ``run_cosmo_fit.py:17-19``)."""
 
@@ -40,13 +64,68 @@ class FitConfig:
     n_z: int = 1024
     n_chain_shards: int = 1  # mesh rows for the chains axis (not ported: one card)
     shared_mass: bool = False  # pool mass-matrix adaptation across chains
-    mass_family: str = "bump"  # only the PISN-bump family is ported
+    # mass-model family: "bump" (the reference's physical PISN-bump model),
+    # "plpeak" (the GWTC-3 fiducial POWER-LAW+PEAK, models/plpeak.py) or
+    # "brokenpl" (the LVK BROKEN POWER LAW, models/brokenpl.py) — selects the
+    # registry row (likelihoods.MASS_FAMILIES) in the fit stages; traces
+    # record the family so `pipeline compare` can rank them on one catalog
+    mass_family: str = "bump"
     # "nuts" (reference parity), "chees", or "nuts+chees" (NUTS warmup +
     # fixed-length jittered sampling — the ragged-tree-free TPU config)
     sampler: str = "nuts"
 
 
 @dataclass
+class MockConfig:
+    """Mock-universe campaign (``mock_injections.py:28-29,137-140``,
+    ``mock_observations.py:12,30``, ``mock_one_year_samples.py:11``)."""
+
+    ndraw: int = 10_000_000
+    injection_seed: int = 333165393
+    observation_seed: int = 181286134
+    catalog_seed: int = 177043409
+    nsamp: int = 128
+    z_horizon: float = 3.5
+    chirp_dist_min: float = 1.5
+    detection_snr: float = 10.0
+    snr_chunk: int = 65536
+    # optional {detector: path} of tabulated physical PSD files (2 columns:
+    # f [Hz], S_n [1/Hz]; .txt/.csv/.npz with arrays "f","psd") replacing the
+    # analytic design curves for real sensitivity studies
+    psd_files: Optional[Dict[str, str]] = None
+
+
+@dataclass
 class PipelineConfig:
     paths: PathsConfig = field(default_factory=PathsConfig)
+    ingest: IngestConfig = field(default_factory=IngestConfig)
     fit: FitConfig = field(default_factory=FitConfig)
+    mock: MockConfig = field(default_factory=MockConfig)
+
+    @classmethod
+    def load(cls, json_path: Optional[str] = None, overrides: Optional[list] = None):
+        """Build from defaults, then a JSON file, then ``section.key=value``
+        overrides (e.g. ``fit.num_chains=16 mock.ndraw=100000``); an unknown
+        key raises ``KeyError``."""
+        cfg = cls()
+        if json_path:
+            with open(json_path) as f:
+                data = json.load(f)
+            for section, vals in data.items():
+                sub = getattr(cfg, section)
+                for k, v in vals.items():
+                    if not hasattr(sub, k):
+                        raise KeyError(f"unknown config key {section}.{k}")
+                    setattr(sub, k, v)
+        for ov in overrides or []:
+            key, _, val = ov.partition("=")
+            section, _, name = key.partition(".")
+            sub = getattr(cfg, section)
+            if not hasattr(sub, name):
+                raise KeyError(f"unknown config key {key}")
+            current = getattr(sub, name)
+            setattr(sub, name, type(current)(json.loads(val)) if not isinstance(current, str) else val)
+        return cfg
+
+    def to_dict(self):
+        return dataclasses.asdict(self)

@@ -8,6 +8,9 @@
   the values agree with the JAX helper's to float32 rounding.  Tests that
   compare the two packages carry the JAX data across with
   :mod:`bumpcosmology_torch.convert` instead, so both see identical inputs.
+* :func:`synthetic_source_tables`: the same kind of source-frame catalog as
+  the column tables the fit stages read (``pe-samples``: m1 q z wt evt;
+  ``selection-samples``: m1 q z pdraw ndraw), for any mass family.
 * :func:`snr_knot_rows`: injections whose transition frequencies sit on the
   stored knots of kernel C's grid, where a count off by one moves a term.
 """
@@ -21,7 +24,7 @@ import torch
 from bumpcosmology_torch.inference.likelihoods import PopCosmoData, PopData, make_pop_cosmo_data, make_pop_data
 from bumpcosmology_torch.models.cosmology import dl_at_z, planck18_table
 
-__all__ = ["synthetic_pop_data", "synthetic_pop_cosmo_data", "snr_knot_rows"]
+__all__ = ["synthetic_pop_data", "synthetic_pop_cosmo_data", "synthetic_source_tables", "snr_knot_rows"]
 
 
 def _source_frame(nobs, nsamp, nsel, seed):
@@ -53,6 +56,19 @@ def synthetic_pop_cosmo_data(nobs=56, nsamp=128, nsel=1024, seed=0, device=None)
 
     return make_pop_cosmo_data(m1 * (1 + z), q, dl(z), pd, m1s * (1 + zs), qs, dl(zs), pds,
                                ndraw=float(nsel * 100), device=device)
+
+
+def synthetic_source_tables(nobs=8, nsamp=32, nsel=128, seed=0):
+    """``(pe, sel)`` column dicts for ``run_pop_fit`` / ``run_pop_cosmo_fit``:
+    uniform draws (m1 in [8, 70], q in [0.3, 1], z in [0.02, 1.5], weights in
+    [0.5, 2]), events labelled ``GW00``, ``GW01``, ..., ``ndraw`` 100 x nsel."""
+    rng = np.random.default_rng(seed)
+    n = nobs * nsamp
+    pe = {"m1": rng.uniform(8.0, 70.0, n), "q": rng.uniform(0.3, 1.0, n), "z": rng.uniform(0.02, 1.5, n),
+          "wt": rng.uniform(0.5, 2.0, n), "evt": np.repeat([f"GW{i:02d}" for i in range(nobs)], nsamp)}
+    sel = {"m1": rng.uniform(8.0, 70.0, nsel), "q": rng.uniform(0.3, 1.0, nsel), "z": rng.uniform(0.02, 1.5, nsel),
+           "pdraw": rng.uniform(0.5, 2.0, nsel), "ndraw": np.full(nsel, 100.0 * nsel)}
+    return pe, sel
 
 
 def snr_knot_rows(f_grid: torch.Tensor, knots=None, ratios=(0.1, 0.45, 1.0), span: int = 12, seed: int = 0):

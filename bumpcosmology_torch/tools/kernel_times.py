@@ -21,7 +21,7 @@ power limit.  Needs one NVIDIA GPU and nvcc.
   ``rows`` kernels and, where the checkout has them, the ``lse`` kernels (phase
   3's limits).
 * ``--kernel c``: ``csrc/snr.cu`` on the rows of phase 6's 10^7-draw campaign
-  (``chip_smoke.run_campaign``, about 7 s of host draws a run), phase 6's
+  (the same draws as ``chip_smoke.run_campaign``'s, about 7 s of host draws a run), phase 6's
   limits (rtol 2e-5 / atol 1e-6, the same exact zeros) and timers (5 calls in
   one replayed graph), and the device time of each launch of a call
   (``device_ms_by_launch``, from a ``torch.profiler`` trace of 5 eager calls).
@@ -135,11 +135,22 @@ def kernel_c_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
     """({kernel: row}, shape) of ``csrc/snr.cu`` under ``root``, on the campaign's rows."""
     import torch
 
+    from bumpcosmology_torch.mock import catalog, psd, snr
     from bumpcosmology_torch.mock import cuda_snr as kc
-    from bumpcosmology_torch.mock import psd, snr
-    from chip_smoke import PLAIN_CHUNK, run_campaign
+    from chip_smoke import MOCK_NDRAW, MOCK_SEED, PLAIN_CHUNK
 
-    _, (m1, m2, dl), _ = run_campaign(torch.device("cuda"))
+    seen, network = {}, snr.network_snr
+
+    def kept(m1, m2, dl, *args, **kwargs):  # the rows the campaign sends to kernel C
+        seen["rows"] = (m1, m2, dl)
+        return network(m1, m2, dl, *args, **kwargs)
+
+    snr.network_snr = kept
+    try:
+        catalog.draw_injection_campaign(ndraw=MOCK_NDRAW, seed=MOCK_SEED, device=torch.device("cuda"))
+    finally:
+        snr.network_snr = network
+    m1, m2, dl = seen["rows"]
     f_grid = snr.frequency_grid(device=m1.device)
     inv_psd = 1.0 / psd.PSDS["H1"](f_grid)
     grid = dict(f_min=float(f_grid[0]), f_max=float(f_grid[-1]), n_f=f_grid.shape[0], amp_scale=kc.AMP_SCALE)

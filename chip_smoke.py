@@ -10,9 +10,9 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
 24,576 injections: 38,912 queries per chain), ``n_grid=256``, ``n_z=1024``,
 16 chains sampled with dense-mass NUTS from ``benchmarks/flagship_warmup16.npz``
 (phase 5) and fitted from prior draws to a trace (phase 7) — and the paths
-beside it: the mock campaign (phase 6), the population-only fit (phase 8) and
-the ChEES samplers (phase 9); and it holds every CUDA kernel against its plain
-PyTorch twin:
+beside it: the mock stages (phase 6), the population-only fit (phase 8), the
+ChEES samplers (phase 9) and the other two mass families in both fits (phase
+10); and it holds every CUDA kernel against its plain PyTorch twin:
 
 1. build every kernel from ``bumpcosmology_torch/csrc`` (one nvcc per source),
    and time the card's launch floor: an empty kernel through the same ctypes
@@ -37,13 +37,15 @@ PyTorch twin:
    ``rows`` epilogue) on the last draw of every chain, with every launch count
    set to 0 just before and read just after; kernel A and the ``lse`` kernels
    must have launched once per value+grad and the ``rows`` forward at least once;
-6. the mock injection campaign at the reference's size: 10^7 draws
-   (seed 333,165,393) through ``draw_injection_campaign`` with the SNR
-   integral on kernel C, then ``campaign_summary`` (predicted detections/yr
-   in the JAX package's calibrated band, 250-2200), ``add_observation_noise``
-   and ``draw_one_year_catalog(nsamp=128)``, with every launch count set to 0
-   just before and read just after (kernel C and kernel A's forward must have
-   launched); then kernel C against its plain twin on exactly the rows the
+6. the mock stages at the reference's size, into a temporary data
+   directory: ``_stage_mock_injections`` (10^7 draws, seed 333,165,393, the
+   SNR integral on kernel C, ``campaign_summary``'s predicted detections/yr
+   in the JAX package's calibrated band, 250-2200), ``_stage_mock_observations``,
+   ``_stage_mock_year_samples`` (``nsamp=128``) and ``_stage_mock_fit_inputs``
+   (``pe-samples.npz``: the catalog; ``selection-samples.npz``: 1,024 rows),
+   with every launch count set to 0 just before and read just after (kernel
+   C and kernel A's forward must have launched); then kernel C against its
+   plain twin on exactly the rows the
    campaign computed, and on some 3,000 rows whose f_merg, f_ring or f_cut
    sits on a stored knot of the grid or one ulp beside it: rtol 2e-5 / atol
    1e-6, the same exact zeros.  Kernel and twin are also measured (not held)
@@ -81,10 +83,20 @@ PyTorch twin:
    ``torch.cuda.set_sync_debug_mode("warn")`` (its synchronizations are
    printed, not held); (b) ``run_chees`` on the population-only potential
    from phase 8's prior draws (``warmup_schedule(30)``, 10 draws, at most 64
-   leapfrogs a trajectory), kernel A once per batched value+grad.
+   leapfrogs a trajectory), kernel A once per batched value+grad;
+10. the other mass families, with phase 8's cut: (a) ``run_pop_fit`` with
+   ``mass_family="brokenpl"`` on phase 6's mock fit inputs at their full
+   width (every catalog event x 128 samples and 1,024 selection rows), and
+   (b) ``run_pop_cosmo_fit`` with ``mass_family="plpeak"`` on the flagship
+   catalog, with the checks of phases 7-8: every launch count (A, B, C)
+   0 (these families run no kernel, in either package); the trace reads
+   back with the family's file name and attrs; the potential and gradient at
+   the adapted state, and the deterministics of the run's draws, against
+   the same built on the CPU from the same tables (phase 4's limits, 2e-4);
+   ms per batched value+grad by CUDA events, and a profile of three.
 
 The ``kernels`` line's ``launches`` are phase 7's (the joint fit, C: phase
-6's campaign); ``launches_by_path`` adds phases 8 and 9.  Every kernel is
+6's stages); ``launches_by_path`` gives every path, phases 6-10.  Every kernel is
 timed twice: ``ms`` is its device time (20 launches captured
 in one CUDA graph and replayed, so the host's queueing rate is out of the
 figure), ``call_ms`` the time of one call of its Python wrapper as the main
@@ -104,6 +116,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -269,6 +282,14 @@ def main() -> int:
     except ImportError as err:
         print(f"chip_smoke: the port package is not beside this script ({err})", file=sys.stderr)
         return 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return run(Path(tmp))
+
+
+def run(mock_dir: Path) -> int:
+    """Every phase, then the kernels line and the result line; ``mock_dir``
+    keeps phase 6's fit inputs for phase 10a."""
+    import torch
 
     from bumpcosmology_torch.benchdata import load_pop_cosmo_data
     from bumpcosmology_torch.inference.likelihoods import (
@@ -585,13 +606,13 @@ def main() -> int:
         lambda: run_sampling(pot, out.warm, 1, NutsConfig(max_depth=4), seed=SEED + 1), "one draw at max_depth 4"))
     phase_done("5_profile")
 
-    # ---- phase 6: the mock injection campaign through kernel C ------------
-    rows["snr_integral"], mock_launches = mock_campaign_phase(dev, tag)
-    phase_done("6_mock_campaign")
+    # ---- phase 6: the mock stages, the campaign through kernel C ---------
+    rows["snr_integral"], mock_launches = mock_campaign_phase(dev, tag, mock_dir)
+    phase_done("6_mock_stages")
 
     # ---- phase 7: the joint fit from prior draws to a trace --------------
-    launches = fit_phase(dev, tag, "joint")[0]
-    launches["snr_integral"] = mock_launches["snr_integral"]
+    joint_launches = fit_phase(dev, tag, "joint")[0]
+    launches = dict(joint_launches, snr_integral=mock_launches["snr_integral"])  # the main path's; C's is phase 6's
     phase_done("7_fit")
 
     # ---- phase 8: the population-only fit from prior draws to a trace ----
@@ -605,6 +626,12 @@ def main() -> int:
     phase_done("9a_nuts_chees")
     chees_launches = chees_pop_phase(dev, tag, pop_spec, pop_theta0)
     phase_done("9b_chees_pop")
+
+    # ---- phase 10: the other mass families, no kernel on their path ------
+    brokenpl_launches = fit_phase(dev, tag, "pop", family="brokenpl", data_dir=mock_dir)[0]
+    phase_done("10a_brokenpl_pop_fit")
+    plpeak_launches = fit_phase(dev, tag, "joint", family="plpeak")[0]
+    phase_done("10b_plpeak_joint_fit")
     log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
 
     sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
@@ -631,10 +658,10 @@ def main() -> int:
         elif name == "logwts_bwd":
             status = ("ok: built, matches its plain twin; launched in the phase-3 comparison only "
                       "(the main path's gradient takes the lse epilogue)")
-        by_path = {"7_joint_fit": launches[name]} if name != "snr_integral" else {"6_mock_campaign": launches[name]}
-        if name != "snr_integral":
-            by_path.update({"8_pop_fit": pop_launches[name], "9a_nuts_chees": hybrid_launches[name],
-                            "9b_chees_pop": chees_launches[name]})
+        by_path = {path: counts[name] for path, counts in (
+            ("6_mock_stages", mock_launches), ("7_joint_fit", joint_launches), ("8_pop_fit", pop_launches),
+            ("9a_nuts_chees", hybrid_launches), ("9b_chees_pop", chees_launches),
+            ("10a_brokenpl_pop_fit", brokenpl_launches), ("10b_plpeak_joint_fit", plpeak_launches))}
         kernels.append(dict(name=name, route="cuda", source=sources[name.split("_")[0]],
                             replaces=replaces[name], launches=launches[name], launches_by_path=by_path,
                             max_abs_err=row["max_abs_err"], ms=row["ms"], call_ms=row["call_ms"],
@@ -647,24 +674,26 @@ def main() -> int:
     return 0
 
 
-def device_busy_share(run, label: str) -> str:
+def device_busy_share(run, label: str, n_vg=None) -> str:
     """Share of the wall time of ``run()`` in which the card runs a kernel,
     from a ``torch.profiler`` trace (CUDA activity).  ``run`` is kept short
     (at most some 15 batched value+grads): a full-depth NUTS draw makes some
-    10^6 device activities, which take the profiler minutes to collect."""
+    10^6 device activities, which take the profiler minutes to collect.
+    ``n_vg`` is the number of batched value+grads ``run`` makes; by default
+    kernel A's backward launches count them (one per value+grad of the bump)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from bumpcosmology_torch.ops import cuda_bump
 
     torch.cuda.synchronize()
-    vg0 = cuda_bump.LAUNCHES["bump_bwd"]  # one per batched value+grad, on either model
+    vg0 = cuda_bump.LAUNCHES["bump_bwd"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    n_vg = cuda_bump.LAUNCHES["bump_bwd"] - vg0
+    n_vg = cuda_bump.LAUNCHES["bump_bwd"] - vg0 if n_vg is None else n_vg
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         return "device busy share not measured (the profiler recorded no device activity)"
@@ -699,21 +728,24 @@ def _counting_hmc_steps(steps: list):
     return lambda: setattr(chees, "_hmc_step", real)
 
 
+def _counters():
+    from bumpcosmology_torch.mock import cuda_snr
+    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+
+    return cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_snr.LAUNCHES
+
+
 def _zero_counters():
     import torch
 
-    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
-
-    for cnt in (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES):
+    for cnt in _counters():
         for k in cnt:
             cnt[k] = 0
     torch.cuda.synchronize()
 
 
 def _read_counters():
-    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
-
-    return {k: v for cnt in (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES) for k, v in cnt.items()}
+    return {k: v for cnt in _counters() for k, v in cnt.items()}
 
 
 def chees_hybrid_phase(dev, tag: str, spec, warm, det_fn, vg_per_s_nuts: float):
@@ -900,19 +932,25 @@ def snr_work(m1, m2, f_grid, clock_hz: float):
     return ms, ("bytes" if ms == t["bytes"] else "operations"), t, points
 
 
-def run_campaign(dev):
-    """``draw_injection_campaign`` at the reference's size (``MOCK_NDRAW``
-    draws from ``MOCK_SEED``) with the SNRs on the card.  Returns (injection
-    table, the (m1, m2, dl) rows that kernel C computed, the host-clock split
-    in s).  ``tools/kernel_times.py --kernel c`` times C on the same rows."""
+def run_campaign(dev, cfg):
+    """``_stage_mock_injections`` at the reference's size (``MOCK_NDRAW``
+    draws from ``MOCK_SEED``) with the SNRs on the card: the campaign, its
+    table written to ``cfg``'s data directory, its summary.  Returns (injection
+    table, summary, the (m1, m2, dl) rows that kernel C computed, the
+    host-clock split in s).  ``tools/kernel_times.py --kernel c`` times C on
+    the same rows."""
     import torch
 
+    import bumpcosmology_torch.mock as mock
     from bumpcosmology_torch.mock import catalog, snr
+    from bumpcosmology_torch.pipeline import stages
 
-    # wrap the two SNR calls to mark when the host draws end, when the rows
-    # are on the card, when the SNRs are done
+    # wrap the calls inside the stage to mark when the host draws end, when the
+    # rows are on the card, when the SNRs are done, when the table is written,
+    # and to keep the table and its summary
     marks, seen = {}, {}
     batched, network = catalog.network_snr_batched, snr.network_snr
+    draw, summarize = mock.draw_injection_campaign, mock.campaign_summary
 
     def timed_batched(*args, **kwargs):
         marks["batched_in"] = time.perf_counter()
@@ -929,19 +967,32 @@ def run_campaign(dev):
         seen["rows"] = (m1, m2, dl)
         return out
 
+    def timed_draw(*args, **kwargs):
+        seen["inj"] = draw(*args, **kwargs)
+        marks["drawn"] = time.perf_counter()
+        return seen["inj"]
+
+    def timed_summary(*args, **kwargs):
+        marks["summary_in"] = time.perf_counter()
+        seen["summary"] = summarize(*args, **kwargs)
+        return seen["summary"]
+
     catalog.network_snr_batched, snr.network_snr = timed_batched, timed_network
+    mock.draw_injection_campaign, mock.campaign_summary = timed_draw, timed_summary
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        inj = catalog.draw_injection_campaign(ndraw=MOCK_NDRAW, seed=MOCK_SEED, device=dev)
+        stages._stage_mock_injections(cfg, device=dev)
         t_end = time.perf_counter()
     finally:
         catalog.network_snr_batched, snr.network_snr = batched, network
+        mock.draw_injection_campaign, mock.campaign_summary = draw, summarize
     split = dict(host_draws=marks["batched_in"] - t0, host_to_device=marks["network_in"] - marks["batched_in"],
                  device_snr=marks["network_out"] - marks["network_in"],
                  device_to_host=marks["batched_out"] - marks["network_out"],
-                 host_assembly=t_end - marks["batched_out"])
-    return inj, seen["rows"], split
+                 host_assembly=marks["drawn"] - marks["batched_out"],
+                 table_write=marks["summary_in"] - marks["drawn"], summary=t_end - marks["summary_in"])
+    return seen["inj"], seen["summary"], seen["rows"], split
 
 
 def snr_against_twin(label: str, m1, m2, dl, inv_psd, grid):
@@ -998,36 +1049,42 @@ def distance_to(exact, x):
     return float(d.max()), float((d[live] / exact[live]).max())
 
 
-def mock_campaign_phase(dev, tag: str):
+def mock_campaign_phase(dev, tag: str, data_dir):
     """Phase 6: the 10^7-draw injection campaign and the catalog after it,
-    through the port's entry points, then kernel C against its plain twin on
-    the campaign's own SNR rows and on knot rows.  Returns (kernel row, launch
-    counts)."""
+    through the pipeline's four mock stages into ``data_dir``, which keeps
+    the fit inputs (``pe-samples.npz``, ``selection-samples.npz``) for phase
+    10a; then kernel C against its plain twin on the campaign's own SNR rows
+    and on knot rows.  Returns (kernel row, launch counts)."""
     import numpy as np
     import torch
 
-    from bumpcosmology_torch.mock import catalog, cuda_snr, psd, snr
-    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+    from bumpcosmology_torch.mock import cuda_snr, psd, snr
+    from bumpcosmology_torch.pipeline import stages
+    from bumpcosmology_torch.pipeline.config import MockConfig, PathsConfig, PipelineConfig
     from bumpcosmology_torch.testing import snr_knot_rows
+    from bumpcosmology_torch.utils.io import read_table
 
-    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_snr.LAUNCHES)
-    for cnt in counters:
-        for k in cnt:
-            cnt[k] = 0
-    torch.cuda.synchronize()
+    cfg = PipelineConfig(paths=PathsConfig(data_dir=str(data_dir)),
+                         mock=MockConfig(ndraw=MOCK_NDRAW, injection_seed=MOCK_SEED, nsamp=MOCK_NSAMP))
+    _zero_counters()
     t0 = time.perf_counter()
-    inj, (m1, m2, dl), split = run_campaign(dev)
+    inj, summary, (m1, m2, dl), split = run_campaign(dev, cfg)
     t_campaign = time.perf_counter()
-    summary = catalog.campaign_summary(inj, device=dev)
-    obs = catalog.add_observation_noise(inj)
+    stages._stage_mock_observations(cfg, device=dev)
     t_obs = time.perf_counter()
-    cat = catalog.draw_one_year_catalog(len(inj["m1"]), obs, nsamp=MOCK_NSAMP, device=dev)
+    stages._stage_mock_year_samples(cfg, device=dev)
     torch.cuda.synchronize()
     t_cat = time.perf_counter()
-    launches = {k: v for cnt in counters for k, v in cnt.items()}
+    stages._stage_mock_fit_inputs(cfg, device=dev)
+    t_inputs = time.perf_counter()
+    launches = _read_counters()
+    obs = read_table(cfg.paths.path("mock_observations.npz"), key="observations")
+    cat = read_table(cfg.paths.path("mock_year_samples.npz"))
+    pe, sel = read_table(cfg.paths.path("pe-samples.npz")), read_table(cfg.paths.path("selection-samples.npz"))
+    cfg.paths.path("mock_injections.npz").unlink()  # 1.5 GB; phase 10a reads only the fit inputs
 
     n = m1.shape[0]
-    log(f"{tag} phase 6 campaign: {MOCK_NDRAW} draws, {n} rows computed on the card "
+    log(f"{tag} phase 6 _stage_mock_injections: {MOCK_NDRAW} draws, {n} rows computed on the card "
         f"({n / MOCK_NDRAW:.4f} pass the z / chirp-distance precut); wall {t_campaign - t0:.3f} s "
         f"(host clock, s: {json.dumps({k: round(v, 4) for k, v in split.items()})}); "
         f"device SNR {n / split['device_snr']:.4g} injections/s")
@@ -1036,9 +1093,11 @@ def mock_campaign_phase(dev, tag: str):
         raise AssertionError("campaign: SNR column is not finite and non-negative at full length")
     nex = summary["predicted_detections_per_year"]
     n_events = len(np.unique(cat["evt"]))
-    log(f"{tag} phase 6 campaign_summary {json.dumps(summary)} in {t_obs - t_campaign:.3f} s with the "
-        f"observation noise; one-year catalog: {len(obs['SNR_OBS'])} observed detections, {n_events} events "
-        f"x {MOCK_NSAMP} PE samples in {t_cat - t_obs:.3f} s (host clock); launches {launches}")
+    log(f"{tag} phase 6 campaign_summary {json.dumps(summary)}; _stage_mock_observations "
+        f"{t_obs - t_campaign:.3f} s ({len(obs['SNR_OBS'])} observed detections), _stage_mock_year_samples "
+        f"{t_cat - t_obs:.3f} s ({n_events} events x {MOCK_NSAMP} PE samples), _stage_mock_fit_inputs "
+        f"{t_inputs - t_cat:.3f} s ({len(np.unique(pe['evt']))} events, {len(pe['m1'])} PE rows, "
+        f"{len(sel['m1'])} selection rows, ndraw {float(sel['ndraw'][0]):.6g}) (host clock); launches {launches}")
     if not 250.0 < nex < 2200.0:
         raise AssertionError(f"campaign: {nex:.1f} predicted detections/yr outside the calibrated band 250-2200")
     counts = np.bincount(cat["evt"])[np.unique(cat["evt"])] if n_events else np.zeros(0)
@@ -1046,6 +1105,10 @@ def mock_campaign_phase(dev, tag: str):
         raise AssertionError(f"catalog: {n_events} events, samples per event {set(counts.tolist())}")
     if not ((cat["q"] >= 0) & (cat["q"] <= 1) & (cat["m1"] > 0) & (cat["z"] > 0)).all():
         raise AssertionError("catalog: PE samples outside their support")
+    if not (all(np.array_equal(pe[k], cat[k]) for k in cat) and len(sel["m1"]) == cfg.ingest.nsamp_sel
+            and all(np.isfinite(v).all() for v in sel.values())):
+        raise AssertionError("fit inputs: pe-samples is not the catalog, or the selection rows are not "
+                             f"{cfg.ingest.nsamp_sel} finite rows")
     missing = [k for k in ("snr_integral", "bump_fwd") if launches[k] == 0]
     if missing:
         raise AssertionError(f"campaign: kernels never launched on the mock path: {missing}")
@@ -1107,14 +1170,17 @@ def flagship_source_tables():
     return pe, sel
 
 
-def fit_phase(dev, tag: str, model: str):
-    """Phase 7 (``model="joint"``: ``run_pop_cosmo_fit``) or phase 8
-    (``model="pop"``: ``run_pop_fit``): the fit from prior draws to a trace at
-    the flagship's width, cut in depth.  The samplers are wrapped only to
+def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None):
+    """The fit from prior draws to a trace, cut in depth: phase 7 (``model=
+    "joint"``: ``run_pop_cosmo_fit``) and phase 8 (``model="pop"``:
+    ``run_pop_fit``) of the bump at the flagship's width; phase 10a
+    (``run_pop_fit``, ``family="brokenpl"``, on the fit inputs that phase 6's
+    stages wrote to ``data_dir``) and phase 10b (``run_pop_cosmo_fit``,
+    ``family="plpeak"``, on the flagship).  The samplers are wrapped only to
     observe: the prior draws, the step-size search's and each warmup
-    transition's value+grads (kernel A's backward count, one per batched
-    value+grad on either model), the warmup statistics and the draws.
-    Returns (the launch counts of the run, the spec, the prior draws)."""
+    transition's batched value+grads (the spec's log-likelihood called with
+    gradients on), the warmup statistics and the draws.  Returns (the launch
+    counts of the run, the spec, the prior draws)."""
     import tempfile
 
     import numpy as np
@@ -1124,18 +1190,23 @@ def fit_phase(dev, tag: str, model: str):
     from bumpcosmology_torch.inference import nuts, sampler
     from bumpcosmology_torch.inference.diagnostics import summary
     from bumpcosmology_torch.inference.model import make_potential, value_and_grad
-    from bumpcosmology_torch.ops import cuda_bump
     from bumpcosmology_torch.pipeline import stages
     from bumpcosmology_torch.pipeline.config import FitConfig, PathsConfig, PipelineConfig
+    from bumpcosmology_torch.utils.io import read_table
     from bumpcosmology_torch.utils.trace import load_trace
 
-    joint = model == "joint"
-    phase = 7 if joint else 8
-    depth = FIT_DEPTH if joint else POP_FIT_DEPTH
-    run_stage, trace_name = ((stages.run_pop_cosmo_fit, stages.COSMO_TRACE_NAME) if joint
-                             else (stages.run_pop_fit, stages.TRACE_NAME))
-    pe, sel = flagship_source_tables()
-    n_vg = lambda: cuda_bump.LAUNCHES["bump_bwd"]  # noqa: E731  (one per batched value+grad)
+    joint, bump = model == "joint", family == "bump"
+    phase = (7 if joint else 8) if bump else ("10b" if joint else "10a")
+    depth = FIT_DEPTH if joint and bump else POP_FIT_DEPTH
+    fam = lk.MASS_FAMILIES[family]
+    run_stage, trace_name = ((stages.run_pop_cosmo_fit, fam.cosmo_trace_name) if joint
+                             else (stages.run_pop_fit, fam.trace_name))
+    if data_dir is None:
+        pe, sel = flagship_source_tables()
+    else:  # the stage reads them; they are read here too for the comparison on the host
+        pe, sel = read_table(Path(data_dir) / "pe-samples.npz"), read_table(Path(data_dir) / "selection-samples.npz")
+    calls = {"value_grad": 0, "value": 0}
+    n_vg = lambda: calls["value_grad"]  # noqa: E731
     seen, marks = {}, []
     real = {"eps": nuts._find_reasonable_eps, "warmup": sampler.run_warmup, "sampling": sampler.run_sampling,
             "fit": sampler.fit, "init": sampler._finite_prior_init}
@@ -1165,86 +1236,110 @@ def fit_phase(dev, tag: str, model: str):
 
     def fit(spec, *args, **kwargs):
         seen["spec"] = spec
-        return real["fit"](spec, *args, **kwargs)
+
+        def counted(sites):  # one call per batched potential: with gradients on, a value+grad
+            calls["value_grad" if torch.is_grad_enabled() else "value"] += 1
+            return spec.loglike(sites)
+
+        return real["fit"](spec._replace(loglike=counted), *args, **kwargs)
 
     def init(*args, **kwargs):
         seen["prior_theta"] = real["init"](*args, **kwargs)
         return seen["prior_theta"]
 
     cfg_fit = FitConfig(num_warmup=FIT_WARMUP, num_samples=FIT_SAMPLES, num_chains=FIT_CHAINS, max_depth=depth,
-                        n_grid=N_GRID, n_z=N_Z)
+                        n_grid=N_GRID, n_z=N_Z, mass_family=family)
     nuts._find_reasonable_eps, sampler.run_warmup, sampler.run_sampling, sampler.fit, sampler._finite_prior_init = (
         eps_search, warmup, sampling, fit, init)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            cfg = PipelineConfig(paths=PathsConfig(data_dir=tmp), fit=cfg_fit)
+            out_dir = Path(data_dir or tmp)
+            cfg = PipelineConfig(paths=PathsConfig(data_dir=str(out_dir)), fit=cfg_fit)
             _zero_counters()
             t0 = time.perf_counter()
-            res = run_stage(cfg, pe, sel, device=dev)
+            res = (run_stage(cfg, device=dev) if data_dir is not None else run_stage(cfg, pe, sel, device=dev))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = _read_counters()
-            trace = load_trace(Path(tmp) / trace_name)
+            trace = load_trace(out_dir / trace_name)
     finally:
         nuts._find_reasonable_eps, sampler.run_warmup, sampler.run_sampling, sampler.fit, sampler._finite_prior_init = (
             real["eps"], real["warmup"], real["sampling"], real["fit"], real["init"])
 
-    # the kernels on the path: once per batched value+grad, the forward alone for the prior draws'
-    # potentials and for each chunk of the deterministics (kernel B's rows forward on the joint model)
+    # the kernels on the path: the bump's once per batched value+grad, the forward alone for the prior draws'
+    # potentials and for each chunk of the deterministics (kernel B's rows forward on the joint model); the
+    # other families' none
     c, n_draws = FIT_CHAINS, FIT_CHAINS * FIT_SAMPLES
     n_chunks = -(-n_draws // 128)
-    if joint:
-        n_prior = launches["logwts_lse_fwd"] - launches["logwts_lse_bwd"]
-        ok = (launches["bump_bwd"] == launches["logwts_lse_bwd"] > 0 and launches["logwts_fwd"] == n_chunks
-              and launches["bump_fwd"] == launches["logwts_lse_fwd"] + n_chunks and launches["logwts_bwd"] == 0)
+    n_prior = calls["value"]
+    if not bump:
+        ok = not any(launches.values())
+    elif joint:
+        ok = (launches["bump_bwd"] == launches["logwts_lse_bwd"] == n_vg() and launches["logwts_fwd"] == n_chunks
+              and launches["bump_fwd"] == launches["logwts_lse_fwd"] + n_chunks == n_vg() + n_prior + n_chunks
+              and launches["logwts_bwd"] == 0)
     else:  # no kernel B: the population-only weights are plain torch
-        n_prior = launches["bump_fwd"] - launches["bump_bwd"] - n_chunks
-        ok = launches["bump_bwd"] > 0 and not any(v for k, v in launches.items() if k.startswith("logwts"))
-    if not (ok and 1 <= n_prior <= 50):
-        raise AssertionError(f"fit ({model}): launches are not one of each kernel per value+grad, {n_chunks} "
-                             f"forwards for the deterministics: {launches}")
+        ok = (launches["bump_bwd"] == n_vg() and launches["bump_fwd"] == n_vg() + n_prior + n_chunks
+              and not any(v for k, v in launches.items() if k.startswith("logwts")))
+    if not (ok and n_vg() > 0 and 1 <= n_prior <= 50):
+        raise AssertionError(f"fit ({family}, {model}): launches are not " + (
+            "zero on every kernel" if not bump else f"one of each kernel per value+grad ({n_vg()}), {n_chunks} "
+            "forwards for the deterministics") + f": {launches}")
     warm = res.warmup_state
     if warm.eps.shape != (c,) or not bool(torch.isfinite(warm.eps).all()) or not bool((warm.eps > 0).all()):
-        raise AssertionError(f"fit ({model}): adapted step sizes {warm.eps.tolist()}")
+        raise AssertionError(f"fit ({family}, {model}): adapted step sizes {warm.eps.tolist()}")
     asym = float(((warm.cov - warm.cov.mT).abs().amax((1, 2)) / warm.cov.abs().amax((1, 2))).max())
     info = torch.linalg.cholesky_ex(warm.cov).info
     if asym > 1e-5 or bool((info != 0).any()):
-        raise AssertionError(f"fit ({model}): adapted covariances asymmetric by {asym:.2e} or without a Cholesky "
-                             f"factor (info {info.tolist()})")
+        raise AssertionError(f"fit ({family}, {model}): adapted covariances asymmetric by {asym:.2e} or without a "
+                             f"Cholesky factor (info {info.tolist()})")
     for group, arrays in (("posterior", res.posterior), ("sample_stats", res.sample_stats)):
         for k, v in arrays.items():
             if v.shape[:2] != (c, FIT_SAMPLES) or not np.isfinite(v).all():
-                raise AssertionError(f"fit ({model}): {group} {k} of shape {v.shape} is not finite at "
+                raise AssertionError(f"fit ({family}, {model}): {group} {k} of shape {v.shape} is not finite at "
                                      f"({c}, {FIT_SAMPLES})")
     for group in ("posterior", "sample_stats"):
         stored, made = getattr(trace, group), getattr(res, group)
         if sorted(stored) != sorted(made) or not all(np.array_equal(stored[k], made[k]) for k in made):
-            raise AssertionError(f"fit ({model}): the trace's {group} does not read back equal")
-    attrs = {"model": "pop_cosmo" if joint else "pop", "family": "bump"}
+            raise AssertionError(f"fit ({family}, {model}): the trace's {group} does not read back equal")
+    attrs = {"model": "pop_cosmo" if joint else "pop", "family": family}
     if trace.attrs != attrs or sorted(trace.coords) != ["m_grid", "q_grid", "z_grid"]:
-        raise AssertionError(f"fit ({model}): trace attrs {trace.attrs}, coords {sorted(trace.coords)}")
+        raise AssertionError(f"fit ({family}, {model}): trace attrs {trace.attrs}, coords {sorted(trace.coords)}")
 
-    # the deterministics through the kernels against the plain path, on the run's own draws
-    if joint:
-        data = stages.pop_cosmo_data_from_tables(pe, sel, dev)
+    # the deterministics against a second evaluation on the run's own draws: the bump's through the kernels
+    # against the plain path on the card, another family's on the card against the same on the CPU
+    to_data = stages.pop_cosmo_data_from_tables if joint else stages.pop_data_from_tables
+    data = to_data(pe, sel, dev)
+    if bump and joint:
         bounds, qry = lk.dl_bounds_of(data), lk.query_table(data)
         det_fn = lambda s, plain: lk.pop_cosmo_deterministics(s, data, N_GRID, N_Z, bounds, qry,  # noqa: E731
                                                               plain=plain)
-    else:
-        data = stages.pop_data_from_tables(pe, sel, dev)
+    elif bump:
         rows = lk.pop_rows(data)
         det_fn = lambda s, plain: lk.pop_deterministics(s, data, N_GRID, rows, plain=plain)  # noqa: E731
-    det = {plain: sampler.compute_deterministics(seen["spec"], seen["thetas"],
-                                                 lambda s, plain=plain: det_fn(s, plain))
-           for plain in (False, True)}
+    if bump:
+        det = {plain: sampler.compute_deterministics(seen["spec"], seen["thetas"],
+                                                     lambda s, plain=plain: det_fn(s, plain))
+               for plain in (False, True)}
+        ref, second = det[True], {"kernels": det[False], "trace": res.posterior}
+    else:
+        data_cpu = to_data(pe, sel, "cpu")
+        spec_cpu = (fam.cosmo_spec(data_cpu, N_GRID, N_Z, device="cpu") if joint
+                    else fam.pop_spec(data_cpu, N_GRID, device="cpu"))
+        det_cpu = ((lambda s: fam.cosmo_det(s, data_cpu, N_GRID, N_Z)) if joint
+                   else (lambda s: fam.pop_det(s, data_cpu, N_GRID)))
+        t_cpu = time.perf_counter()
+        ref = sampler.compute_deterministics(spec_cpu, seen["thetas"].cpu(), det_cpu)
+        t_cpu = time.perf_counter() - t_cpu
+        second = {"trace": res.posterior}
     worst = {}
-    for k, ref in det[True].items():
-        for label, got in (("kernels", det[False][k]), ("trace", res.posterior[k])):
-            d = float((np.abs(got.astype(np.float64) - ref) / (1.0 + np.abs(ref))).max())
+    for k, r in ref.items():
+        for label, got in ((label, arrays[k]) for label, arrays in second.items()):
+            d = float((np.abs(got.astype(np.float64) - r) / (1.0 + np.abs(r))).max())
             worst[k] = max(worst.get(k, 0.0), d)
             if not d < 2e-4:
-                raise AssertionError(f"fit ({model}): deterministic {k} ({label}) against the plain path: "
-                                     f"|d|/(1+|ref|) = {d:.3e} (limit 2e-4)")
+                raise AssertionError(f"fit ({family}, {model}): deterministic {k} ({label}) against the "
+                                     f"{'plain path' if bump else 'CPU'}: |d|/(1+|ref|) = {d:.3e} (limit 2e-4)")
 
     # what the run did, by warmup segment
     st = seen["warm_stats"]
@@ -1272,14 +1367,15 @@ def fit_phase(dev, tag: str, model: str):
     ess_min = min(d["ess"] for d in diag.values())
     rhat_max = max(d["rhat"] for d in diag.values())
     eps = warm.eps
-    stage_name = run_stage.__name__
-    log(f"{tag} phase {phase} {stage_name} from prior draws ({c} chains, {FIT_WARMUP} warmup steps, {FIT_SAMPLES} "
-        f"draws, max_depth {depth}, n_grid {N_GRID}" + (f", n_z {N_Z}" if joint else "") + f"): {wall:.2f} s wall "
-        f"(host clock); warmup {t['warmup_s']:.2f} s ({warm_vg} batched value+grads, "
-        f"{1e3 * t['warmup_s'] / warm_vg:.2f} ms each, the step-size search's {seen['eps_search_vg']} included), "
-        f"sampling {t['sampling_s']:.2f} s ({samp_vg} batched value+grads, {1e3 * t['sampling_s'] / samp_vg:.2f} ms "
-        f"each; {n_draws / t['sampling_s']:.3f} draws/s), deterministics {t['deterministics_s']:.2f} s; {n_prior} "
-        f"potential evaluation(s) for the prior draws")
+    n_rows = data.events.a.numel() + data.selection.a.numel()
+    log(f"{tag} phase {phase} {run_stage.__name__}(mass_family={family!r}) from prior draws ({c} chains, "
+        f"{data.events.a.shape[0]} events x {data.events.a.shape[1]} samples + {data.selection.a.numel()} "
+        f"injections = {n_rows} rows, {FIT_WARMUP} warmup steps, {FIT_SAMPLES} draws, max_depth {depth}, n_grid "
+        f"{N_GRID}" + (f", n_z {N_Z}" if joint else "") + f"): {wall:.2f} s wall (host clock); warmup "
+        f"{t['warmup_s']:.2f} s ({warm_vg} batched value+grads, {1e3 * t['warmup_s'] / warm_vg:.2f} ms each, the "
+        f"step-size search's {seen['eps_search_vg']} included), sampling {t['sampling_s']:.2f} s ({samp_vg} batched "
+        f"value+grads, {1e3 * t['sampling_s'] / samp_vg:.2f} ms each; {n_draws / t['sampling_s']:.3f} draws/s), "
+        f"deterministics {t['deterministics_s']:.2f} s; {n_prior} potential evaluation(s) for the prior draws")
     log(f"{tag} phase {phase} warmup by segment: {json.dumps(segments)}")
     log(f"{tag} phase {phase} step sizes: after the search median {float(seen['eps0'].median()):.4g} (min "
         f"{float(seen['eps0'].min()):.4g}, max {float(seen['eps0'].max()):.4g}); adapted (exp log_eps_bar) median "
@@ -1288,24 +1384,34 @@ def fit_phase(dev, tag: str, model: str):
         f"{int(ss['diverging'].sum())}; largest covariance asymmetry {asym:.2e}")
     log(f"{tag} phase {phase} diagnostics over {len(scalar)} scalar sites, from {FIT_SAMPLES} draws x {c} chains "
         f"after {FIT_WARMUP} warmup steps (not an ESS/s measurement): min ESS {ess_min:.1f}, max R-hat "
-        f"{rhat_max:.3f}; deterministics kernels vs plain, largest |d|/(1+|ref|) {max(worst.values()):.2e}; "
-        f"launches {launches}")
-    if not joint:  # the population-only potential's value+grad at the adapted state, kernel A against its twin
+        f"{rhat_max:.3f}; deterministics " + (f"kernels vs plain" if bump else
+                                              f"card vs CPU ({t_cpu:.2f} s on the host)")
+        + f", largest |d|/(1+|ref|) {max(worst.values()):.2e}; launches {launches}")
+    if not (joint and bump):  # the potential's value+grad at the adapted state against a second evaluation
         pot = make_potential(seen["spec"])
-        pot_plain = make_potential(lk.pop_model_spec(data, N_GRID, device=dev, plain=True))
         theta = warm.state.theta
-        (u_k, g_k), (u_p, g_p) = value_and_grad(pot, theta), value_and_grad(pot_plain, theta)
+        u_k, g_k = value_and_grad(pot, theta)
+        if bump:
+            label, pot_ref = "kernel A against its plain twin", make_potential(
+                lk.pop_model_spec(data, N_GRID, device=dev, plain=True))
+            u_p, g_p = value_and_grad(pot_ref, theta)
+        else:
+            label, pot_ref = "card against CPU", make_potential(spec_cpu)
+            u_p, g_p = (x.to(dev) for x in value_and_grad(pot_ref, theta.cpu()))
         du = float(((u_k - u_p).abs() / (1.0 + u_p.abs())).max())
         dg = float(((g_k - g_p).abs() / (1.0 + g_p.abs())).max())
         if du >= 2e-4 or dg >= 5e-3:
-            raise AssertionError(f"pop potential: kernel vs plain |dU|/(1+|U|) {du:.3e}, |dgrad|/(1+|grad|) {dg:.3e}")
+            raise AssertionError(f"{family} {model} potential, {label}: |dU|/(1+|U|) {du:.3e}, "
+                                 f"|dgrad|/(1+|grad|) {dg:.3e}")
         vg_ms = cuda_ms(lambda: value_and_grad(pot, theta), reps=10)
-        vg_plain_ms = cuda_ms(lambda: value_and_grad(pot_plain, theta), reps=10)
-        log(f"{tag} phase 8 pop potential (C={c}, 12 sites, {data.events.a.numel() + data.selection.a.numel()} "
-            f"rows): |dU|/(1+|U|) {du:.3e}, |dgrad|/(1+|grad|) {dg:.3e} against the plain path; batched value+grad "
-            f"{vg_ms:.3f} ms with kernel A, {vg_plain_ms:.3f} ms with its plain twin (CUDA events, mean of 10)")
-        log(f"{tag} phase 8 profile: " + device_busy_share(
-            lambda: [value_and_grad(pot, theta) for _ in range(3)], "three pop value+grads"))
+        extra = ""
+        if bump:
+            extra = f", {cuda_ms(lambda: value_and_grad(pot_ref, theta), reps=10):.3f} ms with its plain twin"
+        log(f"{tag} phase {phase} {family} {model} potential (C={c}, {len(seen['spec'].priors)} sites, {n_rows} "
+            f"rows): |dU|/(1+|U|) {du:.3e}, |dgrad|/(1+|grad|) {dg:.3e}, {label}; batched value+grad {vg_ms:.3f} "
+            f"ms{extra} (CUDA events, mean of 10)")
+        log(f"{tag} phase {phase} profile: " + device_busy_share(
+            lambda: [value_and_grad(pot, theta) for _ in range(3)], f"three {family} {model} value+grads", n_vg=3))
     return launches, seen["spec"], seen["prior_theta"]
 
 

@@ -14,7 +14,8 @@
   ``constrain`` + ``compute_deterministics`` reproduce from its draws; its
   coords and attrs are those the JAX stage writes, its sample-stat keys those
   JAX's ``fit`` returns.
-* ``group_events`` and the ``FitConfig``/``PathsConfig`` defaults equal JAX's.
+* ``group_events`` and the config sections' defaults (paths, ingest, fit,
+  mock) equal JAX's.
 """
 import dataclasses
 import pathlib
@@ -37,6 +38,7 @@ from bumpcosmology_torch.inference.model import ModelSpec, make_potential, uncon
 from bumpcosmology_torch.inference.nuts import NutsConfig
 from bumpcosmology_torch.inference.sampler import _finite_prior_init, compute_deterministics, fit
 from bumpcosmology_torch.pipeline import config, stages
+from bumpcosmology_torch.testing import synthetic_source_tables
 from bumpcosmology_torch.utils.io import read_table, write_table
 from bumpcosmology_torch.utils.trace import load_trace
 
@@ -49,16 +51,6 @@ def _assert_sites(got, ref, what=""):
         r = np.asarray(ref[k])
         assert got[k].shape == r.shape, (what, k)
         np.testing.assert_allclose(got[k], r, rtol=1e-4, atol=1e-5, err_msg=f"{what} {k}")
-
-
-def _source_tables(nobs=8, nsamp=32, nsel=128, seed=0):
-    rng = np.random.default_rng(seed)
-    pe = {"m1": rng.uniform(8.0, 70.0, nobs * nsamp), "q": rng.uniform(0.3, 1.0, nobs * nsamp),
-          "z": rng.uniform(0.02, 1.5, nobs * nsamp), "wt": rng.uniform(0.5, 2.0, nobs * nsamp),
-          "evt": np.repeat([f"GW{i:02d}" for i in range(nobs)], nsamp)}
-    sel = {"m1": rng.uniform(8.0, 70.0, nsel), "q": rng.uniform(0.3, 1.0, nsel), "z": rng.uniform(0.02, 1.5, nsel),
-           "pdraw": rng.uniform(0.5, 2.0, nsel), "ndraw": np.full(nsel, 100.0 * nsel)}
-    return pe, sel
 
 
 def _fit_config(module, data_dir):
@@ -81,7 +73,7 @@ def stage(tmp_path_factory):
     from bumpcosmology_torch.inference import sampler
 
     tmp = tmp_path_factory.mktemp("stage")
-    pe, sel = _source_tables()
+    pe, sel = synthetic_source_tables()
     # the port's stage reads its tables from the data directory when none are given
     cfg = _fit_config(config, tmp / "port")
     write_table(cfg.paths.path("pe-samples.npz"), pe)
@@ -158,11 +150,12 @@ def test_fit_resumes_from_a_warmup_checkpoint_without_adapting(tmp_path, capsys)
 
 
 def test_fit_rejects_what_is_not_ported():
-    """Mass families other than the bump raise in both stages (Queue 1 item 6);
-    an unknown sampler raises ValueError with the JAX package's message."""
-    cfg = config.PipelineConfig(fit=config.FitConfig(mass_family="plpeak"))
+    """An unknown mass family raises ValueError with the JAX package's message
+    in both stages, before any table is read; so does an unknown sampler."""
+    cfg = config.PipelineConfig(fit=config.FitConfig(mass_family="gaussian"))
+    msg = "unknown mass_family 'gaussian' \\(expected one of \\['brokenpl', 'bump', 'plpeak'\\]\\)"
     for stage in (stages.run_pop_fit, stages.run_pop_cosmo_fit):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match=msg):
             stage(cfg, {}, {}, device="cpu")
     with pytest.raises(ValueError, match="unknown sampler 'hmc'; use 'nuts', 'chees', or 'nuts\\+chees'"):
         fit(_gauss_spec(), 0, sampler="hmc", device="cpu")
@@ -212,7 +205,7 @@ def test_run_pop_cosmo_fit_writes_what_the_jax_stage_writes(stage):
 def test_group_events_matches_jax():
     from bumpcosmology_tpu.pipeline.stages import group_events as jgroup
 
-    pe, _ = _source_tables(nobs=5, nsamp=6, seed=3)
+    pe, _ = synthetic_source_tables(nobs=5, nsamp=6, seed=3)
     order = np.random.default_rng(4).permutation(30)  # rows of the events interleaved
     pe = {k: v[order] for k, v in pe.items()}
     events, arrays = stages.group_events(pe, cols=("m1", "q", "wt"))
@@ -223,7 +216,7 @@ def test_group_events_matches_jax():
 
 
 def test_table_round_trip(tmp_path):
-    pe, _ = _source_tables(nobs=2, nsamp=3)
+    pe, _ = synthetic_source_tables(nobs=2, nsamp=3)
     write_table(tmp_path / "t.npz", pe, key="pe")
     back = read_table(tmp_path / "t.npz", key="pe")
     assert list(back) == list(pe)
@@ -231,7 +224,7 @@ def test_table_round_trip(tmp_path):
         np.testing.assert_array_equal(back[k], pe[k])
 
 
-@pytest.mark.parametrize("name", ["PathsConfig", "FitConfig"])
+@pytest.mark.parametrize("name", ["PathsConfig", "IngestConfig", "FitConfig", "MockConfig"])
 def test_config_defaults_equal_jax(name):
     from bumpcosmology_tpu.pipeline import config as jconfig
 

@@ -3,8 +3,9 @@
 * Importing the port pulls in neither JAX nor the JAX package.
 * No file of the port, and not ``chip_smoke.py``, names either package.
 * Entry points given ``device=None`` (meaning CUDA) raise on a host without
-  CUDA instead of carrying on on the CPU: the data loaders, the model spec,
-  the samplers, ``fit`` and the joint-fit stage, the mock campaign.
+  CUDA instead of carrying on on the CPU: the data loaders, the model specs
+  of every family, the samplers, ``fit`` and the fit stages, the mock
+  campaign and the four mock stages.
 * A kernel wrapper given a CUDA tensor raises on what the kernel does not take
   and never takes the plain twin.
 * The ctypes signatures agree with the ``extern "C"`` declarations they bind.
@@ -62,7 +63,7 @@ def test_no_port_file_names_the_jax_packages(pattern):
 
 @pytest.mark.parametrize("name", ["inference/sampler.py", "inference/chees.py", "inference/diagnostics.py",
                                   "utils/trace.py", "utils/io.py", "pipeline/config.py", "pipeline/stages.py",
-                                  "ops/logsumexp.py"])
+                                  "ops/logsumexp.py", "models/plpeak.py", "models/brokenpl.py"])
 def test_the_guards_cover_the_fit_modules(name):
     """The grep guard scans the fit's modules, and the import guard imports them."""
     assert PORT / name in list(PORT.rglob("*.py"))
@@ -113,13 +114,14 @@ def _fit_entry_points():
 
     from bumpcosmology_torch.inference.chees import run_chees, run_chees_from_warmup
     from bumpcosmology_torch.inference.distributions import Normal
+    from bumpcosmology_torch.inference import likelihoods
     from bumpcosmology_torch.inference.likelihoods import pop_model_spec
     from bumpcosmology_torch.inference.model import ModelSpec
     from bumpcosmology_torch.inference.nuts import run_nuts, run_warmup
     from bumpcosmology_torch.inference.sampler import fit
     from bumpcosmology_torch.pipeline.config import PipelineConfig
     from bumpcosmology_torch.pipeline.stages import run_pop_cosmo_fit, run_pop_fit
-    from bumpcosmology_torch.testing import synthetic_pop_data
+    from bumpcosmology_torch.testing import synthetic_pop_cosmo_data, synthetic_pop_data
     from bumpcosmology_torch.utils.checkpoint import load_warmup
 
     spec = ModelSpec(priors={"x": Normal(0.0, 1.0)}, loglike=lambda s: 0.0 * s["x"])
@@ -138,11 +140,17 @@ def _fit_entry_points():
         "run_chees": lambda: run_chees(pot, torch.zeros(2, 3), 2, 2),
         "run_chees_from_warmup": lambda: run_chees_from_warmup(
             pot, load_warmup(ROOT / "benchmarks" / "flagship_warmup16.npz", device="cpu"), 2, 2),
+        **{f"{family}_model_spec": (lambda family=family: getattr(likelihoods, f"{family}_model_spec")(
+            synthetic_pop_data(2, 3, 4, device="cpu"))) for family in ("plpeak", "brokenpl")},
+        **{f"{family}_cosmo_model_spec": (lambda family=family: getattr(likelihoods, f"{family}_cosmo_model_spec")(
+            synthetic_pop_cosmo_data(2, 3, 4, device="cpu"))) for family in ("plpeak", "brokenpl")},
     }
 
 
 @pytest.mark.parametrize("entry", ["fit", "run_warmup", "run_nuts", "run_pop_cosmo_fit", "run_pop_fit",
-                                   "pop_model_spec", "synthetic_pop_data", "run_chees", "run_chees_from_warmup"])
+                                   "pop_model_spec", "synthetic_pop_data", "run_chees", "run_chees_from_warmup",
+                                   "plpeak_model_spec", "brokenpl_model_spec", "plpeak_cosmo_model_spec",
+                                   "brokenpl_cosmo_model_spec"])
 def test_fit_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         _fit_entry_points()[entry]()
@@ -154,9 +162,15 @@ def _mock_entry_points():
     from bumpcosmology_torch.data.weights import default_pop_wt
     from bumpcosmology_torch.mock.catalog import draw_injection_campaign
     from bumpcosmology_torch.mock.snr import amplitude_factor, network_snr_batched
+    from bumpcosmology_torch.pipeline import stages
+    from bumpcosmology_torch.pipeline.config import PathsConfig, PipelineConfig
 
     one = np.ones(4)
+    # a data directory that does not exist: a stage must raise before it reads or writes anything
+    cfg = PipelineConfig(paths=PathsConfig(data_dir=str(ROOT / "no-such-directory")))
     return {
+        **{name: (lambda name=name: getattr(stages, f"_stage_{name}")(cfg))
+           for name in ("mock_injections", "mock_observations", "mock_year_samples", "mock_fit_inputs")},
         "draw_injection_campaign": lambda: draw_injection_campaign(ndraw=100, seed=1),
         "network_snr_batched": lambda: network_snr_batched(*(30.0 * one,) * 3, *(0.5 * one,) * 5),
         "amplitude_factor": lambda: amplitude_factor(30.0 * one, 20.0 * one),
@@ -165,10 +179,12 @@ def _mock_entry_points():
 
 
 @pytest.mark.parametrize("entry", ["draw_injection_campaign", "network_snr_batched", "amplitude_factor",
-                                   "default_pop_wt"])
+                                   "default_pop_wt", "mock_injections", "mock_observations", "mock_year_samples",
+                                   "mock_fit_inputs"])
 def test_mock_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         _mock_entry_points()[entry]()
+    assert not (ROOT / "no-such-directory").exists()
 
 
 class _OnCuda:

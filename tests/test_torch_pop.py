@@ -42,7 +42,7 @@ from bumpcosmology_torch.inference.sampler import compute_deterministics
 from bumpcosmology_torch.models.cosmology import planck18_log_dvdz_grid
 from bumpcosmology_torch.ops.interp import interp
 from bumpcosmology_torch.pipeline import config, stages
-from bumpcosmology_torch.testing import synthetic_pop_data
+from bumpcosmology_torch.testing import synthetic_pop_data, synthetic_source_tables
 from bumpcosmology_torch.utils.io import write_table
 from bumpcosmology_torch.utils.trace import load_trace
 
@@ -131,16 +131,6 @@ def test_pop_model_spec_sites_equal_jax(pair):
 # ---------------------------------------------------------------- the stage
 
 
-def _source_tables(nobs=8, nsamp=32, nsel=128, seed=0):
-    rng = np.random.default_rng(seed)
-    pe = {"m1": rng.uniform(8.0, 70.0, nobs * nsamp), "q": rng.uniform(0.3, 1.0, nobs * nsamp),
-          "z": rng.uniform(0.02, 1.5, nobs * nsamp), "wt": rng.uniform(0.5, 2.0, nobs * nsamp),
-          "evt": np.repeat([f"GW{i:02d}" for i in range(nobs)], nsamp)}
-    sel = {"m1": rng.uniform(8.0, 70.0, nsel), "q": rng.uniform(0.3, 1.0, nsel), "z": rng.uniform(0.02, 1.5, nsel),
-           "pdraw": rng.uniform(0.5, 2.0, nsel), "ndraw": np.full(nsel, 100.0 * nsel)}
-    return pe, sel
-
-
 def _fit_config(module, data_dir):
     return module.PipelineConfig(paths=module.PathsConfig(data_dir=str(data_dir)),
                                  fit=module.FitConfig(num_warmup=20, num_samples=8, num_chains=2, max_depth=4,
@@ -159,7 +149,7 @@ def stage(tmp_path_factory):
     from bumpcosmology_torch.inference import sampler
 
     tmp = tmp_path_factory.mktemp("pop_stage")
-    pe, sel = _source_tables()
+    pe, sel = synthetic_source_tables()
     cfg = _fit_config(config, tmp / "port")
     write_table(cfg.paths.path("pe-samples.npz"), pe)
     write_table(cfg.paths.path("selection-samples.npz"), sel)
