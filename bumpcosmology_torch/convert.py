@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from bumpcosmology_torch.device import resolve_device
-from bumpcosmology_torch.inference.likelihoods import EventData, PopCosmoData, SelectionData
+from bumpcosmology_torch.inference.likelihoods import EventData, FixedCosmoGrid, PopCosmoData, PopData, SelectionData
 from bumpcosmology_torch.inference.nuts import ChainState, WarmupResult
 from bumpcosmology_torch.models.brokenpl import BrokenPLMassParams, BrokenPLPopulationParams
 from bumpcosmology_torch.models.parameters import (
@@ -24,7 +24,7 @@ from bumpcosmology_torch.models.parameters import (
 from bumpcosmology_torch.models.plpeak import PLPeakMassParams, PLPeakPopulationParams
 
 __all__ = ["tensor", "theta_batch", "population_params", "plpeak_params", "brokenpl_params", "cosmo_params",
-           "pop_cosmo_data", "warmup_result", "columns"]
+           "pop_data", "pop_cosmo_data", "warmup_result", "columns"]
 
 
 def columns(frame) -> dict:
@@ -70,11 +70,28 @@ def cosmo_params(p, device=None) -> CosmoParams:
     return _leaves(CosmoParams, p, device)
 
 
-def pop_cosmo_data(data, device=None) -> PopCosmoData:
-    """``PopCosmoData`` (events + selection) with every leaf cast to float32."""
+def _events_selection(data, device):
     ev = EventData(*(tensor(getattr(data.events, f), device) for f in EventData._fields))
     sel = SelectionData(*(tensor(getattr(data.selection, f), device) for f in SelectionData._fields))
-    return PopCosmoData(ev, sel)
+    return ev, sel
+
+
+def pop_cosmo_data(data, device=None) -> PopCosmoData:
+    """``PopCosmoData`` (events + selection) with every leaf cast to float32;
+    a fleet (catalogs stacked on a leading axis) stays one."""
+    return PopCosmoData(*_events_selection(data, device))
+
+
+def pop_data(data, device=None) -> PopData:
+    """``PopData`` (events + selection + the Planck18 grid) with every leaf
+    cast to float32.  A fleet (catalogs stacked on a leading axis, the grid
+    stacked too) becomes this package's fleet, whose catalogs share the first
+    catalog's grid."""
+    grid = data.planck
+    log_dv = np.asarray(grid.log_dv)
+    planck = FixedCosmoGrid(u0=float(np.asarray(grid.u0).reshape(-1)[0]), du=float(np.asarray(grid.du).reshape(-1)[0]),
+                            log_dv=tensor(log_dv.reshape(-1, log_dv.shape[-1])[0], device))
+    return PopData(*_events_selection(data, device), planck)
 
 
 def warmup_result(warm, device=None) -> WarmupResult:

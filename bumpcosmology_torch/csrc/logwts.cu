@@ -96,8 +96,19 @@
 //     leave dirty) and a round trip through L2 where the cluster reads its neighbours'
 //     shared memory directly; it was not built, so no time is given for it.
 //
+// Query tables.  One table of N rows can serve every chain (the flagship fit: the chains share the
+// catalog), or each chain can read its own N rows (a fleet of fits, one catalog per chain, as the
+// calibration suite fits them): the table is then (C, N, 4) and chain c's rows start at c * N.
+// Nothing else changes: a block reads its chain's rows through that offset, the segments are the
+// same (nobs, nsamp) in every chain, and a chain's cotangents land in its own cluster's
+// shared-memory bins whichever rows it read.  The layout is a template parameter (PER_CHAIN), so the
+// shared table's kernels compile to the code they had before the per-chain layout existed: with the
+// offset read at run time from the launch arguments the shared table's lse forward took 0.028 ms
+// against 0.022 before (H100 80GB HBM3, 700 W; tools/kernel_times.py --kernel b, both in one job).
+//
 // C interface (bound with ctypes), float32, contiguous unless strides are given:
-//   det (C,K,2) [z, log_jac]; bump (C,G); scal (C,15); qry (N,4) [a, q, log dL, log pdraw];
+//   det (C,K,2) [z, log_jac]; bump (C,G); scal (C,15); qry (N,4) or (C,N,4) [a, q, log dL, log pdraw]
+//   with qry_cs the rows between two chains' tables (0 or N);
 //   out, gout (C,N); lse_ev (C,nobs); lse_sel (C,); g_ev (C,nobs) with element strides
 //   (g_ev_s0, g_ev_s1); g_sel (C,) with element stride g_sel_s0;
 //   d_det (C,K,2), d_bump (C,G), d_scal (C,15) are written in full.
@@ -331,7 +342,7 @@ __device__ __forceinline__ void warp_lse_merge(float& m, float& s) {
   }
 }
 
-template <bool LSE>
+template <bool LSE, bool PER_CHAIN>
 __global__ void __launch_bounds__(32 * WARPS_FWD)
 logwts_fwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
                   const float* __restrict__ scal, const float4* __restrict__ qry,
@@ -347,6 +358,7 @@ logwts_fwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int c = blockIdx.y;
+  const float4* __restrict__ qc = PER_CHAIN ? qry + (size_t)c * w.N : qry;  // this chain's rows
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   load_tables(det, bump, scal, K, G, c, s_det, s_bump, s_scal);
   __syncthreads();
@@ -361,7 +373,7 @@ logwts_fwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
     for (int j = 0; j < R_FWD; ++j) {
       const int n = row0 + lane + 32 * j;
       o[j] = -INFINITY;
-      if (n < row1) o[j] = evaluate(qry[n], s_scal, s_det, K, s_bump, G).out;
+      if (n < row1) o[j] = evaluate(qc[n], s_scal, s_det, K, s_bump, G).out;
     }
     if (!LSE) {
 #pragma unroll
@@ -499,7 +511,7 @@ __device__ __forceinline__ void add_row(const RowAdd& a, float* s_ddet, float* s
   add_bins(a.b2, s_dbump);
 }
 
-template <bool LSE>
+template <bool LSE, bool PER_CHAIN>
 __global__ void __launch_bounds__(32 * WARPS_BWD)
 logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
                   const float* __restrict__ scal, const float4* __restrict__ qry,
@@ -520,6 +532,7 @@ logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int c = blockIdx.y;
+  const float4* __restrict__ qc = PER_CHAIN ? qry + (size_t)c * w.N : qry;  // this chain's rows
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   load_tables(det, bump, scal, K, G, c, s_det, s_bump, s_scal);
   for (int k = threadIdx.x; k < n_out; k += blockDim.x) s_ddet[k] = 0.0f;
@@ -554,7 +567,7 @@ logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
       if (n < row1) {
         if (LSE) {
           if (g_seg != 0.0f) {
-            const Query r = evaluate(qry[n], s_scal, s_det, K, s_bump, G);
+            const Query r = evaluate(qc[n], s_scal, s_det, K, s_bump, G);
             // a -inf row has cotangent exactly 0 (and every row of an all-dead segment is one)
             const float g = r.out == -INFINITY ? 0.0f : g_seg * exp_neg(r.out - l_seg);
             if (g != 0.0f) row_bwd(r, g, s_scal, acc, adds[j]);
@@ -562,7 +575,7 @@ logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
         } else {
           const float g = gout[(size_t)c * w.N + n];
           if (g != 0.0f) {
-            const Query r = evaluate(qry[n], s_scal, s_det, K, s_bump, G);
+            const Query r = evaluate(qc[n], s_scal, s_det, K, s_bump, G);
             row_bwd(r, g, s_scal, acc, adds[j]);
           }
         }
@@ -608,9 +621,9 @@ size_t bwd_smem(int K, int G, int threads) {
   return (4 * (size_t)K + 2 * (size_t)G + NSX_PAD + NS_PAD + (size_t)NACC * threads) * sizeof(float);
 }
 
-bool bad_shape(int C, int K, int G, int N, int nobs, int nsamp) {
-  return C < 0 || C > 65535 || K < 2 || G < 2 || N < 0 || nobs < 0 || (nobs > 0 && nsamp < 1)
-         || (long long)nobs * nsamp > N;
+bool bad_shape(int C, int K, int G, int N, int qry_cs, int nobs, int nsamp) {  // qry_cs: 0 or N
+  return C < 0 || C > 65535 || K < 2 || G < 2 || N < 0 || (qry_cs != 0 && qry_cs != N) || nobs < 0
+         || (nobs > 0 && nsamp < 1) || (long long)nobs * nsamp > N;
 }
 
 constexpr int MAX_DEVICES = 64;
@@ -655,25 +668,27 @@ int launch(Kernel kernel, SmemAllowed& allowed, int C, int threads, size_t smem,
 }  // namespace
 
 extern "C" int logwts_fwd(const float* det, const float* bump, const float* scal, const float* qry,
-                          float* out, int C, int K, int G, int N, void* stream) {
-  if (bad_shape(C, K, G, N, 0, 1)) return (int)cudaErrorInvalidValue;
+                          float* out, int C, int K, int G, int N, int qry_cs, void* stream) {
+  if (bad_shape(C, K, G, N, qry_cs, 0, 1)) return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   const Work w = make_work(N, 0, 1, R_FWD);
-  static SmemAllowed allowed;
-  return launch(logwts_fwd_kernel<false>, allowed, C, pick_threads(w, WARPS_FWD),
-                fwd_smem(K, G, w, false), stream, det, bump, scal,
-                reinterpret_cast<const float4*>(qry), out, (float*)nullptr, (float*)nullptr, K, G, w);
+  static SmemAllowed allowed[2];
+  return launch(qry_cs ? &logwts_fwd_kernel<false, true> : &logwts_fwd_kernel<false, false>,
+                allowed[qry_cs != 0], C, pick_threads(w, WARPS_FWD), fwd_smem(K, G, w, false), stream,
+                det, bump, scal, reinterpret_cast<const float4*>(qry), out, (float*)nullptr,
+                (float*)nullptr, K, G, w);
 }
 
 extern "C" int logwts_bwd(const float* det, const float* bump, const float* scal, const float* qry,
                           const float* gout, float* d_det, float* d_bump, float* d_scal,
-                          int C, int K, int G, int N, void* stream) {
-  if (bad_shape(C, K, G, N, 0, 1)) return (int)cudaErrorInvalidValue;
+                          int C, int K, int G, int N, int qry_cs, void* stream) {
+  if (bad_shape(C, K, G, N, qry_cs, 0, 1)) return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   const Work w = make_work(N, 0, 1, R_BWD);
   const int threads = pick_threads(w, WARPS_BWD);
-  static SmemAllowed allowed;
-  return launch(logwts_bwd_kernel<false>, allowed, C, threads, bwd_smem(K, G, threads), stream,
+  static SmemAllowed allowed[2];
+  return launch(qry_cs ? &logwts_bwd_kernel<false, true> : &logwts_bwd_kernel<false, false>,
+                allowed[qry_cs != 0], C, threads, bwd_smem(K, G, threads), stream,
                 det, bump, scal, reinterpret_cast<const float4*>(qry), gout, (const float*)nullptr,
                 (const float*)nullptr, (const float*)nullptr, 0, 0, (const float*)nullptr, 0,
                 d_det, d_bump, d_scal, K, G, w);
@@ -681,27 +696,29 @@ extern "C" int logwts_bwd(const float* det, const float* bump, const float* scal
 
 extern "C" int logwts_lse_fwd(const float* det, const float* bump, const float* scal,
                               const float* qry, float* lse_ev, float* lse_sel, int C, int K, int G,
-                              int N, int nobs, int nsamp, void* stream) {
-  if (bad_shape(C, K, G, N, nobs, nsamp)) return (int)cudaErrorInvalidValue;
+                              int N, int qry_cs, int nobs, int nsamp, void* stream) {
+  if (bad_shape(C, K, G, N, qry_cs, nobs, nsamp)) return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   const Work w = make_work(N, nobs, nsamp, R_FWD);
-  static SmemAllowed allowed;
-  return launch(logwts_fwd_kernel<true>, allowed, C, pick_threads(w, WARPS_FWD),
-                fwd_smem(K, G, w, true), stream, det, bump, scal,
-                reinterpret_cast<const float4*>(qry), (float*)nullptr, lse_ev, lse_sel, K, G, w);
+  static SmemAllowed allowed[2];
+  return launch(qry_cs ? &logwts_fwd_kernel<true, true> : &logwts_fwd_kernel<true, false>,
+                allowed[qry_cs != 0], C, pick_threads(w, WARPS_FWD), fwd_smem(K, G, w, true), stream,
+                det, bump, scal, reinterpret_cast<const float4*>(qry), (float*)nullptr, lse_ev,
+                lse_sel, K, G, w);
 }
 
 extern "C" int logwts_lse_bwd(const float* det, const float* bump, const float* scal,
                               const float* qry, const float* lse_ev, const float* lse_sel,
                               const float* g_ev, int g_ev_s0, int g_ev_s1, const float* g_sel,
                               int g_sel_s0, float* d_det, float* d_bump, float* d_scal, int C,
-                              int K, int G, int N, int nobs, int nsamp, void* stream) {
-  if (bad_shape(C, K, G, N, nobs, nsamp)) return (int)cudaErrorInvalidValue;
+                              int K, int G, int N, int qry_cs, int nobs, int nsamp, void* stream) {
+  if (bad_shape(C, K, G, N, qry_cs, nobs, nsamp)) return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   const Work w = make_work(N, nobs, nsamp, R_BWD);
   const int threads = pick_threads(w, WARPS_BWD);
-  static SmemAllowed allowed;
-  return launch(logwts_bwd_kernel<true>, allowed, C, threads, bwd_smem(K, G, threads), stream,
+  static SmemAllowed allowed[2];
+  return launch(qry_cs ? &logwts_bwd_kernel<true, true> : &logwts_bwd_kernel<true, false>,
+                allowed[qry_cs != 0], C, threads, bwd_smem(K, G, threads), stream,
                 det, bump, scal, reinterpret_cast<const float4*>(qry), (const float*)nullptr,
                 lse_ev, lse_sel, g_ev, g_ev_s0, g_ev_s1, g_sel, g_sel_s0, d_det, d_bump, d_scal,
                 K, G, w);

@@ -30,6 +30,15 @@ family, ``None`` the PISN bump, as in the JAX package.
   weighed at a fixed cosmology (:class:`FixedCosmoGrid`) in plain PyTorch
   with autograd (:func:`pop_loglike`), as the JAX package computes them in
   XLA; kernel A builds the bump's table.
+
+**Fleets.**  The calibration suite fits S catalogs at once, one chain each
+(the JAX package ``vmap``s its likelihood over the catalogs).  Here the data
+carry a leading fleet axis instead (:func:`stack_fleet`): events ``(S, nobs,
+nsamp)``, injections ``(S, nsel)``, ``log_ndraw`` ``(S,)``, and chain ``s``
+reads catalog ``s``.  :func:`pop_rows` and :func:`query_table` then give
+``(4, S, N)`` and ``(S, N, 4)`` rows, and the likelihoods take them as they
+take one catalog's, with no loop over S: kernel B reads one query table per
+chain.  :func:`take_fleet` picks the catalogs of a subset of the chains.
 """
 from __future__ import annotations
 
@@ -82,6 +91,7 @@ __all__ = [
     "query_table",
     "selection_neff_terms",
     "pop_cosmo_event_sel_logwts",
+    "pop_cosmo_segment_lse",
     "pop_cosmo_loglike",
     "pop_cosmo_deterministics",
     "pop_rows",
@@ -111,6 +121,8 @@ __all__ = [
     "brokenpl_cosmo_model_spec",
     "MassFamily",
     "MASS_FAMILIES",
+    "stack_fleet",
+    "take_fleet",
 ]
 
 
@@ -235,18 +247,25 @@ def cosmo_from_sites(sites: Dict[str, torch.Tensor]) -> CosmoParams:
 
 
 def dl_bounds_of(data: PopCosmoData, margin: float = 0.05):
-    """(dl_lo, dl_hi) floats bracketing every event/selection dL."""
+    """(dl_lo, dl_hi) floats bracketing every event/selection dL (of every
+    catalog of a fleet)."""
     lo = min(float(data.events.c.min()), float(data.selection.c.min()))
     hi = max(float(data.events.c.max()), float(data.selection.c.max()))
     return lo * (1.0 - margin), hi * (1.0 + margin)
 
 
+def _flat_events(x: torch.Tensor) -> torch.Tensor:
+    """(..., nobs, nsamp) → (..., nobs * nsamp)."""
+    return x.reshape(*x.shape[:-2], -1)
+
+
 def query_table(data: PopCosmoData) -> torch.Tensor:
-    """(N, 4) rows [m1_det, q, log dL, log pdraw]: every PE sample, then every injection."""
+    """(N, 4) rows [m1_det, q, log dL, log pdraw]: every PE sample, then every
+    injection; ``(S, N, 4)``, one table a chain, for a fleet's data."""
     ev, sel = data.events, data.selection
-    flat = lambda x: x.reshape(-1)  # noqa: E731
-    return torch.cat([query_rows(flat(ev.a), flat(ev.q), flat(ev.c), flat(ev.log_pdraw)),
-                      query_rows(sel.a, sel.q, sel.c, sel.log_pdraw)], dim=0).contiguous()
+    f = _flat_events
+    return torch.cat([query_rows(f(ev.a), f(ev.q), f(ev.c), f(ev.log_pdraw)),
+                      query_rows(sel.a, sel.q, sel.c, sel.log_pdraw)], dim=-2).contiguous()
 
 
 def selection_neff_terms(log_sel_wts: torch.Tensor, log_ndraw: torch.Tensor):
@@ -282,18 +301,25 @@ def _cosmo_frame_logwts(pop, cosmo, rows) -> torch.Tensor:
 
 
 def _cosmo_frame_logwts_fused(pop, det, qry) -> torch.Tensor:
-    """``(C, N)`` detector-frame weights of the ``(N, 4)`` query rows through
-    the log(dL)-keyed detector table: the XLA branch of the JAX package's
+    """``(C, N)`` detector-frame weights of the query rows through the
+    log(dL)-keyed detector table: the XLA branch of the JAX package's
     ``_cosmo_frame_logwts_fused`` (``likelihoods.py:358-361``), for the
     families kernel B does not take.  The bracket on the table's uniform
-    grid depends on the row alone, so one ``(N,)`` bracket serves every chain."""
+    grid depends on the row alone, so the ``(N,)`` bracket of a shared
+    ``(N, 4)`` table serves every chain; a ``(C, N, 4)`` table (a fleet) has
+    one bracket per chain and row."""
     c, k = det.cols.shape[:2]
-    lo, t = unit_bracket(qry[:, 2], det.v0, det.dv, k)
-    f_lo, f_hi = det.cols[:, lo], det.cols[:, lo + 1]  # (C, N, 2)
-    zj = f_lo + t[:, None] * (f_hi - f_lo)
+    lo, t = unit_bracket(qry[..., 2], det.v0, det.dv, k)
+    if qry.dim() == 3:
+        idx = lo.unsqueeze(-1).expand(*lo.shape, 2)
+        f_lo, f_hi = torch.gather(det.cols, 1, idx), torch.gather(det.cols, 1, idx + 1)
+    else:
+        f_lo, f_hi = det.cols[:, lo], det.cols[:, lo + 1]  # (C, N, 2)
+    zj = f_lo + t[..., None] * (f_hi - f_lo)
     z, log_jac = zj[..., 0], zj[..., 1]
-    m1 = qry[:, 0] / (1.0 + z)
-    return log_dndmdqdv(pop, m1, qry[:, 1].expand(c, -1), z) - 2.0 * torch.log1p(z) + log_jac - qry[:, 3]
+    m1 = qry[..., 0] / (1.0 + z)
+    return (log_dndmdqdv(pop, m1, qry[..., 1].expand(c, -1), z) - 2.0 * torch.log1p(z) + log_jac
+            - qry[..., 3])
 
 
 def pop_cosmo_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopCosmoData,
@@ -307,8 +333,9 @@ def pop_cosmo_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopCosmoDat
     the fused branch of the JAX package's ``_pop_cosmo_event_sel_logwts``
     (``likelihoods.py:472-476``), ``dl_bounds`` defaulting to the data's.
     Another family: with ``dl_bounds``, the fused route in plain PyTorch;
-    without, the non-fused route, as the JAX package's deterministics take it."""
-    nobs, nsamp = data.events.a.shape
+    without, the non-fused route, as the JAX package's deterministics take it.
+    A fleet's data (leading axis S = C) give chain ``s`` catalog ``s``."""
+    nobs, nsamp = data.events.a.shape[-2:]
     if build is None:
         dl_bounds = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
         qry = query_table(data) if qry is None else qry
@@ -326,26 +353,37 @@ def pop_cosmo_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopCosmoDat
     return pop, cosmo, log_w[:, :n_ev].reshape(-1, nobs, nsamp), log_w[:, n_ev:]
 
 
-def pop_cosmo_loglike(sites: Dict[str, torch.Tensor], data: PopCosmoData,
-                      n_grid: int = DEFAULT_N_GRID, n_z: int = 1024, dl_bounds=None,
-                      qry=None, plain: bool = False, build=None) -> torch.Tensor:
-    """Joint log-likelihood for sites of shape ``(C,)``; returns ``(C,)``.
+def pop_cosmo_segment_lse(sites: Dict[str, torch.Tensor], data: PopCosmoData,
+                          n_grid: int = DEFAULT_N_GRID, n_z: int = 1024, dl_bounds=None,
+                          qry=None, plain: bool = False, build=None):
+    """``(C, nobs)`` per-event and ``(C,)`` selection log-sum-exps of the joint
+    model's weights for sites of shape ``(C,)``: the two terms of the
+    likelihood before their constants.
 
     ``qry`` is :func:`query_table` of ``data`` (computed if not given).  The
     bump (``build=None``) goes through kernel B's ``lse`` epilogue (``dl_bounds``
     defaulting to the data's; ``plain=True`` takes the kernels' plain twins
     whatever the device); another family through
-    :func:`pop_cosmo_event_sel_logwts`'s plain routes.
+    :func:`pop_cosmo_event_sel_logwts`'s plain routes.  A fleet's data
+    (leading axis S = C) give chain ``s`` catalog ``s``.
     """
-    nobs, nsamp = data.events.a.shape
+    nobs, nsamp = data.events.a.shape[-2:]
     if build is None:
         dl_bounds = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
         qry = query_table(data) if qry is None else qry
         pop, _, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
-        lse_ev, lse_sel = cosmo_frame_logwts_lse(pop, det, qry, nobs, nsamp, plain)
-    else:
-        _, _, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, dl_bounds, qry, build=build)
-        lse_ev, lse_sel = torch.logsumexp(log_w, -1), torch.logsumexp(log_sel_w, -1)
+        return cosmo_frame_logwts_lse(pop, det, qry, nobs, nsamp, plain)
+    _, _, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, dl_bounds, qry, build=build)
+    return torch.logsumexp(log_w, -1), torch.logsumexp(log_sel_w, -1)
+
+
+def pop_cosmo_loglike(sites: Dict[str, torch.Tensor], data: PopCosmoData,
+                      n_grid: int = DEFAULT_N_GRID, n_z: int = 1024, dl_bounds=None,
+                      qry=None, plain: bool = False, build=None) -> torch.Tensor:
+    """Joint log-likelihood for sites of shape ``(C,)``; returns ``(C,)``:
+    :func:`pop_cosmo_segment_lse`'s two terms with their constants."""
+    nobs, nsamp = data.events.a.shape[-2:]
+    lse_ev, lse_sel = pop_cosmo_segment_lse(sites, data, n_grid, n_z, dl_bounds, qry, plain, build)
     log_mu_sel = lse_sel - data.selection.log_ndraw
     return lse_ev.sum(-1) - nobs * math.log(nsamp) - nobs * log_mu_sel
 
@@ -411,9 +449,10 @@ def _hz(cosmo, like: torch.Tensor) -> torch.Tensor:
 
 
 def pop_rows(data: PopData) -> torch.Tensor:
-    """(4, N) rows [m1, q, z, log pdraw]: every PE sample, then every injection."""
+    """(4, N) rows [m1, q, z, log pdraw]: every PE sample, then every
+    injection; ``(4, S, N)`` for a fleet's data."""
     ev, sel = data.events, data.selection
-    return torch.stack([torch.cat([e.reshape(-1), x]) for e, x in
+    return torch.stack([torch.cat([_flat_events(e), x], dim=-1) for e, x in
                         ((ev.a, sel.a), (ev.q, sel.q), (ev.c, sel.c), (ev.log_pdraw, sel.log_pdraw))])
 
 
@@ -426,8 +465,9 @@ def _pop_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopData, n_grid:
 
     ``rows`` is :func:`pop_rows` of ``data`` (computed if not given);
     ``build`` ``(sites, n_grid) → intensity`` selects the family (``None``:
-    the bump, whose table kernel A builds, or its plain twin with ``plain=True``)."""
-    nobs, nsamp = data.events.a.shape
+    the bump, whose table kernel A builds, or its plain twin with ``plain=True``).
+    A fleet's data (leading axis S = C) give chain ``s`` catalog ``s``."""
+    nobs, nsamp = data.events.a.shape[-2:]
     m1, q, z, log_pdraw = pop_rows(data) if rows is None else rows
     pop = build_population(population_from_sites(sites), n_grid, plain) if build is None else build(sites, n_grid)
     c = next(iter(sites.values())).shape[0]
@@ -441,8 +481,9 @@ def pop_loglike(sites: Dict[str, torch.Tensor], data: PopData, n_grid: int = DEF
                 plain: bool = False, build=None) -> torch.Tensor:
     """Population-only log-likelihood for sites of shape ``(C,)``; returns
     ``(C,)`` (``pop_loglike``, the JAX package's ``likelihoods.py:292-305``).
-    ``build`` selects the family (``None``: the bump)."""
-    nobs, nsamp = data.events.a.shape
+    ``build`` selects the family (``None``: the bump); a fleet's data (leading
+    axis S = C) give chain ``s`` catalog ``s``."""
+    nobs, nsamp = data.events.a.shape[-2:]
     _, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, plain, build)
     log_like = torch.logsumexp(log_w, -1) - math.log(nsamp)
     log_mu_sel = torch.logsumexp(log_sel_w, -1) - data.selection.log_ndraw
@@ -728,3 +769,33 @@ MASS_FAMILIES: Dict[str, MassFamily] = {
         cosmo_trace_name="trace_cosmo_brokenpl.npz",
     ),
 }
+
+
+# ---------------------------------------------------------------------------
+# Fleets: S catalogs of one shape on a leading axis, chain s reading catalog s
+# ---------------------------------------------------------------------------
+
+
+def stack_fleet(datas):
+    """S catalogs of one shape and type, on one device, as one fleet: every
+    tensor leaf (of a tensor or nested named tuples of tensors, such as
+    :class:`PopCosmoData`) stacked on a new leading axis.  A :class:`PopData`
+    fleet shares the first catalog's Planck18 grid (the same in every catalog)."""
+    first = datas[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(list(datas))
+    if isinstance(first, PopData):
+        return PopData(stack_fleet([d.events for d in datas]), stack_fleet([d.selection for d in datas]),
+                       first.planck)
+    return type(first)(*(stack_fleet(list(xs)) for xs in zip(*datas)))
+
+
+def take_fleet(data, idx: torch.Tensor):
+    """The catalogs ``idx`` of a fleet, in that order (a fleet again): every
+    tensor leaf of ``data`` (a tensor or nested named tuples of tensors)
+    indexed on its leading axis, but a :class:`PopData`'s shared grid."""
+    if isinstance(data, torch.Tensor):
+        return data.index_select(0, idx)
+    if isinstance(data, PopData):
+        return PopData(take_fleet(data.events, idx), take_fleet(data.selection, idx), data.planck)
+    return type(data)(*(take_fleet(x, idx) for x in data))

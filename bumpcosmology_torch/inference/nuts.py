@@ -138,13 +138,18 @@ def _trailing_zeros(n: int) -> int:
 
 def _masked_vg(potential: Callable, active: torch.Tensor) -> Callable:
     """value_and_grad over the active chains only; other rows come back 0
-    (every caller masks them out)."""
+    (every caller masks them out).  A potential whose chains read data of
+    their own (a fleet, chain ``s`` reading catalog ``s``) has
+    ``on_chains(idx)``, the potential of the chains ``idx``; the subset is
+    evaluated on that."""
 
     def vg(theta):
         idx = active.nonzero().squeeze(1)
         if idx.numel() == theta.shape[0]:
             return value_and_grad(potential, theta)
-        u_sub, g_sub = value_and_grad(potential, theta[idx])
+        on_chains = getattr(potential, "on_chains", None)
+        sub = potential if on_chains is None else on_chains(idx)
+        u_sub, g_sub = value_and_grad(sub, theta[idx])
         u = torch.zeros_like(theta[:, 0]).index_copy_(0, idx, u_sub)
         g = torch.zeros_like(theta).index_copy_(0, idx, g_sub)
         return u, g

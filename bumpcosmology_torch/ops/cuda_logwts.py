@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's ``ops/pallas_logwts.py`` — the flagship
 joint likelihood's hot loop.  For every PE sample and injection (the rows of
-one shared ``(N, 4)`` query array ``[m1_det, q, log dL, log pdraw]``, built by
-:func:`query_rows`; ``log dL`` is per row and not per chain, so it is taken
-once, when the table is built) and every chain it computes
+a query array ``[m1_det, q, log dL, log pdraw]``, built by :func:`query_rows`;
+``log dL`` is per row and not per chain, so it is taken once, when the table
+is built) and every chain it computes
 
     z, log_jac = lerp(detector table @ log dL);  m1 = m1_det/(1+z);  m2 = q m1
     out = log dN/dm(m1) + log dN/dm(m2) + beta log((m1+m2)/60) + log m1
@@ -13,6 +13,12 @@ once, when the table is built) and every chain it computes
 from per-chain tables: the detector table ``(C, K, 2)`` = [z, log_jac] on the
 uniform log(dL) grid, the bump table ``(C, G)``, and 15 scalars ``(C, 15)``
 in the Pallas slot order (:data:`SLOTS`).
+
+The query array is ``(N, 4)``, one table shared by every chain (the chains of
+one fit), or ``(C, N, 4)``, chain ``c`` reading its own rows ``qry[c]`` (a
+fleet of fits, one catalog a chain: the calibration suite).  Both layouts go
+through the same launches; the kernel takes the rows between two chains'
+tables (0 or N) as an argument.
 
 The CUDA kernel is ``csrc/logwts.cu``.  The backward is hand-derived (the
 Pallas kernel recomputed under a JAX vjp); its plain PyTorch twin below
@@ -44,7 +50,9 @@ __all__ = ["SLOTS", "LAUNCHES", "query_rows", "logwts", "logwts_plain", "logwts_
 
 SLOTS = ("v0", "dv", "mbh_lo", "dmbh", "mbh_hi", "c", "mbhmax", "log_pl_norm", "log_norm",
          "beta", "lam", "kappa", "zp", "k_det", "k_bump")
-LAUNCHES = {"logwts_fwd": 0, "logwts_bwd": 0, "logwts_lse_fwd": 0, "logwts_lse_bwd": 0}
+# launches by entry point; "_per_chain": with a (C, N, 4) query table, one a chain
+LAUNCHES = {name + layout: 0 for name in ("logwts_fwd", "logwts_bwd", "logwts_lse_fwd", "logwts_lse_bwd")
+            for layout in ("", "_per_chain")}
 
 _LOG2 = math.log(2.0)
 _MBH_MIN = 5.0  # models/mass.py::MBH_MIN
@@ -53,7 +61,7 @@ _QREF = 1.0  # models/population.py::QREF
 
 
 def query_rows(a, q, dl, log_pdraw) -> torch.Tensor:
-    """(N, 4) query rows ``[m1_det, q, log dL, log pdraw]`` from ``(N,)`` tensors."""
+    """(..., 4) query rows ``[m1_det, q, log dL, log pdraw]`` from tensors of one shape ``(...)``."""
     return torch.stack([a, q, torch.log(dl), log_pdraw], dim=-1).contiguous()
 
 
@@ -84,7 +92,8 @@ def _mass(m, s, bump):
 
 def _evaluate(det, bump, scal, qry):
     s = {name: scal[:, k : k + 1] for k, name in enumerate(SLOTS)}
-    a, q, log_dl, log_pdraw = (qry[:, k][None, :] for k in range(4))
+    rows = qry if qry.dim() == 3 else qry[None]  # (C or 1, N, 4)
+    a, q, log_dl, log_pdraw = (rows[..., k] for k in range(4))
     posz = (log_dl - s["v0"]) / s["dv"]
     lo, t, slope = _bracket(posz, det.shape[1])
     idx = lo.unsqueeze(-1).expand(*lo.shape, 2)
@@ -230,10 +239,10 @@ class _LogwtsLsePlain(torch.autograd.Function):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "logwts_fwd": ([_P] * 5 + [_I] * 4 + [_P], _I),
-    "logwts_bwd": ([_P] * 8 + [_I] * 4 + [_P], _I),
-    "logwts_lse_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
-    "logwts_lse_bwd": ([_P] * 7 + [_I, _I, _P, _I] + [_P] * 3 + [_I] * 6 + [_P], _I),
+    "logwts_fwd": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "logwts_bwd": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "logwts_lse_fwd": ([_P] * 6 + [_I] * 7 + [_P], _I),
+    "logwts_lse_bwd": ([_P] * 7 + [_I, _I, _P, _I] + [_P] * 3 + [_I] * 7 + [_P], _I),
 }
 
 
@@ -243,21 +252,25 @@ def _require_cuda_f32(t, name: str) -> None:
 
 
 def _launch_args(det, bump, scal, qry):
-    """Validates the four inputs once and returns ``(C, K, G, N, stream)``.
+    """Validates the four inputs once and returns ``(C, K, G, N, qry_cs, stream)``,
+    ``qry_cs`` the rows between two chains' query tables (0: ``qry`` is one
+    ``(N, 4)`` table for every chain; N: ``qry`` is ``(C, N, 4)``).
 
     Raises unless every tensor is a contiguous float32 CUDA tensor of the
     kernel's shape on one device (``qry`` 16-byte aligned: it is read as float4).
     """
-    c, k, g_len, n = det.shape[0], det.shape[1], bump.shape[-1], qry.shape[0]
+    c, k, g_len, n = det.shape[0], det.shape[1], bump.shape[-1], qry.shape[-2]
+    q_shape = (c, n, 4) if qry.dim() == 3 else (n, 4)
     for name, t, shape in (("det", det, (c, k, 2)), ("bump", bump, (c, g_len)),
-                           ("scal", scal, (c, len(SLOTS))), ("qry", qry, (n, 4))):
+                           ("scal", scal, (c, len(SLOTS))), ("qry", qry, q_shape)):
         _require_cuda_f32(t, name)
         if t.shape != shape or not t.is_contiguous() or t.device != det.device:
             raise ValueError(f"{name}: expected a contiguous tensor of shape {shape} on {det.device}, got "
                              f"{tuple(t.shape)} with strides {t.stride()} on {t.device}")
     if qry.data_ptr() % 16:
         raise ValueError("qry: expected 16-byte aligned storage")
-    return c, k, g_len, n, ctypes.c_void_p(torch.cuda.current_stream(det.device).cuda_stream)
+    qry_cs = n if qry.dim() == 3 else 0
+    return c, k, g_len, n, qry_cs, ctypes.c_void_p(torch.cuda.current_stream(det.device).cuda_stream)
 
 
 def _cotangent_outputs(det, bump, scal):
@@ -266,18 +279,18 @@ def _cotangent_outputs(det, bump, scal):
 
 
 def _logwts_fwd_cuda(det, bump, scal, qry):
-    c, k, g_len, n, stream = _launch_args(det, bump, scal, qry)
+    c, k, g_len, n, qry_cs, stream = _launch_args(det, bump, scal, qry)
     out = torch.empty((c, n), device=det.device, dtype=torch.float32)
     rc = kernel_function("logwts", "logwts_fwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), out.data_ptr(),
-        c, k, g_len, n, stream)
+        c, k, g_len, n, qry_cs, stream)
     raise_on(rc, "logwts_fwd")
-    LAUNCHES["logwts_fwd"] += 1
+    LAUNCHES["logwts_fwd" + ("_per_chain" if qry_cs else "")] += 1
     return out
 
 
 def _logwts_bwd_cuda(det, bump, scal, qry, g):
-    c, k, g_len, n, stream = _launch_args(det, bump, scal, qry)
+    c, k, g_len, n, qry_cs, stream = _launch_args(det, bump, scal, qry)
     _require_cuda_f32(g, "g")
     if g.shape != (c, n) or not g.is_contiguous():
         raise ValueError(f"g: expected a contiguous tensor of shape {(c, n)}, got {tuple(g.shape)} "
@@ -285,29 +298,29 @@ def _logwts_bwd_cuda(det, bump, scal, qry, g):
     d_det, d_bump, d_scal = _cotangent_outputs(det, bump, scal)
     rc = kernel_function("logwts", "logwts_bwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), g.data_ptr(),
-        d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), c, k, g_len, n, stream)
+        d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), c, k, g_len, n, qry_cs, stream)
     raise_on(rc, "logwts_bwd")
-    LAUNCHES["logwts_bwd"] += 1
+    LAUNCHES["logwts_bwd" + ("_per_chain" if qry_cs else "")] += 1
     return d_det, d_bump, d_scal
 
 
 def _logwts_lse_fwd_cuda(det, bump, scal, qry, nobs: int, nsamp: int):
-    c, k, g_len, n, stream = _launch_args(det, bump, scal, qry)
+    c, k, g_len, n, qry_cs, stream = _launch_args(det, bump, scal, qry)
     _check_segments(n, nobs, nsamp)
     lse_ev = torch.empty((c, nobs), device=det.device, dtype=torch.float32)
     lse_sel = torch.empty((c,), device=det.device, dtype=torch.float32)
     rc = kernel_function("logwts", "logwts_lse_fwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), lse_ev.data_ptr(),
-        lse_sel.data_ptr(), c, k, g_len, n, nobs, nsamp, stream)
+        lse_sel.data_ptr(), c, k, g_len, n, qry_cs, nobs, nsamp, stream)
     raise_on(rc, "logwts_lse_fwd")
-    LAUNCHES["logwts_lse_fwd"] += 1
+    LAUNCHES["logwts_lse_fwd" + ("_per_chain" if qry_cs else "")] += 1
     return lse_ev, lse_sel
 
 
 def _logwts_lse_bwd_cuda(det, bump, scal, qry, lse_ev, lse_sel, g_ev, g_sel, nobs: int, nsamp: int):
     """The cotangents ``g_ev`` (C, nobs) and ``g_sel`` (C,) may have any strides
     (autograd hands over broadcast views); everything else is contiguous."""
-    c, k, g_len, n, stream = _launch_args(det, bump, scal, qry)
+    c, k, g_len, n, qry_cs, stream = _launch_args(det, bump, scal, qry)
     _check_segments(n, nobs, nsamp)
     for name, t, shape in (("lse_ev", lse_ev, (c, nobs)), ("lse_sel", lse_sel, (c,)),
                            ("g_ev", g_ev, (c, nobs)), ("g_sel", g_sel, (c,))):
@@ -321,9 +334,9 @@ def _logwts_lse_bwd_cuda(det, bump, scal, qry, lse_ev, lse_sel, g_ev, g_sel, nob
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), lse_ev.data_ptr(),
         lse_sel.data_ptr(), g_ev.data_ptr(), g_ev.stride(0), g_ev.stride(1), g_sel.data_ptr(),
         g_sel.stride(0), d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), c, k, g_len, n,
-        nobs, nsamp, stream)
+        qry_cs, nobs, nsamp, stream)
     raise_on(rc, "logwts_lse_bwd")
-    LAUNCHES["logwts_lse_bwd"] += 1
+    LAUNCHES["logwts_lse_bwd" + ("_per_chain" if qry_cs else "")] += 1
     return d_det, d_bump, d_scal
 
 
@@ -363,8 +376,9 @@ def logwts_plain(det, bump, scal, qry):
 
 
 def logwts(det, bump, scal, qry):
-    """(C, N) log-weights; CPU tensors take the plain twin, CUDA tensors
-    launch ``csrc/logwts.cu`` (forward and backward)."""
+    """(C, N) log-weights of the queries ``qry``, ``(N, 4)`` shared by the
+    chains or ``(C, N, 4)`` one table a chain; CPU tensors take the plain twin,
+    CUDA tensors launch ``csrc/logwts.cu`` (forward and backward)."""
     if det.device.type == "cuda":
         return _LogwtsCuda.apply(det, bump, scal, qry)
     if det.device.type == "cpu":
@@ -376,14 +390,15 @@ def logwts_lse_plain(det, bump, scal, qry, nobs: int, nsamp: int):
     """The plain PyTorch twin of the ``lse`` epilogue, on any device: the
     ``rows`` twin followed by ``torch.logsumexp`` over each segment, with the
     backward of an all-dead segment written out as zeros."""
-    _check_segments(qry.shape[0], nobs, nsamp)
+    _check_segments(qry.shape[-2], nobs, nsamp)
     return _LogwtsLsePlain.apply(det, bump, scal, qry, nobs, nsamp)
 
 
 def logwts_lse(det, bump, scal, qry, nobs: int, nsamp: int):
     """Segment log-sum-exps of the log-weights: ``(C, nobs)`` over each event's
     ``nsamp`` contiguous rows (the first ``nobs * nsamp`` rows of ``qry``) and
-    ``(C,)`` over the rows after them (the injections).
+    ``(C,)`` over the rows after them (the injections).  ``qry`` is ``(N, 4)``,
+    shared by the chains, or ``(C, N, 4)``, one table a chain.
 
     CPU tensors take the plain twin; CUDA tensors launch the ``lse`` kernels
     of ``csrc/logwts.cu``, one launch forward and one backward."""
@@ -414,7 +429,8 @@ def _tables(pop, det):
 
 def cosmo_frame_logwts(pop, det, qry, plain: bool = False):
     """Drop-in twin of ``cosmo_frame_logwts_pallas`` for all chains at once:
-    (C, N) log-weights of the shared queries ``qry`` (N, 4), see :func:`query_rows`.
+    (C, N) log-weights of the queries ``qry``, (N, 4) shared or (C, N, 4) one
+    table a chain, see :func:`query_rows`.
 
     ``plain=True`` takes the plain twin whatever the device (the on-card
     comparison uses it)."""
@@ -424,8 +440,9 @@ def cosmo_frame_logwts(pop, det, qry, plain: bool = False):
 
 def cosmo_frame_logwts_lse(pop, det, qry, nobs: int, nsamp: int, plain: bool = False):
     """The joint likelihood's use of the log-weights, fused: ``(C, nobs)``
-    per-event and ``(C,)`` selection log-sum-exps of the shared queries ``qry``
-    (``nobs * nsamp`` PE-sample rows, then the injections).
+    per-event and ``(C,)`` selection log-sum-exps of the queries ``qry``, (N, 4)
+    shared or (C, N, 4) one table a chain (``nobs * nsamp`` PE-sample rows,
+    then the injections).
 
     ``plain=True`` takes the plain twin whatever the device."""
     fn = logwts_lse_plain if plain else logwts_lse

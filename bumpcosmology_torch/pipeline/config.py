@@ -1,9 +1,9 @@
 """Run configuration (L6); a copy of the JAX package's ``pipeline/config.py``
 for the stages the port has: :class:`PathsConfig`, :class:`IngestConfig`,
-:class:`FitConfig` and :class:`MockConfig` with the same fields and defaults,
-held by a :class:`PipelineConfig` that loads a JSON file and
-``section.key=value`` overrides.  The SBC, score-check, LOO, compare and PPC
-sections come with their stages.
+:class:`FitConfig`, :class:`MockConfig`, :class:`SBCConfig` and
+:class:`ScoreCheckConfig` with the same fields and defaults, held by a
+:class:`PipelineConfig` that loads a JSON file and ``section.key=value``
+overrides.  The LOO, compare and PPC sections come with their stages.
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["PathsConfig", "IngestConfig", "FitConfig", "MockConfig", "PipelineConfig"]
+__all__ = ["PathsConfig", "IngestConfig", "FitConfig", "MockConfig", "SBCConfig", "ScoreCheckConfig",
+           "PipelineConfig"]
 
 
 @dataclass
@@ -96,11 +97,63 @@ class MockConfig:
 
 
 @dataclass
+class SBCConfig:
+    """Simulation-based calibration suite (BASELINE.md scale-out config)."""
+
+    model: str = "pop"  # "pop", "pop_cosmo" (joint), "plpeak_cosmo" or "brokenpl_cosmo"
+    n_sims: int = 20
+    nobs: int = 12
+    nsamp: int = 64
+    nsel: int = 512  # raised automatically to >=2048 for the joint model
+    campaign_ndraw: int = 200_000
+    num_warmup: int = 200
+    num_samples: int = 256
+    thin: int = 4
+    threshold: float = 20.0
+    # cap on the detected-injection pool backing events/banks (uniform
+    # thinning with Ndraw rescaled — bounds the host-side bank building at
+    # low detection thresholds)
+    pool_max: Optional[int] = None
+    pe_bank_size: int = 4096  # Gaussian draws per per-injection PE bank
+    # per-simulation fresh observation noise + banks (exact SBC law; the
+    # shared-bank fast path leaves a common-mode tilt in weakly identified
+    # directions) — applies to the pop_cosmo model
+    fresh_noise: bool = True
+    # fleet bounds: NUTS transitions between two progress reports, and the
+    # NUTS depth cap (a wide fleet in early warmup builds deep lockstep trees)
+    fleet_chunk: int = 5
+    max_depth: int = 8
+    seed: int = 424242
+
+
+@dataclass
+class ScoreCheckConfig:
+    """Score-identity diagnostic (``pipeline score_check``): E[∇ log L̂] = 0
+    at the default parameters over fresh simulated catalogs — the fit-free
+    generative/model-mismatch instrument (docs/DESIGN.md §9.5)."""
+
+    model: str = "pop_cosmo"  # "pop_cosmo", "plpeak_cosmo" or "brokenpl_cosmo"
+    n_catalogs: int = 200
+    nobs: int = 16
+    nsamp: int = 256
+    nsel: int = 3584
+    campaign_ndraw: int = 6_500_000
+    pe_bank_size: int = 16384
+    threshold: float = 20.0
+    n_grid: int = 128
+    n_z: int = 256
+    z_bar: float = 4.0  # per-site |z| pass bar on the TOTAL score
+    seed: int = 616161
+
+
+@dataclass
 class PipelineConfig:
     paths: PathsConfig = field(default_factory=PathsConfig)
     ingest: IngestConfig = field(default_factory=IngestConfig)
     fit: FitConfig = field(default_factory=FitConfig)
     mock: MockConfig = field(default_factory=MockConfig)
+    sbc: SBCConfig = field(default_factory=SBCConfig)
+    score: ScoreCheckConfig = field(default_factory=ScoreCheckConfig)
 
     @classmethod
     def load(cls, json_path: Optional[str] = None, overrides: Optional[list] = None):

@@ -11,8 +11,10 @@ and traces ``.npz`` stores (:mod:`bumpcosmology_torch.utils.trace`): the
 artifacts are the JAX package's names with ``.npz`` (``mock_injections.npz``,
 ``mock_observations.npz``, ``mock_year_samples.npz``, ``pe-samples.npz``,
 ``selection-samples.npz``, the family's trace) under the data directory.
+The calibration stages, :func:`_stage_sbc` and :func:`_stage_score_check`,
+draw their own campaigns and write ``sbc_ranks.npz`` and ``score_check.npz``.
 Every stage runs on ``device`` (``None`` means CUDA; it raises without it).
-The DAG, the data, calibration and comparison stages are not ported yet.
+The DAG, the data and comparison stages are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from bumpcosmology_torch.pipeline.config import PipelineConfig
 from bumpcosmology_torch.utils.io import read_table, write_table
 
 __all__ = ["group_events", "pop_data_from_tables", "pop_cosmo_data_from_tables", "run_pop_fit",
-           "run_pop_cosmo_fit", "mass_family"]
+           "run_pop_cosmo_fit", "mass_family", "write_sbc_artifact"]
 
 
 def group_events(table, cols=("m1", "q", "z", "wt")):
@@ -249,3 +251,240 @@ def _stage_mock_fit_inputs(cfg: PipelineConfig, device=None):
            "ndraw": np.full(nsel, ndraw)}
     write_table(cfg.paths.path("selection-samples.npz"), sel)
     print(f"[mock_fit_inputs] {len(np.unique(cat['evt']))} events, {nsel} selection samples")
+
+
+# ---------------------------------------------------------------- calibration
+
+_JOINT_FAMILY = {"pop_cosmo": "bump", "plpeak_cosmo": "plpeak", "brokenpl_cosmo": "brokenpl"}
+
+
+def _stage_sbc(cfg: PipelineConfig, device=None):
+    """Simulation-based calibration suite → ``sbc_ranks.npz`` (ranks and
+    p-values; ``_stage_sbc``, the JAX package's ``stages.py:360-517``).
+
+    ``cfg.sbc.model`` is ``"pop"`` (the shared-bank population-only
+    simulator) or a joint model, ``"pop_cosmo"``, ``"plpeak_cosmo"`` or
+    ``"brokenpl_cosmo"`` (the fresh-noise simulator; ``fresh_noise=False``
+    takes the shared-bank joint simulator, the bump only).  The campaign's
+    SNRs run through kernel C, the fleet fit through kernels A (and B on the
+    bump's joint model) on ``device`` (``None`` means CUDA; it raises
+    without it).  The joint models also check the rate reconstruction's
+    coverage over prior draws of μ(θ) on this campaign.
+    """
+    from bumpcosmology_torch.device import resolve_device
+    from bumpcosmology_torch.inference import calibration as cal
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.nuts import NutsConfig
+    from bumpcosmology_torch.mock import add_observation_noise, draw_injection_campaign
+
+    dev = resolve_device(device)
+    c = cfg.sbc
+    n_grid, n_z = cfg.fit.n_grid, cfg.fit.n_z
+    inj = draw_injection_campaign(ndraw=c.campaign_ndraw, seed=c.seed, snr_chunk=cfg.mock.snr_chunk, device=dev)
+    obs = add_observation_noise(inj, seed=c.seed + 1, threshold=c.threshold)
+    n_total = float(len(inj["m1"]))
+    n_obs = len(obs["m1"])
+    if c.pool_max and n_obs > c.pool_max:
+        # uniform thinning of the detected pool; Ndraw scales by the kept
+        # fraction so the selection estimator stays unbiased
+        frac = c.pool_max / n_obs
+        keep = np.random.default_rng(c.seed + 5).choice(n_obs, size=c.pool_max, replace=False)
+        obs = {k: np.asarray(v)[keep] for k, v in obs.items()}
+        n_total = n_total * frac
+        print(f"[sbc] detected pool thinned to {len(obs['m1'])} (Ndraw_eff {n_total:.0f})")
+    family = _JOINT_FAMILY.get(c.model)
+    if family is not None:
+        # the joint model needs a larger selection set or its SBC ranks are
+        # corrupted by selection-MC pseudo-modes
+        if c.fresh_noise:
+            if c.pool_max:
+                print("[sbc] note: pool_max only applies to the shared-bank simulators")
+            simulate = cal.make_mock_pop_cosmo_simulator_fresh(
+                inj, nobs=c.nobs, nsamp=c.nsamp, nsel=max(c.nsel, 2048), pe_bank_size=c.pe_bank_size,
+                threshold=c.threshold, family=family, device=dev,
+            )
+        else:
+            if family != "bump":
+                raise ValueError(f"{c.model} SBC requires fresh_noise=True")
+            simulate = cal.make_mock_pop_cosmo_simulator(
+                obs, n_total_injections=n_total, nobs=c.nobs, nsamp=c.nsamp, nsel=max(c.nsel, 2048),
+                pe_bank_size=c.pe_bank_size, seed=c.seed + 2, device=dev,
+            )
+        proto = cal.COSMO_SBC_SPEC_BUILDERS[family](n_grid=n_grid, n_z=n_z, device=dev)(None)
+        build = mass_family(family).build
+
+        def make_loglike(datas):
+            bounds = lk.dl_bounds_of(datas, margin=0.1)  # fleet-wide: every catalog's dL
+            return lambda sites, d: lk.pop_cosmo_loglike(sites, d, n_grid, n_z, bounds, build=build)
+
+    elif c.model == "pop":
+        simulate = cal.make_mock_pop_simulator(
+            obs, n_total_injections=n_total, nobs=c.nobs, nsamp=c.nsamp, nsel=c.nsel, seed=c.seed + 2,
+            device=dev,
+        )
+        proto = cal.make_pop_sbc_spec_builder(n_grid=n_grid, device=dev)(None)
+
+        def make_loglike(datas):
+            return lambda sites, d: lk.pop_loglike(sites, d, n_grid)
+
+    else:
+        raise ValueError(
+            f"unknown sbc model {c.model!r}; use 'pop', 'pop_cosmo', "
+            "'plpeak_cosmo' or 'brokenpl_cosmo'"
+        )
+
+    ranks = cal.run_sbc_fleet(
+        proto, make_loglike, simulate, n_sims=c.n_sims, generator=c.seed + 3, num_warmup=c.num_warmup,
+        num_samples=c.num_samples, thin=c.thin, cfg=NutsConfig(max_depth=c.max_depth), chunk_size=c.fleet_chunk,
+        device=dev,
+    )
+    pvals = cal.sbc_uniformity_pvalues(ranks)
+
+    # rate-reconstruction calibration: R is not a fitted site, so the fleet
+    # gives it no rank; check the post-hoc reconstruction's frequentist
+    # coverage with this suite's family and campaign driving the mu(theta)
+    # mixing (rate_reconstruction_ranks)
+    rate_ranks, rate_p = None, None
+    if family is not None:
+        try:
+            from scipy.stats import kstest
+
+            mu = cal.selection_mu_samples(inj, family, max(512, 4 * c.n_sims), generator=c.seed + 9,
+                                          threshold=c.threshold, device=dev)
+            rate_ranks = cal.rate_reconstruction_ranks(mu, r_true=2.3, rng=np.random.default_rng(c.seed + 10))
+            rate_p = float(kstest(rate_ranks, "uniform").pvalue)
+            print(f"[sbc] rate-reconstruction rank uniformity: p={rate_p:.3f} ({len(rate_ranks)} trials)")
+        except Exception as err:  # the fleet certificate must not die on this
+            print(f"[sbc] WARNING: rate-reconstruction check failed: {err!r}")
+
+    bad = write_sbc_artifact(cfg.paths.path("sbc_ranks.npz"), c.model, c.n_sims, ranks, pvals,
+                             rate_ranks=rate_ranks, rate_p=rate_p)
+    print("[sbc] uniformity p-values:", {k: round(v, 3) for k, v in pvals.items()})
+    if bad:
+        print(f"[sbc] WARNING: sites failing uniformity at p<0.01: {bad}")
+    else:
+        print(f"[sbc] all {len(pvals)} sites pass uniformity at p>=0.01")
+
+
+def write_sbc_artifact(out, model: str, n_sims: int, ranks: dict, pvals: dict, rate_ranks=None,
+                       rate_p=None) -> list:
+    """Persist SBC ranks and per-site verdicts as ``.npz``; returns the failing
+    sites (``write_sbc_artifact``, the JAX package's ``stages.py:519-560``).
+
+    The keys are the HDF5 layout's paths: ``ranks/<site>``, ``ranks/n_bins``,
+    ``pvalues/site``, ``pvalues/p``, ``pvalues/passed`` (in matching order)
+    and ``rate_check/ranks``; its attributes are 0-d arrays under
+    ``attrs/<name>`` (root: ``model``, ``n_sims``, ``all_pass``) and
+    ``<group>/attrs/<name>`` (``pvalues/attrs/<site>``; ``rate_check/attrs/``
+    ``p``, ``passed``, ``method``).
+    """
+    bad = sorted(k for k, v in pvals.items() if v < 0.01)
+    arrays = {"attrs/model": np.asarray(model), "attrs/n_sims": np.asarray(n_sims),
+              "attrs/all_pass": np.asarray(not bad)}
+    for k, v in ranks.items():
+        arrays["ranks/" + (k.strip("_") if k == "__n_bins__" else k)] = np.asarray(v)
+    sites = sorted(pvals)
+    arrays["pvalues/site"] = np.array(sites, dtype=str)
+    arrays["pvalues/p"] = np.array([pvals[s] for s in sites], dtype=np.float64)
+    arrays["pvalues/passed"] = np.array([pvals[s] >= 0.01 for s in sites])
+    for k, v in pvals.items():
+        arrays["pvalues/attrs/" + k] = np.asarray(v)
+    if rate_ranks is not None:
+        arrays["rate_check/ranks"] = np.asarray(rate_ranks)
+        arrays["rate_check/attrs/p"] = np.asarray(float(rate_p))
+        arrays["rate_check/attrs/passed"] = np.asarray(bool(rate_p >= 0.01))
+        arrays["rate_check/attrs/method"] = np.asarray(
+            "frequentist rank coverage of the Gaussian R reconstruction "
+            "(R = nobs/mu + sqrt(nobs)/mu * R_unit) with nobs ~ "
+            "Poisson(2.3 * mu(theta)), mu from prior draws on this "
+            "suite's campaign; see inference/calibration.py"
+        )
+    np.savez(out, **arrays)
+    return bad
+
+
+def _score_check_sites0(model: str) -> dict:
+    """Default ("true") parameter sites for the score-identity check."""
+    from bumpcosmology_torch.models.parameters import DEFAULT_POPULATION, PLANCK18
+
+    sites = {"h": PLANCK18.h, "Om": PLANCK18.Om, "w": PLANCK18.w, "R_unit": 0.0}
+    if model == "plpeak_cosmo":
+        from bumpcosmology_torch.models.plpeak import DEFAULT_PLPEAK_POPULATION
+
+        mp = DEFAULT_PLPEAK_POPULATION.mass
+        sites.update(
+            alpha=mp.alpha, beta_q=mp.beta_q, mmin=mp.mmin, mmax=mp.mmax,
+            lam_peak=mp.lam_peak, mu_m=mp.mu_m, sigma_m=mp.sigma_m,
+            delta_m=mp.delta_m,
+        )
+    elif model == "brokenpl_cosmo":
+        from bumpcosmology_torch.models.brokenpl import DEFAULT_BROKENPL_POPULATION
+
+        mp = DEFAULT_BROKENPL_POPULATION.mass
+        # the campaign draws primaries on m1 >= 5, so the truth uses mmin=5
+        # (the SBC spec builders' support slice)
+        sites.update(
+            alpha1=mp.alpha1, alpha2=mp.alpha2, bfrac=mp.bfrac, beta_q=mp.beta_q,
+            mmin=max(float(mp.mmin), 5.0), mmax=mp.mmax, delta_m=mp.delta_m,
+        )
+    else:
+        mp = DEFAULT_POPULATION.mass
+        sites.update(
+            a=mp.a, b=mp.b, c=mp.c, mpisn=mp.mpisn, dmbhmax=mp.mbhmax - mp.mpisn,
+            sigma=mp.sigma, log_fpl=float(np.log(mp.fpl)), beta=mp.beta,
+        )
+    rp = DEFAULT_POPULATION.redshift
+    sites.update(lam=rp.lam, dkappa=rp.kappa - rp.lam, zp=rp.zp)
+    return sites
+
+
+def _stage_score_check(cfg: PipelineConfig, device=None):
+    """Score-identity diagnostic → ``score_check.npz`` (``_stage_score_check``,
+    the JAX package's ``stages.py:598-669``): E_{data|θ₀}[∇ log L̂(θ₀)] per
+    hyperparameter and likelihood term over fresh simulated catalogs.  Pass =
+    every TOTAL |z| under ``score.z_bar``.  Keys: ``site``, ``mean``, ``se``,
+    ``z`` and ``attrs/<name>`` (``model``, ``n_catalogs``, ``z_bar``,
+    ``all_pass``).  Runs on ``device`` (``None`` means CUDA; it raises
+    without it)."""
+    from bumpcosmology_torch.device import resolve_device
+    from bumpcosmology_torch.inference.calibration import make_mock_pop_cosmo_simulator_fresh
+    from bumpcosmology_torch.inference.score_check import joint_term_grads, score_identity_check
+    from bumpcosmology_torch.mock import draw_injection_campaign
+
+    dev = resolve_device(device)
+    c = cfg.score
+    if c.model not in _JOINT_FAMILY:
+        raise ValueError(
+            f"unknown score_check model {c.model!r}; use 'pop_cosmo', "
+            "'plpeak_cosmo' or 'brokenpl_cosmo'"
+        )
+    family = _JOINT_FAMILY[c.model]
+    inj = draw_injection_campaign(ndraw=c.campaign_ndraw, seed=c.seed, snr_chunk=cfg.mock.snr_chunk, device=dev)
+    simulate = make_mock_pop_cosmo_simulator_fresh(
+        inj, nobs=c.nobs, nsamp=c.nsamp, nsel=c.nsel, pe_bank_size=c.pe_bank_size, threshold=c.threshold,
+        family=family, device=dev,
+    )
+    sites0 = _score_check_sites0(c.model)
+    grad_sites = tuple(k for k in sites0 if k != "R_unit")
+    term_grads = joint_term_grads(sites0, grad_sites, nobs=c.nobs, n_grid=c.n_grid, n_z=c.n_z,
+                                  build=mass_family(family).build, device=dev)
+
+    def progress(i, n):
+        if i % 50 == 0 or i == n:
+            print(f"[score_check] {i}/{n} catalogs", flush=True)
+
+    res = score_identity_check(simulate, sites0, term_grads, grad_sites, n_catalogs=c.n_catalogs,
+                               seed=c.seed + 1, progress=progress)
+    print(res.table())
+    ok = res.max_abs_z() < c.z_bar
+    np.savez(cfg.paths.path("score_check.npz"), **{
+        "attrs/model": np.asarray(c.model), "attrs/n_catalogs": np.asarray(res.n_catalogs),
+        "attrs/z_bar": np.asarray(c.z_bar), "attrs/all_pass": np.asarray(ok),
+        "site": np.array(res.sites, dtype=str), "mean": res.mean, "se": res.se, "z": res.z})
+    verdict = "PASS" if ok else "FAIL"
+    print(f"[score_check] max TOTAL |z| = {res.max_abs_z():.2f} (bar {c.z_bar}) -> {verdict}")
+    if not ok:
+        print(
+            "[score_check] WARNING: nonzero expected score — the simulator and "
+            "the fitted likelihood disagree; see the per-term table above"
+        )

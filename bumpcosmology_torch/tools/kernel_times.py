@@ -19,7 +19,10 @@ power limit.  Needs one NVIDIA GPU and nvcc.
   rtol 1e-4 / atol 5e-5, VJP rtol 2e-4 / atol 1e-5).
 * ``--kernel b``: ``csrc/logwts.cu`` at C = 16, N = 38,912, K = 1024, G = 256, the
   ``rows`` kernels and, where the checkout has them, the ``lse`` kernels (phase
-  3's limits).
+  3's limits); where it takes a query table per chain, also the shared table
+  copied once per chain (``*_copied``, 16 x 38,912 x 4) and 20 distinct
+  per-chain tables of 2,816 rows (``*_per_chain``, the SBC fleet's shape,
+  ``chip_smoke.fleet_queries``).
 * ``--kernel c``: ``csrc/snr.cu`` on the rows of phase 6's 10^7-draw campaign
   (the same draws as ``chip_smoke.run_campaign``'s, about 7 s of host draws a run), phase 6's
   limits (rtol 2e-5 / atol 1e-6, the same exact zeros) and timers (5 calls in
@@ -128,7 +131,34 @@ def kernel_b_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
         r = kb._evaluate(*tables, qry)
         g_rows = kb._lse_row_cotangent(r["out"], ref_ev, ref_sel, g_ev, g_sel, nobs, nsamp)
         kernels["logwts_lse_bwd"] = row(bwd, cotangent_error("B-lse-bwd", bwd(), kb._bwd_of_rows(r, *tables, g_rows)))
+    if "logwts_fwd_per_chain" in kb.LAUNCHES:  # a query table per chain
+        kernels.update(per_chain_layouts(data, sites, tables, qry, row, gen))
     return kernels, dict(C=c, N=n, K=n_z, G=n_grid)
+
+
+def per_chain_layouts(data, sites, tables, qry, row, gen):
+    """Kernel B on (C, N, 4) query tables: the shared table copied per chain,
+    and the SBC fleet's 20 distinct tables (both held by ``chip_smoke.b_against_twin``)."""
+    import torch
+
+    from bumpcosmology_torch.ops import cuda_logwts as kb
+    from chip_smoke import SBC_NOBS, SBC_NSAMP, SBC_SIMS, b_against_twin, b_tables, fleet_queries
+
+    nobs, nsamp = data.events.a.shape
+    c = tables[0].shape[0]
+    copied = qry.expand(c, -1, -1).contiguous()
+    errs = b_against_twin("B copied", tables, copied, nobs, nsamp, gen)[0]
+    out = {"logwts_fwd_copied": row(lambda: kb._logwts_fwd_cuda(*tables, copied), errs["rows_fwd"]),
+           "logwts_lse_fwd_copied": row(lambda: kb._logwts_lse_fwd_cuda(*tables, copied, nobs, nsamp),
+                                        errs["lse_fwd"])}
+    t20 = b_tables({k: torch.cat([v, v[: SBC_SIMS - c]]) for k, v in sites.items()}, data)
+    fq = fleet_queries(data, SBC_SIMS, gen)
+    errs, _, (lse_ev, lse_sel), (_, g_ev, g_sel) = b_against_twin("B per-chain", t20, fq, SBC_NOBS, SBC_NSAMP, gen)
+    out["logwts_lse_fwd_per_chain"] = row(lambda: kb._logwts_lse_fwd_cuda(*t20, fq, SBC_NOBS, SBC_NSAMP),
+                                          errs["lse_fwd"])
+    out["logwts_lse_bwd_per_chain"] = row(
+        lambda: kb._logwts_lse_bwd_cuda(*t20, fq, lse_ev, lse_sel, g_ev, g_sel, SBC_NOBS, SBC_NSAMP), errs["lse_bwd"])
+    return out
 
 
 def kernel_c_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: int):

@@ -11,8 +11,9 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
 16 chains sampled with dense-mass NUTS from ``benchmarks/flagship_warmup16.npz``
 (phase 5) and fitted from prior draws to a trace (phase 7) — and the paths
 beside it: the mock stages (phase 6), the population-only fit (phase 8), the
-ChEES samplers (phase 9) and the other two mass families in both fits (phase
-10); and it holds every CUDA kernel against its plain PyTorch twin:
+ChEES samplers (phase 9), the other two mass families in both fits (phase
+10) and the calibration suite (phase 11); and it holds every CUDA kernel
+against its plain PyTorch twin:
 
 1. build every kernel from ``bumpcosmology_torch/csrc`` (one nvcc per source),
    and time the card's launch floor: an empty kernel through the same ctypes
@@ -28,7 +29,11 @@ ChEES samplers (phase 9) and the other two mass families in both fits (phase
    2e-5 / atol 2e-5 (the same -inf rows), every cotangent rtol 5e-4 with atol
    5e-4 x the largest reference entry (float32 atomics sum in another order).
    ``lse`` (56 per-event and one selection log-sum-exp per chain, and the
-   cotangents from a random (C, nobs) + (C,) cotangent): the same limits;
+   cotangents from a random (C, nobs) + (C,) cotangent): the same limits.
+   Then B's query table per chain: the shared table copied once per chain
+   (16 x 38,912 x 4) must give bit-identical forward values, and it and 20
+   distinct per-chain tables of 2,816 rows (the SBC fleet's shape) are held
+   against the twin at the same limits, both epilogues, both ways;
 4. the 16-chain potential value+grad (through the ``lse`` epilogue), kernels
    against twins: |dU|/(1+|U|) < 2e-4 and |dgrad|/(1+|grad|) < 5e-3, timed with
    CUDA events;
@@ -93,10 +98,24 @@ ChEES samplers (phase 9) and the other two mass families in both fits (phase
    back with the family's file name and attrs; the potential and gradient at
    the adapted state, and the deterministics of the run's draws, against
    the same built on the CPU from the same tables (phase 4's limits, 2e-4);
-   ms per batched value+grad by CUDA events, and a profile of three.
+   ms per batched value+grad by CUDA events, and a profile of three;
+11. the calibration suite through its stages, at the configs' defaults cut in
+   fit depth (30 warmup steps, 32 draws, ``max_depth`` 5) and catalog count:
+   (a) ``_stage_sbc(model="pop")``, 20 simulations fit as one fleet of 20
+   chains (kernel A); (b) ``_stage_sbc(model="pop_cosmo")`` with the fresh-noise
+   simulator on a 4·10⁶-draw campaign (the default 2·10⁵ detect too few
+   injections for its 2,048-row pool), the fleet reading 20 per-chain query
+   tables of 2,816 rows through kernel B, its potential for 3 simulations
+   held card against CPU at phase 4's limits; (c) ``_stage_score_check`` at
+   its defaults, 50 of 200 catalogs.  Every launch count is set to 0 before
+   each stage and read after it, and at the edges of its windows: one launch
+   of each kernel each way per batched value+grad (per catalog in (c)).  The
+   artifacts must carry the JAX layout's keys, every rank lie in [0,
+   n_bins), the rate check give numbers; the p-values are printed, not held.
 
 The ``kernels`` line's ``launches`` are phase 7's (the joint fit, C: phase
-6's stages); ``launches_by_path`` gives every path, phases 6-10.  Every kernel is
+6's stages, B's per-chain rows: phase 11b's); ``launches_by_path`` gives
+every path, phases 6-11.  Every kernel is
 timed twice: ``ms`` is its device time (20 launches captured
 in one CUDA graph and replayed, so the host's queueing rate is out of the
 figure), ``call_ms`` the time of one call of its Python wrapper as the main
@@ -179,6 +198,13 @@ MOCK_NDRAW = 10_000_000
 MOCK_SEED = 333_165_393
 MOCK_NSAMP = 128
 PLAIN_CHUNK = 65536
+# phase 11: the calibration suite at SBCConfig's and ScoreCheckConfig's defaults, cut in fit depth and catalog count;
+# the fleet's shape (SBCConfig: 20 simulations of 12 events x 64 samples; the joint model's 2,048 injections)
+SBC_SIMS, SBC_NOBS, SBC_NSAMP, SBC_NSEL = 20, 12, 64, 2048
+SBC_WARMUP, SBC_SAMPLES, SBC_DEPTH = 30, 32, 5
+SBC_COSMO_CAMPAIGN = 4_000_000
+SCORE_CATALOGS = 50
+FLEET_CPU_SIMS = 3
 
 
 def log(msg: str) -> None:
@@ -269,6 +295,32 @@ def check_close(name: str, got, ref, rtol: float, atol: float) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def b_tables(sites, data):
+    """Kernel B's per-chain inputs (detector table, bump table, 15 scalars) of
+    the constrained ``sites`` (C,) on ``data``'s dL range, at ``N_GRID``, ``N_Z``."""
+    import torch
+
+    from bumpcosmology_torch.inference.likelihoods import cosmo_from_sites, dl_bounds_of, population_from_sites
+    from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table
+    from bumpcosmology_torch.models.population import build_population
+    from bumpcosmology_torch.ops import cuda_logwts
+
+    with torch.no_grad():
+        pop = build_population(population_from_sites(sites), N_GRID)
+        det = build_detector_table(build_cosmology(cosmo_from_sites(sites), n=N_Z), *dl_bounds_of(data), n=N_Z)
+        return (det.cols.contiguous(), pop.mass_table.log_bump.contiguous(),
+                cuda_logwts.pack_scalars(pop, det).contiguous())
+
+
+def check_cotangents(label, got3, ref3) -> float:
+    """Kernel B's three cotangents against the twin's: rtol 5e-4, atol 5e-4 x max |ref|."""
+    worst = 0.0
+    for name, got, ref in zip(("d_det", "d_bump", "d_scal"), got3, ref3):
+        scale = float(ref.abs().max())
+        worst = max(worst, check_close(f"{label} {name}", got, ref, rtol=5e-4, atol=5e-4 * scale))
+    return worst
+
+
 def main() -> int:
     import torch
 
@@ -293,7 +345,6 @@ def run(mock_dir: Path) -> int:
 
     from bumpcosmology_torch.benchdata import load_pop_cosmo_data
     from bumpcosmology_torch.inference.likelihoods import (
-        cosmo_from_sites,
         dl_bounds_of,
         pop_cosmo_deterministics,
         pop_cosmo_event_sel_logwts,
@@ -304,8 +355,6 @@ def run(mock_dir: Path) -> int:
     )
     from bumpcosmology_torch.inference.model import constrain, make_potential, value_and_grad
     from bumpcosmology_torch.inference.nuts import NutsConfig, run_sampling
-    from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table
-    from bumpcosmology_torch.models.population import build_population
     from bumpcosmology_torch.ops import _build, cuda_bump, cuda_logwts, launch_floor
     from bumpcosmology_torch.utils.checkpoint import load_warmup
 
@@ -332,7 +381,7 @@ def run(mock_dir: Path) -> int:
         f"{time.perf_counter() - t0:.2f} s (host wall clock)")
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function properties" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     # the launch floor: kernels that compute nothing, through the same ctypes path
     b_threads = 32 * 19  # kernel B's forward block at the flagship size (38 pieces a block in 2 rounds of 19 warps)
@@ -442,12 +491,7 @@ def run(mock_dir: Path) -> int:
     phase_done("2_kernel_a")
 
     # ---- phase 3: kernel B at full size ---------------------------------
-    with torch.no_grad():
-        pop = build_population(pop_params, N_GRID)
-        det = build_detector_table(build_cosmology(cosmo_from_sites(sites), n=N_Z),
-                                   *dl_bounds_of(data), n=N_Z)
-        tables = (det.cols.contiguous(), pop.mass_table.log_bump.contiguous(),
-                  cuda_logwts.pack_scalars(pop, det).contiguous())
+    tables = b_tables(sites, data)
     qry = query_table(data)
     n = qry.shape[0]
     nobs, nsamp = data.events.a.shape
@@ -460,14 +504,6 @@ def run(mock_dir: Path) -> int:
         res.append((out.detach(), *(x.grad for x in leaves)))
     torch.cuda.synchronize()
     err_bf = check_close("B-fwd", res[0][0], res[1][0], rtol=2e-5, atol=2e-5)
-
-    def check_cotangents(label, got3, ref3):
-        worst = 0.0
-        for name, got, ref in zip(("d_det", "d_bump", "d_scal"), got3, ref3):
-            scale = float(ref.abs().max())
-            worst = max(worst, check_close(f"{label} {name}", got, ref, rtol=5e-4, atol=5e-4 * scale))
-        return worst
-
     err_bb = check_cotangents("B-bwd", res[0][1:], res[1][1:])
     n_dead = int(torch.isneginf(res[0][0]).sum())
     g_live = g_b * torch.isfinite(res[0][0])
@@ -533,6 +569,7 @@ def run(mock_dir: Path) -> int:
     log(f"{tag} phase 3 kernel B backward: distinct detector bins among 32 consecutive rows: events mean "
         f"{float(distinct[:n_ev_warps].mean()):.2f} (min {int(distinct[:n_ev_warps].min())}), injections mean "
         f"{float(distinct[n_ev_warps:].mean()):.2f} (min {int(distinct[n_ev_warps:].min())})")
+    rows.update(kernel_b_layouts(tag, data, sites, tables, qry, gen))
     phase_done("3_kernel_b")
 
     # ---- phase 4: potential value+grad ----------------------------------
@@ -632,6 +669,16 @@ def run(mock_dir: Path) -> int:
     phase_done("10a_brokenpl_pop_fit")
     plpeak_launches = fit_phase(dev, tag, "joint", family="plpeak")[0]
     phase_done("10b_plpeak_joint_fit")
+
+    # ---- phase 11: the calibration suite ----------------------------------
+    sbc_pop_launches = sbc_phase(dev, tag, "pop")
+    phase_done("11a_sbc_pop")
+    sbc_cosmo_launches = sbc_phase(dev, tag, "pop_cosmo")
+    phase_done("11b_sbc_pop_cosmo")
+    score_launches = score_check_phase(dev, tag)
+    phase_done("11c_score_check")
+    for k in ("logwts_lse_fwd_per_chain", "logwts_lse_bwd_per_chain"):  # the per-chain layout's path is 11b
+        launches[k] = sbc_cosmo_launches[k]
     log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
 
     sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
@@ -643,6 +690,8 @@ def run(mock_dir: Path) -> int:
         "logwts_bwd": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
         "logwts_lse_fwd": "bumpcosmology_tpu/ops/pallas_logwts.py:184",
         "logwts_lse_bwd": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
+        "logwts_lse_fwd_per_chain": "bumpcosmology_tpu/ops/pallas_logwts.py:184",
+        "logwts_lse_bwd_per_chain": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
         "snr_integral": "bumpcosmology_tpu/mock/pallas_snr.py:116",
     }
     kernels = []
@@ -658,10 +707,15 @@ def run(mock_dir: Path) -> int:
         elif name == "logwts_bwd":
             status = ("ok: built, matches its plain twin; launched in the phase-3 comparison only "
                       "(the main path's gradient takes the lse epilogue)")
+        elif name.endswith("_per_chain"):
+            status = ("ok: built, matches its plain twin; a query table per chain (phase 3: 20 x 2,816 rows); "
+                      "launched on the SBC fleet of the joint model (phase 11b)")
         by_path = {path: counts[name] for path, counts in (
             ("6_mock_stages", mock_launches), ("7_joint_fit", joint_launches), ("8_pop_fit", pop_launches),
             ("9a_nuts_chees", hybrid_launches), ("9b_chees_pop", chees_launches),
-            ("10a_brokenpl_pop_fit", brokenpl_launches), ("10b_plpeak_joint_fit", plpeak_launches))}
+            ("10a_brokenpl_pop_fit", brokenpl_launches), ("10b_plpeak_joint_fit", plpeak_launches),
+            ("11a_sbc_pop", sbc_pop_launches), ("11b_sbc_pop_cosmo", sbc_cosmo_launches),
+            ("11c_score_check", score_launches))}
         kernels.append(dict(name=name, route="cuda", source=sources[name.split("_")[0]],
                             replaces=replaces[name], launches=launches[name], launches_by_path=by_path,
                             max_abs_err=row["max_abs_err"], ms=row["ms"], call_ms=row["call_ms"],
@@ -1413,6 +1467,397 @@ def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None):
         log(f"{tag} phase {phase} profile: " + device_busy_share(
             lambda: [value_and_grad(pot, theta) for _ in range(3)], f"three {family} {model} value+grads", n_vg=3))
     return launches, seen["spec"], seen["prior_theta"]
+
+
+def fleet_queries(data, chains: int, gen, nobs: int = SBC_NOBS, nsamp: int = SBC_NSAMP, nsel: int = SBC_NSEL):
+    """(chains, nobs * nsamp + nsel, 4) query tables, one a chain, in the
+    shape of phase 11b's fleet: each chain's own ``nobs`` events of the
+    flagship catalog with ``nsamp`` of their samples, and ``nsel`` of its
+    injections, picked at random (``gen``)."""
+    import torch
+
+    from bumpcosmology_torch.inference.likelihoods import (
+        EventData,
+        PopCosmoData,
+        SelectionData,
+        query_table,
+        stack_fleet,
+    )
+
+    ev, sel = data.events, data.selection
+    dev = ev.a.device
+    perm = lambda n: torch.randperm(n, generator=gen, device=dev)  # noqa: E731
+    parts = []
+    for _ in range(chains):
+        e = perm(ev.a.shape[0])[:nobs]
+        s = torch.stack([perm(ev.a.shape[1])[:nsamp] for _ in range(nobs)])
+        j = perm(sel.a.shape[0])[:nsel]
+        parts.append(PopCosmoData(EventData(*(torch.gather(x[e], 1, s) for x in ev)),
+                                  SelectionData(*(x[j] for x in sel[:4]), sel.log_ndraw)))
+    return query_table(stack_fleet(parts))
+
+
+def b_against_twin(label: str, tables, qry, nobs: int, nsamp: int, gen):
+    """Kernel B on ``qry`` ((N, 4) or (C, N, 4)) against its plain twin, both
+    epilogues, forward and backward (random cotangents), at phase 3's limits.
+    Returns ({rows_fwd, rows_bwd, lse_fwd, lse_bwd: max |err|}, the kernel's
+    rows, its (lse_ev, lse_sel), the cotangents (g_rows, g_ev, g_sel))."""
+    import torch
+
+    from bumpcosmology_torch.ops import cuda_logwts as kb
+
+    c, n = tables[0].shape[0], qry.shape[-2]
+    dev = qry.device
+    g_rows = torch.randn((c, n), generator=gen, device=dev)
+    g_ev = torch.randn((c, nobs), generator=gen, device=dev)
+    g_sel = torch.randn((c,), generator=gen, device=dev)
+    res, res_l = [], []
+    for rows_fn, lse_fn in ((kb.logwts, kb.logwts_lse), (kb.logwts_plain, kb.logwts_lse_plain)):
+        leaves = [x.clone().requires_grad_(True) for x in tables]
+        out = rows_fn(*leaves, qry)
+        (out.nan_to_num(neginf=0.0) * g_rows).sum().backward()
+        res.append((out.detach(), *(x.grad for x in leaves)))
+        leaves = [x.clone().requires_grad_(True) for x in tables]
+        lse_ev, lse_sel = lse_fn(*leaves, qry, nobs, nsamp)
+        torch.autograd.backward([lse_ev, lse_sel], [g_ev, g_sel])
+        res_l.append((lse_ev.detach(), lse_sel.detach(), *(x.grad for x in leaves)))
+    torch.cuda.synchronize()
+    errs = dict(
+        rows_fwd=check_close(f"{label} rows values", res[0][0], res[1][0], rtol=2e-5, atol=2e-5),
+        rows_bwd=check_cotangents(f"{label} rows", res[0][1:], res[1][1:]),
+        lse_fwd=max(check_close(f"{label} lse events", res_l[0][0], res_l[1][0], rtol=2e-5, atol=2e-5),
+                    check_close(f"{label} lse selection", res_l[0][1], res_l[1][1], rtol=2e-5, atol=2e-5)),
+        lse_bwd=check_cotangents(f"{label} lse", res_l[0][2:], res_l[1][2:]))
+    return errs, res[0][0], res_l[0][:2], (g_rows * torch.isfinite(res[0][0]), g_ev, g_sel)
+
+
+def kernel_b_layouts(tag: str, data, sites, tables, qry, gen):
+    """Phase 3, second part: kernel B's two query layouts.
+
+    (i) The flagship's shared (N, 4) table copied once per chain, (16, 38,912,
+    4): forward values (``rows``, and the ``lse`` epilogue's) bit for bit
+    those of the shared table, and both epilogues forward and backward
+    against the twin at phase 3's limits.  (ii) 20 distinct per-chain tables
+    of 2,816 rows (:func:`fleet_queries`, phase 11b's shape) under the tables
+    of 20 chains (the chains of ``sites`` and the first ones again): the same
+    checks, then the per-chain ``lse`` kernels timed.  Returns their
+    kernels-line rows."""
+    import torch
+
+    from bumpcosmology_torch.ops import cuda_logwts as kb
+
+    c = tables[0].shape[0]
+    nobs, nsamp = data.events.a.shape
+    copied = qry.expand(c, -1, -1).contiguous()
+    same = {
+        "rows": torch.equal(kb._logwts_fwd_cuda(*tables, qry), kb._logwts_fwd_cuda(*tables, copied)),
+        "lse": all(torch.equal(a, b) for a, b in zip(kb._logwts_lse_fwd_cuda(*tables, qry, nobs, nsamp),
+                                                      kb._logwts_lse_fwd_cuda(*tables, copied, nobs, nsamp))),
+    }
+    if not all(same.values()):
+        raise AssertionError(f"B: the copied per-chain table's forward values differ from the shared table's: {same}")
+    errs_copied = b_against_twin("B copied", tables, copied, nobs, nsamp, gen)[0]
+    copied_ms = {name: graph_ms(fn) for name, fn in (
+        ("rows_fwd", lambda: kb._logwts_fwd_cuda(*tables, copied)),
+        ("lse_fwd", lambda: kb._logwts_lse_fwd_cuda(*tables, copied, nobs, nsamp)))}
+
+    # (ii) 20 distinct per-chain tables of the fleet's shape, under 20 chains' tables
+    tables20 = b_tables({k: torch.cat([v, v[: SBC_SIMS - c]]) for k, v in sites.items()}, data)
+    fq = fleet_queries(data, SBC_SIMS, gen)
+    c20, n20 = fq.shape[:2]
+    errs, _, (lse_ev, lse_sel), (_, g_ev, g_sel) = b_against_twin("B per-chain", tables20, fq, SBC_NOBS, SBC_NSAMP,
+                                                                   gen)
+    fwd = lambda: kb._logwts_lse_fwd_cuda(*tables20, fq, SBC_NOBS, SBC_NSAMP)  # noqa: E731
+    bwd = lambda: kb._logwts_lse_bwd_cuda(*tables20, fq, lse_ev, lse_sel, g_ev, g_sel, SBC_NOBS,  # noqa: E731
+                                          SBC_NSAMP)
+
+    def bwd_plain():
+        r = kb._evaluate(*tables20, fq)
+        g = kb._lse_row_cotangent(r["out"], lse_ev, lse_sel, g_ev, g_sel, SBC_NOBS, SBC_NSAMP)
+        return kb._bwd_of_rows(r, *tables20, g)
+
+    (f_ms, f_call), (b_ms, b_call) = both_ms(fwd), both_ms(bwd)
+    f_plain = cuda_ms(lambda: kb._segment_lse(kb._evaluate(*tables20, fq)["out"], SBC_NOBS, SBC_NSAMP))
+    b_plain = cuda_ms(bwd_plain)
+    k_det = tables20[0].shape[1]
+    table_bytes = c20 * (k_det * 8 + N_GRID * 4 + 15 * 4)
+    seg_bytes = c20 * (SBC_NOBS + 1) * 4
+    out = {
+        "logwts_lse_fwd_per_chain": dict(
+            ms=f_ms, call_ms=f_call, plain_ms=f_plain, max_abs_err=errs["lse_fwd"],
+            bound=bound_ms(c20 * n20 * 16 + table_bytes + seg_bytes,
+                           c20 * n20 * (OPS_B_FWD_PER_QUERY + OPS_B_LSE_FWD_EXTRA))),
+        "logwts_lse_bwd_per_chain": dict(
+            ms=b_ms, call_ms=b_call, plain_ms=b_plain, max_abs_err=errs["lse_bwd"],
+            bound=bound_ms(c20 * n20 * 16 + 2 * table_bytes + 2 * seg_bytes,
+                           c20 * n20 * (OPS_B_BWD_PER_QUERY + OPS_B_LSE_BWD_EXTRA))),
+    }
+    fmt = lambda d: json.dumps({k: float(f"{v:.3e}") for k, v in d.items()})  # noqa: E731
+    log(f"{tag} phase 3 kernel B, the shared table copied per chain ({c} x {qry.shape[0]} x 4): forward values "
+        f"bit-identical to the shared table's (rows and lse); max|err| against the twin {fmt(errs_copied)}; device "
+        f"ms rows fwd {copied_ms['rows_fwd']:.5f}, lse fwd {copied_ms['lse_fwd']:.5f} (shared: phase 3 above)")
+    log(f"{tag} phase 3 kernel B, {c20} distinct per-chain tables of {n20} rows ({SBC_NOBS} events x {SBC_NSAMP} "
+        f"samples + {SBC_NSEL} injections a chain, K={k_det}, G={N_GRID}): max|err| against the twin {fmt(errs)}; "
+        f"lse fwd device {f_ms:.5f} ms, call {f_call:.4f} ms (plain {f_plain:.4f}), lse bwd device {b_ms:.5f} ms, "
+        f"call {b_call:.4f} ms (plain {b_plain:.4f})")
+    return out
+
+
+def _now() -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _stage_artifact_keys(name: str, keys, expected) -> None:
+    if set(keys) != set(expected):
+        raise AssertionError(f"{name}: keys {sorted(set(keys) ^ set(expected))} differ from the JAX layout's")
+
+
+def sbc_phase(dev, tag: str, model: str):
+    """Phase 11a (``model="pop"``) and 11b (``"pop_cosmo"``): ``_stage_sbc``
+    at ``SBCConfig``'s defaults but for the fit's depth (``SBC_WARMUP`` warmup
+    steps, ``SBC_SAMPLES`` draws, ``max_depth`` ``SBC_DEPTH``) and, for the
+    joint model, a campaign of ``SBC_COSMO_CAMPAIGN`` draws (the default
+    200,000 detect some 120 injections at SNR 20, fewer than the 2,048 the
+    fresh-noise simulator draws its pool from: the stage raises there, as
+    the JAX package's does).  Every launch count is set to 0 just before the
+    stage and read just after, and read at the window edges: the 16 initial
+    candidates' potentials (kernel A's forward and, joint, B's per-chain
+    ``lse`` forward once each), then the fleet fit (one of each kernel each
+    way per batched value+grad, B through its per-chain layout, never the
+    shared one).  The artifact must carry the JAX layout's keys, every rank
+    lie in [0, n_bins), and (joint) the rate check give numbers.  On the
+    joint model the fleet potential of 3 simulations is held against the same
+    on the CPU at phase 4's limits.  Returns the stage's launch counts."""
+    import numpy as np
+    import torch
+
+    import bumpcosmology_torch.mock as mock
+    from bumpcosmology_torch.inference import calibration as cal
+    from bumpcosmology_torch.inference import fleet as fleet_mod
+    from bumpcosmology_torch.inference.likelihoods import take_fleet
+    from bumpcosmology_torch.inference.model import value_and_grad
+    from bumpcosmology_torch.pipeline import stages
+    from bumpcosmology_torch.pipeline.config import PathsConfig, PipelineConfig, SBCConfig
+
+    joint = model == "pop_cosmo"
+    phase = "11b" if joint else "11a"
+    sbc = SBCConfig(model=model, num_warmup=SBC_WARMUP, num_samples=SBC_SAMPLES, max_depth=SBC_DEPTH)
+    if joint:
+        sbc.campaign_ndraw = SBC_COSMO_CAMPAIGN
+    log(f"{tag} phase {phase} cut: num_warmup {sbc.num_warmup} (default 200), num_samples {sbc.num_samples} "
+        f"(default 256), max_depth {sbc.max_depth} (default 8)"
+        + (f"; campaign_ndraw {sbc.campaign_ndraw} (default 200,000: too few detections for the fresh-noise pool)"
+           if joint else ""))
+    marks, seen, counts = {}, {}, {"value_grad": 0}
+    real = dict(draw=mock.draw_injection_campaign, fleet=fleet_mod.fleet_fit, stack=cal.stack_fleet,
+                write=stages.write_sbc_artifact, mu=cal.selection_mu_samples)
+
+    def draw(*args, **kwargs):
+        out = real["draw"](*args, **kwargs)
+        marks["campaign"] = _now()
+        return out
+
+    def stack(datas):
+        marks["simulated"], seen["at_stack"] = _now(), _read_counters()
+        seen["datas_list"] = datas
+        return real["stack"](datas)
+
+    def fit(make_pot, datas, theta0, *args, **kwargs):
+        marks["init"], seen["at_fleet"] = _now(), _read_counters()
+
+        def counted_make_pot(d):
+            pot = make_pot(d)
+
+            def counted(theta):
+                counts["value_grad"] += 1  # the fleet makes value+grads only
+                return pot(theta)
+
+            return counted
+
+        res = real["fleet"](counted_make_pot, datas, theta0, *args, **kwargs)
+        marks["fleet"], seen["after_fleet"] = _now(), _read_counters()
+        seen.update(res=res, datas=datas, make_pot=make_pot)
+        return res
+
+    def mu(*args, **kwargs):
+        t = _now()
+        out = real["mu"](*args, **kwargs)
+        marks["mu_s"] = _now() - t
+        return out
+
+    def write(*args, **kwargs):
+        marks["write"] = _now()
+        bad = real["write"](*args, **kwargs)
+        marks["written"] = _now()
+        return bad
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sbc_") as tmp:
+        cfg = PipelineConfig(paths=PathsConfig(data_dir=tmp), sbc=sbc)
+        mock.draw_injection_campaign, fleet_mod.fleet_fit, cal.stack_fleet = draw, fit, stack
+        stages.write_sbc_artifact, cal.selection_mu_samples = write, mu
+        try:
+            _zero_counters()
+            t0 = time.perf_counter()
+            stages._stage_sbc(cfg, device=dev)
+            wall = _now() - t0
+            launches = _read_counters()
+        finally:
+            mock.draw_injection_campaign, fleet_mod.fleet_fit, cal.stack_fleet = real["draw"], real["fleet"], real[
+                "stack"]
+            stages.write_sbc_artifact, cal.selection_mu_samples = real["write"], real["mu"]
+        path = Path(tmp) / "sbc_ranks.npz"
+        with np.load(path) as d:
+            art = {k: d[k] for k in d.files}
+    res, datas = seen["res"], seen["datas"]
+    n_vg, s = counts["value_grad"], res.thetas.shape[0]
+
+    # the launches: the candidates' window, then the fleet's
+    init, fleet = _delta(seen["at_fleet"], seen["at_stack"]), _delta(seen["after_fleet"], seen["at_fleet"])
+    b = "logwts_lse_fwd_per_chain", "logwts_lse_bwd_per_chain"
+    others = lambda d, keep: [k for k, v in d.items() if v and k not in keep]  # noqa: E731
+    ok_init = init["bump_fwd"] == 16 and (init[b[0]] == 16 if joint else True)
+    ok_init &= not others(init, ("bump_fwd",) + ((b[0],) if joint else ()))
+    ok_fleet = fleet["bump_fwd"] == fleet["bump_bwd"] == n_vg > 0
+    if joint:
+        ok_fleet &= fleet[b[0]] == fleet[b[1]] == n_vg
+    ok_fleet &= not others(fleet, ("bump_fwd", "bump_bwd") + (b if joint else ()))
+    if not (ok_init and ok_fleet):
+        raise AssertionError(f"sbc {model}: launches not once per potential: candidates {init}, fleet {fleet} "
+                             f"({n_vg} batched value+grads)")
+
+    # the artifact
+    sites = [k[len("ranks/"):] for k in art if k.startswith("ranks/") and k != "ranks/n_bins"]
+    expected = ["attrs/model", "attrs/n_sims", "attrs/all_pass", "ranks/n_bins", "pvalues/site", "pvalues/p",
+                "pvalues/passed"] + [f"ranks/{k}" for k in sites] + [f"pvalues/attrs/{k}" for k in sites]
+    if joint:
+        expected += ["rate_check/ranks", "rate_check/attrs/p", "rate_check/attrs/passed", "rate_check/attrs/method"]
+    _stage_artifact_keys("sbc_ranks.npz", art, expected)
+    n_bins = int(art["ranks/n_bins"])
+    rank_lo, rank_hi = min(int(art[f"ranks/{k}"].min()) for k in sites), max(int(art[f"ranks/{k}"].max()) for k in sites)
+    if not (n_bins == SBC_SAMPLES // 4 + 1 and 0 <= rank_lo and rank_hi < n_bins and "R_unit" not in sites
+            and all(art[f"ranks/{k}"].shape == (SBC_SIMS,) for k in sites)):
+        raise AssertionError(f"sbc {model}: ranks in [{rank_lo}, {rank_hi}] with n_bins {n_bins}, sites {sites}")
+    if joint and not np.isfinite(art["rate_check/ranks"]).all():
+        raise AssertionError("sbc: the rate-reconstruction check gave no numbers")
+
+    # the fleet's potential at its last draws: ms per batched value+grad, profile, and (joint) card against CPU
+    pot = seen["make_pot"](datas)
+    theta = res.thetas[:, -1].contiguous()
+    vg_ms = cuda_ms(lambda: value_and_grad(pot, theta), reps=10)
+    extra = ""
+    if joint:
+        idx = torch.arange(FLEET_CPU_SIMS, device=dev)
+        sub = take_fleet(datas, idx)
+        u_k, g_k = value_and_grad(seen["make_pot"](sub), theta[:FLEET_CPU_SIMS])
+        u_c, g_c = value_and_grad(seen["make_pot"](sub.to("cpu")), theta[:FLEET_CPU_SIMS].cpu())
+        u_c, g_c = u_c.to(dev), g_c.to(dev)
+        du = float(((u_k - u_c).abs() / (1.0 + u_c.abs())).max())
+        dg = float(((g_k - g_c).abs() / (1.0 + g_c.abs())).max())
+        if du >= 2e-4 or dg >= 5e-3 or not bool(torch.isfinite(u_k).all()):
+            raise AssertionError(f"sbc fleet potential, card against CPU: |dU|/(1+|U|) {du:.3e}, "
+                                 f"|dgrad|/(1+|grad|) {dg:.3e}")
+        extra = f"; fleet potential of {FLEET_CPU_SIMS} simulations, card against CPU: |dU|/(1+|U|) {du:.3e}, " \
+                f"|dgrad|/(1+|grad|) {dg:.3e}"
+    n_rows = datas.events.a[0].numel() + datas.selection.a.shape[-1]
+    split = dict(campaign=marks["campaign"] - t0, simulation=marks["simulated"] - marks["campaign"],
+                 candidates=marks["init"] - marks["simulated"], fleet_warmup=res.warmup_s,
+                 fleet_sampling=res.sampling_s,
+                 ranks_pvalues_rate_check=marks["write"] - marks["fleet"], rate_check_mu=marks.get("mu_s", 0.0),
+                 write=marks["written"] - marks["write"])
+    pvals = {str(k): round(float(p), 3) for k, p in zip(art["pvalues/site"], art["pvalues/p"])}
+    fit_s = res.warmup_s + res.sampling_s
+    log(f"{tag} phase {phase} _stage_sbc(model={model!r}): {SBC_SIMS} simulations x {n_rows} rows a chain "
+        f"({datas.events.a.shape[1]} events x {datas.events.a.shape[2]} samples + {datas.selection.a.shape[-1]} "
+        f"injections), fleet width S = {s}, {SBC_WARMUP} warmup steps + {SBC_SAMPLES} draws at max_depth "
+        f"{SBC_DEPTH}: {wall:.2f} s wall (host clock, s: {json.dumps({k: round(v, 3) for k, v in split.items()})}); "
+        f"{n_vg} batched value+grads, {1e3 * fit_s / n_vg:.2f} ms each in the fleet, {vg_ms:.3f} ms alone at S = {s} "
+        f"(CUDA events, mean of 10); adapted step size median {float(res.eps.median()):.4g}, sampling mean accept "
+        f"{float(res.accept.mean()):.3f}{extra}")
+    log(f"{tag} phase {phase} ranks in [{rank_lo}, {rank_hi}] of n_bins {n_bins} over {len(sites)} sites; p-values "
+        f"(meaningless at this depth, not held) {json.dumps(pvals)}"
+        + (f"; rate check p {float(art['rate_check/attrs/p']):.3f} over {art['rate_check/ranks'].size} trials"
+           if joint else "")
+        + f"; launches: stage {launches}, candidates {init}, fleet {fleet}")
+    log(f"{tag} phase {phase} profile: " + device_busy_share(
+        lambda: [value_and_grad(pot, theta) for _ in range(3)], f"three fleet value+grads at S = {s}", n_vg=3))
+    return launches
+
+
+def score_check_phase(dev, tag: str):
+    """Phase 11c: ``_stage_score_check`` at ``ScoreCheckConfig``'s defaults
+    (a 6.5e6-draw campaign, nobs 16, nsamp 256, nsel 3,584, n_grid 128, n_z
+    256) but for the catalog count (``SCORE_CATALOGS`` of 200).  Launches: each
+    catalog's term gradients once each way for kernel A and B's shared-table
+    ``lse`` epilogue (one 2-row batch), each simulation kernel A's forward and
+    kernel C; the artifact must carry the JAX layout's keys and finite z.
+    Returns the stage's launch counts."""
+    import numpy as np
+
+    from bumpcosmology_torch.inference import calibration as cal
+    from bumpcosmology_torch.inference import score_check as sc
+    from bumpcosmology_torch.pipeline import stages
+    from bumpcosmology_torch.pipeline.config import PathsConfig, PipelineConfig, ScoreCheckConfig
+
+    score = ScoreCheckConfig(n_catalogs=SCORE_CATALOGS)
+    log(f"{tag} phase 11c cut: n_catalogs {score.n_catalogs} (default 200)")
+    sums = {"simulate": {}, "term_grads": {}}
+    secs = {"simulate": 0.0, "term_grads": 0.0}
+    real = dict(sim=cal.make_mock_pop_cosmo_simulator_fresh, grads=sc.joint_term_grads)
+
+    def timed(kind, fn):
+        def run(*args):
+            before, t = _read_counters(), _now()
+            out = fn(*args)
+            secs[kind] += _now() - t
+            for k, v in _delta(_read_counters(), before).items():
+                sums[kind].setdefault(k, []).append(v)
+            return out
+        return run
+
+    def make_sim(*args, **kwargs):
+        marks["campaign"] = _now()
+        return timed("simulate", real["sim"](*args, **kwargs))
+
+    marks = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_score_") as tmp:
+        cfg = PipelineConfig(paths=PathsConfig(data_dir=tmp), score=score)
+        cal.make_mock_pop_cosmo_simulator_fresh = make_sim
+        sc.joint_term_grads = lambda *a, **k: timed("term_grads", real["grads"](*a, **k))
+        try:
+            _zero_counters()
+            t0 = time.perf_counter()
+            stages._stage_score_check(cfg, device=dev)
+            wall = _now() - t0
+            launches = _read_counters()
+        finally:
+            cal.make_mock_pop_cosmo_simulator_fresh, sc.joint_term_grads = real["sim"], real["grads"]
+        with np.load(Path(tmp) / "score_check.npz") as d:
+            _stage_artifact_keys("score_check.npz", d.files, ["attrs/model", "attrs/n_catalogs", "attrs/z_bar",
+                                                              "attrs/all_pass", "site", "mean", "se", "z"])
+            z, sites = d["z"], [str(x) for x in d["site"]]
+    n = SCORE_CATALOGS
+    tg, sim = sums["term_grads"], sums["simulate"]
+    one_each = ("bump_fwd", "bump_bwd", "logwts_lse_fwd", "logwts_lse_bwd")
+    ok = (len(tg["bump_fwd"]) == n and all(tg[k] == [1] * n for k in one_each)
+          and not any(sum(v) for k, v in tg.items() if k not in one_each)
+          and len(sim["bump_fwd"]) == n and min(sim["bump_fwd"]) >= 1 and min(sim["snr_integral"]) >= 1
+          and not any(sum(v) for k, v in sim.items() if k.startswith("logwts")))
+    if not ok or z.shape != (3, len(sites)) or not np.isfinite(z).all():
+        raise AssertionError(f"score check: launches by catalog {tg}, simulation {sim}; z {z.shape}")
+    log(f"{tag} phase 11c _stage_score_check(model='pop_cosmo'): {n} catalogs of {score.nobs} events x "
+        f"{score.nsamp} samples + {score.nsel} injections, n_grid {score.n_grid}, n_z {score.n_z}: {wall:.2f} s "
+        f"wall (host clock, s: campaign {marks['campaign'] - t0:.3f}, simulations {secs['simulate']:.3f}, term "
+        f"gradients {secs['term_grads']:.3f} ({1e3 * secs['term_grads'] / n:.2f} ms a catalog: one forward and "
+        f"one backward of a 2-row batch)); max TOTAL |z| {float(np.abs(z[2]).max()):.2f} over {len(sites)} sites "
+        f"(not held at this count); launches {launches}, kernel C {sum(sim['snr_integral'])} in the simulations")
+    return launches
 
 
 if __name__ == "__main__":

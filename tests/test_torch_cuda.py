@@ -108,6 +108,43 @@ def test_logwts_lse_kernel_matches_plain(dev):
     _assert_cotangents_close(res[0][2:], res[1][2:])
 
 
+def test_logwts_per_chain_queries_match_plain_and_the_shared_table(dev):
+    """A query table per chain, (C, N, 4): three chains whose rows differ
+    (one all-dead event in chain 1 only) against the twin, both epilogues,
+    both ways; the shared table copied per chain gives the shared table's
+    forward values bit for bit."""
+    rng = np.random.default_rng(5)
+    c, nobs, nsamp, nsel = 3, 5, 64, 700
+    n = nobs * nsamp + nsel
+    tables, qry0 = _logwts_inputs(rng, dev, c, 1024, 256, n)
+    qry = torch.stack([_logwts_inputs(rng, dev, 1, 1024, 256, n)[1] for _ in range(c)])
+    qry[1, 2 * nsamp : 3 * nsamp, 0] = 1.0
+    copied = qry0.expand(c, -1, -1).contiguous()
+    assert torch.equal(cuda_logwts.logwts(*tables, qry0), cuda_logwts.logwts(*tables, copied))
+    assert all(torch.equal(a, b) for a, b in zip(cuda_logwts.logwts_lse(*tables, qry0, nobs, nsamp),
+                                                 cuda_logwts.logwts_lse(*tables, copied, nobs, nsamp)))
+    g = torch.as_tensor(rng.normal(size=(c, n)).astype(np.float32), device=dev)
+    g_ev = torch.as_tensor(rng.normal(size=(c, nobs)).astype(np.float32), device=dev)
+    g_sel = torch.as_tensor(rng.normal(size=c).astype(np.float32), device=dev)
+    res = []
+    for rows_fn, lse_fn in ((cuda_logwts.logwts, cuda_logwts.logwts_lse),
+                            (cuda_logwts.logwts_plain, cuda_logwts.logwts_lse_plain)):
+        leaves = [x.clone().requires_grad_(True) for x in tables]
+        out = rows_fn(*leaves, qry)
+        (out.nan_to_num(neginf=0.0) * g).sum().backward()
+        leaves_l = [x.clone().requires_grad_(True) for x in tables]
+        lse_ev, lse_sel = lse_fn(*leaves_l, qry, nobs, nsamp)
+        torch.autograd.backward([lse_ev, lse_sel], [g_ev, g_sel])
+        res.append((out.detach(), lse_ev.detach(), lse_sel.detach(), [x.grad for x in leaves],
+                    [x.grad for x in leaves_l]))
+    torch.cuda.synchronize()
+    assert bool(torch.isneginf(res[0][1][1, 2])) and bool(torch.isfinite(res[0][1][[0, 2]]).all())
+    for i in range(3):
+        torch.testing.assert_close(res[0][i], res[1][i], rtol=2e-5, atol=2e-5)
+    _assert_cotangents_close(res[0][3], res[1][3])
+    _assert_cotangents_close(res[0][4], res[1][4])
+
+
 def test_snr_kernel_matches_plain(dev):
     """Kernel C against its plain twin, exact zeros (f_cut below f_min) included."""
     rng = np.random.default_rng(2)

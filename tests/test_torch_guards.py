@@ -63,7 +63,8 @@ def test_no_port_file_names_the_jax_packages(pattern):
 
 @pytest.mark.parametrize("name", ["inference/sampler.py", "inference/chees.py", "inference/diagnostics.py",
                                   "utils/trace.py", "utils/io.py", "pipeline/config.py", "pipeline/stages.py",
-                                  "ops/logsumexp.py", "models/plpeak.py", "models/brokenpl.py"])
+                                  "ops/logsumexp.py", "models/plpeak.py", "models/brokenpl.py",
+                                  "inference/calibration.py", "inference/fleet.py", "inference/score_check.py"])
 def test_the_guards_cover_the_fit_modules(name):
     """The grep guard scans the fit's modules, and the import guard imports them."""
     assert PORT / name in list(PORT.rglob("*.py"))
@@ -187,6 +188,47 @@ def test_mock_entry_points_raise_without_cuda(no_cuda, entry):
     assert not (ROOT / "no-such-directory").exists()
 
 
+def _calibration_entry_points():
+    import numpy as np
+
+    from bumpcosmology_torch.inference import calibration as cal
+    from bumpcosmology_torch.inference.fleet import fleet_fit
+    from bumpcosmology_torch.inference.score_check import joint_term_grads
+    from bumpcosmology_torch.pipeline import stages
+    from bumpcosmology_torch.pipeline.config import PathsConfig, PipelineConfig
+
+    cfg = PipelineConfig(paths=PathsConfig(data_dir=str(ROOT / "no-such-directory")))
+    one = np.ones(4)
+    table = {k: one for k in ("m1", "q", "z", "pdraw_mqz", "SNR", "log_mc_obs", "sigma_log_mc", "q_obs", "sigma_q",
+                              "log_dl_obs", "sigma_log_dl")}
+    return {
+        "stage_sbc": lambda: stages._stage_sbc(cfg),
+        "stage_score_check": lambda: stages._stage_score_check(cfg),
+        "fleet_fit": lambda: fleet_fit(lambda d: (lambda th: (th * th).sum(-1)), torch.zeros(2), torch.zeros(2, 3)),
+        "run_sbc": lambda: cal.run_sbc(lambda d: None, lambda rng, s: None, 1),
+        "run_sbc_fleet": lambda: cal.run_sbc_fleet(None, None, None, 1),
+        "make_mock_pop_simulator": lambda: cal.make_mock_pop_simulator(table, 10),
+        "make_mock_pop_cosmo_simulator": lambda: cal.make_mock_pop_cosmo_simulator(table, 10),
+        "make_mock_pop_cosmo_simulator_fresh": lambda: cal.make_mock_pop_cosmo_simulator_fresh(table),
+        "selection_mu_samples": lambda: cal.selection_mu_samples(table, "bump", 4),
+        "joint_term_grads": lambda: joint_term_grads({"h": 0.7}, ("h",), 2),
+        **{name: (lambda name=name: getattr(cal, name)()) for name in (
+            "make_pop_sbc_spec_builder", "make_pop_cosmo_sbc_spec_builder", "make_plpeak_cosmo_sbc_spec_builder",
+            "make_brokenpl_cosmo_sbc_spec_builder")},
+    }
+
+
+@pytest.mark.parametrize("entry", ["stage_sbc", "stage_score_check", "fleet_fit", "run_sbc", "run_sbc_fleet",
+                                   "make_mock_pop_simulator", "make_mock_pop_cosmo_simulator",
+                                   "make_mock_pop_cosmo_simulator_fresh", "selection_mu_samples", "joint_term_grads",
+                                   "make_pop_sbc_spec_builder", "make_pop_cosmo_sbc_spec_builder",
+                                   "make_plpeak_cosmo_sbc_spec_builder", "make_brokenpl_cosmo_sbc_spec_builder"])
+def test_calibration_entry_points_raise_without_cuda(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _calibration_entry_points()[entry]()
+    assert not (ROOT / "no-such-directory").exists()
+
+
 class _OnCuda:
     """A CPU tensor that reports a CUDA device: what a kernel wrapper sees of
     a tensor on the card, on a host that has none."""
@@ -248,6 +290,24 @@ def test_logwts_lse_never_takes_the_plain_twin_for_a_cuda_tensor(plain_twin_call
     with pytest.raises(Exception) as err:
         logwts_lse(*(_OnCuda(t) for t in args), nobs, nsamp)
     assert not isinstance(err.value, ValueError), err.value
+    assert not plain_twin_calls and LAUNCHES == before
+
+
+@pytest.mark.parametrize("chains", [2, 3])
+def test_logwts_lse_takes_a_query_table_per_chain_on_cuda(plain_twin_calls, chains):
+    """A (C, N, 4) table with one table a chain goes on to the launch; one
+    whose chain count is not the tables' raises ``ValueError`` naming it."""
+    from bumpcosmology_torch.ops.cuda_logwts import LAUNCHES, logwts_lse
+
+    args, nobs, nsamp = _lse_args(c=2)
+    args[3] = args[3].expand(chains, -1, -1).contiguous()
+    before = dict(LAUNCHES)
+    with pytest.raises(Exception) as err:
+        logwts_lse(*(_OnCuda(t) for t in args), nobs, nsamp)
+    if chains == 2:
+        assert not isinstance(err.value, ValueError), err.value
+    else:
+        assert isinstance(err.value, ValueError) and "qry" in str(err.value)
     assert not plain_twin_calls and LAUNCHES == before
 
 

@@ -402,3 +402,74 @@ def test_plain_twin_cotangents_match_fused_on_rough_tables(epilogue):
         r = np.asarray(r)
         assert np.isfinite(r).all(), name
         np.testing.assert_allclose(leaf.grad[0].numpy(), r, rtol=5e-4, atol=5e-4 * np.abs(r).max(), err_msg=name)
+
+
+# ---- query tables per chain, (C, N, 4): the SBC fleet's layout ----
+
+
+def _three_chain_tables():
+    """Rough tables of three different chains (C = 3) and three different
+    query sets of one length, as numpy."""
+    parts = [_rough_inputs(30 + c, 600) for c in range(3)]
+    tables = [torch.stack([torch.as_tensor(p[i]) for p in parts]) for i in range(3)]
+    return tables, [_qry(*p[3]) for p in parts]
+
+
+def _both_epilogues(tables, qry, nobs, nsamp, seed):
+    """(rows, lse_ev, lse_sel, rows cotangents, lse cotangents) of the plain
+    twin on ``qry``, from fixed random cotangents."""
+    c, n = tables[0].shape[0], qry.shape[-2]
+    rng = np.random.default_rng(seed)
+    g = torch.as_tensor(rng.normal(size=(c, n)).astype(np.float32))
+    g_ev = torch.as_tensor(rng.normal(size=(c, nobs)).astype(np.float32))
+    g_sel = torch.as_tensor(rng.normal(size=c).astype(np.float32))
+    leaves = [x.clone().requires_grad_(True) for x in tables]
+    out = logwts(*leaves, qry)
+    (out.nan_to_num(neginf=0.0) * g).sum().backward()
+    leaves_l = [x.clone().requires_grad_(True) for x in tables]
+    lse_ev, lse_sel = logwts_lse(*leaves_l, qry, nobs, nsamp)
+    torch.autograd.backward([lse_ev, lse_sel], [g_ev, g_sel])
+    return out.detach(), lse_ev.detach(), lse_sel.detach(), [x.grad for x in leaves], [x.grad for x in leaves_l]
+
+
+def test_per_chain_copies_of_one_table_give_the_shared_tables_results():
+    """A (C, N, 4) table whose chains hold copies of one (N, 4) table gives
+    the shared table's values, log-sum-exps and cotangents, bit for bit."""
+    tables, qrys = _three_chain_tables()
+    copied = qrys[0].expand(3, -1, -1).contiguous()
+    shared = _both_epilogues(tables, qrys[0], 4, 100, seed=7)
+    per_chain = _both_epilogues(tables, copied, 4, 100, seed=7)
+    assert bool(torch.isneginf(shared[0]).any())
+    for a, b in zip(shared[:3], per_chain[:3]):
+        assert torch.equal(a, b)
+    for a3, b3 in zip(shared[3:], per_chain[3:]):
+        for a, b in zip(a3, b3):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("epilogue", ["rows", "lse"])
+def test_per_chain_tables_equal_separate_single_chain_calls(epilogue):
+    """Three chains reading three different tables: each chain's values and
+    its table and scalar cotangents are those of a one-chain call on its own
+    table (a row landing in another chain's accumulators would show here)."""
+    tables, qrys = _three_chain_tables()
+    nobs, nsamp = 4, 100
+    together = _both_epilogues(tables, torch.stack(qrys), nobs, nsamp, seed=8)
+    rng = np.random.default_rng(8)
+    g = rng.normal(size=(3, 600)).astype(np.float32)
+    g_ev, g_sel = rng.normal(size=(3, nobs)).astype(np.float32), rng.normal(size=3).astype(np.float32)
+    for c in range(3):
+        one = [x[c : c + 1].clone().requires_grad_(True) for x in tables]
+        if epilogue == "rows":
+            out = logwts(*one, qrys[c])
+            (out.nan_to_num(neginf=0.0) * torch.as_tensor(g[c : c + 1])).sum().backward()
+            assert torch.equal(out.detach()[0], together[0][c])
+            grads = together[3]
+        else:
+            lse_ev, lse_sel = logwts_lse(*one, qrys[c], nobs, nsamp)
+            torch.autograd.backward([lse_ev, lse_sel], [torch.as_tensor(g_ev[c : c + 1]), torch.as_tensor(g_sel[c : c + 1])])
+            assert torch.equal(lse_ev.detach()[0], together[1][c]) and torch.equal(lse_sel.detach()[0], together[2][c])
+            grads = together[4]
+        for leaf, got in zip(one, grads):
+            torch.testing.assert_close(got[c], leaf.grad[0], rtol=1e-6, atol=1e-6 * float(leaf.grad.abs().max()))
+    assert not torch.equal(together[0][0], together[0][1])
