@@ -1,9 +1,10 @@
 """Run configuration (L6); a copy of the JAX package's ``pipeline/config.py``
-for the stages the port has: :class:`PathsConfig`, :class:`IngestConfig`,
-:class:`FitConfig`, :class:`MockConfig`, :class:`SBCConfig` and
-:class:`ScoreCheckConfig` with the same fields and defaults, held by a
-:class:`PipelineConfig` that loads a JSON file and ``section.key=value``
-overrides.  The LOO, compare and PPC sections come with their stages.
+with every section of the JAX package's: :class:`PathsConfig`,
+:class:`IngestConfig`, :class:`FitConfig`, :class:`MockConfig`,
+:class:`SBCConfig`, :class:`ScoreCheckConfig`, :class:`LooConfig`,
+:class:`CompareConfig` and :class:`PpcConfig` with the same fields and
+defaults, held by a :class:`PipelineConfig` that loads a JSON file and
+``section.key=value`` overrides.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 __all__ = ["PathsConfig", "IngestConfig", "FitConfig", "MockConfig", "SBCConfig", "ScoreCheckConfig",
-           "PipelineConfig"]
+           "LooConfig", "CompareConfig", "PpcConfig", "PipelineConfig"]
 
 
 @dataclass
@@ -147,6 +148,37 @@ class ScoreCheckConfig:
 
 
 @dataclass
+class LooConfig:
+    """Leave-one-out event-influence fleet (``pipeline loo``)."""
+
+    model: str = "pop_cosmo"  # which fit to diagnose ("pop" or "pop_cosmo")
+    num_warmup: int = 400
+    num_samples: int = 256
+    fleet_chunk: int = 5
+    max_depth: int = 8
+    seed: int = 515151
+
+
+@dataclass
+class CompareConfig:
+    """Predictive model comparison (``pipeline compare``): PSIS-LOO + WAIC
+    of pop vs pop_cosmo on their saved traces."""
+
+    max_draws: int = 1024  # posterior draws retained for the pointwise matrix
+    batch: int = 64  # likelihood evaluations per device batch (the chain axis)
+
+
+@dataclass
+class PpcConfig:
+    """Posterior predictive checks (``pipeline ppc``): observed catalog vs
+    injection-reweighted predicted detections, per observable, per trace."""
+
+    n_draws: int = 256  # posterior draws used for the check
+    batch: int = 32  # log-weight evaluations per device batch (the chain axis)
+    seed: int = 271828
+
+
+@dataclass
 class PipelineConfig:
     paths: PathsConfig = field(default_factory=PathsConfig)
     ingest: IngestConfig = field(default_factory=IngestConfig)
@@ -154,6 +186,9 @@ class PipelineConfig:
     mock: MockConfig = field(default_factory=MockConfig)
     sbc: SBCConfig = field(default_factory=SBCConfig)
     score: ScoreCheckConfig = field(default_factory=ScoreCheckConfig)
+    loo: LooConfig = field(default_factory=LooConfig)
+    compare: CompareConfig = field(default_factory=CompareConfig)
+    ppc: PpcConfig = field(default_factory=PpcConfig)
 
     @classmethod
     def load(cls, json_path: Optional[str] = None, overrides: Optional[list] = None):

@@ -13,8 +13,15 @@ artifacts are the JAX package's names with ``.npz`` (``mock_injections.npz``,
 ``selection-samples.npz``, the family's trace) under the data directory.
 The calibration stages, :func:`_stage_sbc` and :func:`_stage_score_check`,
 draw their own campaigns and write ``sbc_ranks.npz`` and ``score_check.npz``.
+The model-comparison stages read the fit inputs and the saved traces:
+:func:`_stage_loo` (the leave-one-out fleet → ``influence.npz``),
+:func:`_stage_compare` (PSIS-LOO, WAIC and bridge-sampling evidence →
+``model_compare.npz``), :func:`_stage_ppc` (→ ``ppc.npz``) and
+:func:`_stage_prior_sens` (→ ``prior_sensitivity.npz``).  Their artifacts
+key the arrays by the JAX package's HDF5 paths, with attributes under
+``attrs/<name>`` and ``<group>/attrs/<name>``.
 Every stage runs on ``device`` (``None`` means CUDA; it raises without it).
-The DAG, the data and comparison stages are not ported yet.
+The DAG and the data stages are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from bumpcosmology_torch.pipeline.config import PipelineConfig
 from bumpcosmology_torch.utils.io import read_table, write_table
 
 __all__ = ["group_events", "pop_data_from_tables", "pop_cosmo_data_from_tables", "run_pop_fit",
-           "run_pop_cosmo_fit", "mass_family", "write_sbc_artifact"]
+           "run_pop_cosmo_fit", "mass_family", "write_sbc_artifact", "write_influence_artifact"]
 
 
 def group_events(table, cols=("m1", "q", "z", "wt")):
@@ -488,3 +495,313 @@ def _stage_score_check(cfg: PipelineConfig, device=None):
             "[score_check] WARNING: nonzero expected score — the simulator and "
             "the fitted likelihood disagree; see the per-term table above"
         )
+
+
+# ----------------------------------------------------------- model comparison
+
+
+def _fit_inputs(cfg: PipelineConfig):
+    """The fit inputs ``pe-samples.npz`` and ``selection-samples.npz``, and the sorted event labels."""
+    pe = read_table(cfg.paths.path("pe-samples.npz"))
+    sel = read_table(cfg.paths.path("selection-samples.npz"))
+    return pe, sel, group_events(pe, cols=())[0]
+
+
+def _stage_loo(cfg: PipelineConfig, device=None):
+    """Leave-one-out event-influence diagnostics → ``influence.npz``
+    (``_stage_loo``, the JAX package's ``stages.py:671-754``).
+
+    Refits the catalog nobs times, each with one event removed, as one
+    lockstep fleet (:mod:`~bumpcosmology_torch.inference.influence`; on the
+    joint model kernel B reads a query table per catalog), and scores each
+    event's influence on every scalar site against the full-catalog trace
+    in posterior-sd units.  Runs on ``device`` (``None`` means CUDA; it
+    raises without it).
+    """
+    from bumpcosmology_torch.device import resolve_device
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.influence import influence_summary, loo_fit
+    from bumpcosmology_torch.inference.nuts import NutsConfig
+    from bumpcosmology_torch.utils.trace import load_trace
+
+    dev = resolve_device(device)
+    c = cfg.loo
+    n_grid, n_z = cfg.fit.n_grid, cfg.fit.n_z
+    pe, sel, names = _fit_inputs(cfg)
+    if c.model == "pop_cosmo":
+        data = pop_cosmo_data_from_tables(pe, sel, dev)
+        spec = lk.pop_cosmo_model_spec(data, n_grid=n_grid, n_z=n_z, device=dev)
+        bounds = lk.dl_bounds_of(data, margin=0.1)
+        loglike = lambda s, d: lk.pop_cosmo_loglike(s, d, n_grid, n_z, bounds)  # noqa: E731
+        trace_path = cfg.paths.path("trace_cosmo.npz")
+    else:
+        data = pop_data_from_tables(pe, sel, dev)
+        spec = lk.pop_model_spec(data, n_grid=n_grid, device=dev)
+        loglike = lambda s, d: lk.pop_loglike(s, d, n_grid)  # noqa: E731
+        trace_path = cfg.paths.path("trace.npz")
+
+    loo = loo_fit(spec, loglike, data, c.seed, num_warmup=c.num_warmup, num_samples=c.num_samples,
+                  cfg=NutsConfig(max_depth=c.max_depth), chunk_size=c.fleet_chunk, device=dev)
+    full = load_trace(trace_path).posterior
+    infl = influence_summary(loo, full)
+    out = cfg.paths.path("influence.npz")
+    write_influence_artifact(out, c.model, names, infl)
+    worst = max(
+        ((site, i, float(v["z"][i])) for site, v in infl.items() for i in range(len(v["z"]))),
+        key=lambda t: abs(t[2]),
+        default=None,
+    )
+    if worst is not None:
+        print(
+            f"[loo] most influential: event {names[worst[1]]} on site {worst[0]} "
+            f"(z = {worst[2]:+.2f} posterior sds); artifact {out}"
+        )
+
+
+def _stage_compare(cfg: PipelineConfig, device=None):
+    """Predictive model comparison → ``model_compare.npz`` (``_stage_compare``,
+    the JAX package's ``stages.py:757-911``): PSIS-LOO and WAIC over the
+    per-event likelihood decomposition of the pop and pop_cosmo traces on
+    the same catalog, and of every other family's traces that exist, then
+    bridge-sampling marginal likelihoods → log10 Bayes factors.  The
+    pointwise matrices and the evidence's potentials run ``compare.batch``
+    draws at a time on ``device`` (``None`` means CUDA; it raises without
+    it); the joint bump's through kernel A and kernel B's ``lse`` epilogue,
+    forward only.  Returns the ranking table.
+    """
+    from bumpcosmology_torch.device import resolve_device
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.evidence import bayes_factor_table, log_evidence_bridge
+    from bumpcosmology_torch.inference.model_compare import (
+        compare,
+        pointwise_matrix,
+        pop_cosmo_pointwise_loglike,
+        pop_pointwise_loglike,
+        psis_loo,
+        waic,
+    )
+    from bumpcosmology_torch.utils.trace import load_trace
+
+    dev = resolve_device(device)
+    c = cfg.compare
+    n_grid, n_z = cfg.fit.n_grid, cfg.fit.n_z
+    pe, sel, names = _fit_inputs(cfg)
+    pop_data = pop_data_from_tables(pe, sel, dev)
+    rows = lk.pop_rows(pop_data)
+    cosmo_data = pop_cosmo_data_from_tables(pe, sel, dev)
+    bounds = lk.dl_bounds_of(cosmo_data, margin=0.1)
+    qry = lk.query_table(cosmo_data)
+
+    def matrix(fn, post, priors):
+        return pointwise_matrix(fn, post, list(priors), max_draws=c.max_draws, batch=c.batch, device=dev)
+
+    # pop (source frame, fixed Planck18) and pop_cosmo (detector frame)
+    posts = {"pop": load_trace(cfg.paths.path("trace.npz")).posterior,
+             "pop_cosmo": load_trace(cfg.paths.path("trace_cosmo.npz")).posterior}
+    specs = {"pop": lk.pop_model_spec(pop_data, n_grid=n_grid, device=dev),
+             "pop_cosmo": lk.pop_cosmo_model_spec(cosmo_data, n_grid=n_grid, n_z=n_z, device=dev)}
+    matrices = {
+        "pop": matrix(lambda s: pop_pointwise_loglike(s, pop_data, n_grid, rows=rows), posts["pop"],
+                      specs["pop"].priors),
+        "pop_cosmo": matrix(lambda s: pop_cosmo_pointwise_loglike(s, cosmo_data, n_grid, n_z, bounds, qry=qry),
+                            posts["pop_cosmo"], specs["pop_cosmo"].priors),
+    }
+
+    # the other families' traces on the same catalog, when present, so the
+    # bump is ranked against the phenomenological fiducials head to head
+    for famname, fam in lk.MASS_FAMILIES.items():
+        if famname == "bump":
+            continue
+        candidates = (
+            (f"pop_{famname}", fam.trace_name,
+             lambda s, b=fam.build: pop_pointwise_loglike(s, pop_data, n_grid, build=b, rows=rows),
+             fam.pop_priors, lambda fam=fam: fam.pop_spec(pop_data, n_grid=n_grid, device=dev)),
+            (f"pop_cosmo_{famname}", fam.cosmo_trace_name,
+             lambda s, b=fam.build: pop_cosmo_pointwise_loglike(s, cosmo_data, n_grid, n_z, bounds, build=b,
+                                                                qry=qry),
+             fam.cosmo_priors, lambda fam=fam: fam.cosmo_spec(cosmo_data, n_grid=n_grid, n_z=n_z, device=dev)),
+        )
+        for name, fname, fn, priors, make_spec in candidates:
+            path = cfg.paths.path(fname)
+            if path.exists():
+                posts[name] = load_trace(path).posterior
+                matrices[name] = matrix(fn, posts[name], priors)
+                specs[name] = make_spec()
+
+    loos = {k: psis_loo(v) for k, v in matrices.items()}
+    waics = {k: waic(v) for k, v in matrices.items()}
+    table = compare(loos)
+    print("[compare]\n" + table)
+    for name, r in loos.items():
+        bad = [(names[i], float(r.khat[i])) for i in np.nonzero(r.khat > 0.7)[0]]
+        if bad:
+            print(f"[compare] {name}: Pareto k̂ > 0.7 (PSIS unreliable) for {bad}")
+
+    # the event marginals are frame-invariant (pdraw carries the Jacobian), so
+    # log Z is comparable across the source-frame and detector-frame models
+    evidences = {}
+    for name, spec in specs.items():
+        try:
+            evidences[name] = log_evidence_bridge(spec, posts[name], max_draws=c.max_draws, batch=c.batch)
+        except (FloatingPointError, ValueError, np.linalg.LinAlgError) as exc:
+            # as the JAX stage: a failed evidence is reported, after LOO/WAIC
+            # have run, and the stage goes on (the proposal's Cholesky is
+            # numpy's here too, hence numpy's LinAlgError)
+            print(f"[compare] evidence for {name} failed: {exc}")
+    bf_table = bayes_factor_table(evidences) if evidences else ""
+    if bf_table:
+        print("[compare] marginal likelihoods (bridge sampling)\n" + bf_table)
+
+    arrays = {"attrs/table": np.asarray(table), "attrs/bf_table": np.asarray(bf_table),
+              "attrs/best_model": np.asarray(max(loos, key=lambda k: loos[k].elpd)),
+              "event": np.array([str(n) for n in names], dtype=str)}
+    for name in matrices:
+        r, w = loos[name], waics[name]
+        arrays.update({f"{name}/elpd_i": r.elpd_i, f"{name}/khat": r.khat, f"{name}/pointwise": matrices[name]})
+        attrs = dict(elpd=r.elpd, se=r.se, p_loo=r.p_loo, waic_elpd=w.elpd, waic_se=w.se, p_waic=w.p_waic,
+                     n_draws=matrices[name].shape[0])
+        if name in evidences:
+            e = evidences[name]
+            attrs.update(log_z=e.log_z, log_z_se=e.se)
+            arrays[f"{name}/log_z_blocks"] = e.log_z_blocks
+        arrays.update({f"{name}/attrs/{k}": np.asarray(v) for k, v in attrs.items()})
+    np.savez(cfg.paths.path("model_compare.npz"), **arrays)
+    return table
+
+
+def _stage_ppc(cfg: PipelineConfig, device=None):
+    """Posterior predictive checks of every saved trace → ``ppc.npz``
+    (``_stage_ppc``, the JAX package's ``stages.py:914-1013``): a
+    per-observable posterior-predictive p-value (KS against the weighted
+    predicted CDF, calibrated by replication; :mod:`~bumpcosmology_torch.inference.ppc`)
+    for pop, pop_cosmo and their other-family variants.  The weights run
+    ``ppc.batch`` draws at a time on ``device`` (``None`` means CUDA; it
+    raises without it): the joint bump's through kernel B's ``rows``
+    epilogue on the data's own dL range.  Returns the artifact's path.
+    """
+    from bumpcosmology_torch.device import resolve_device
+    from bumpcosmology_torch.inference.likelihoods import MASS_FAMILIES
+    from bumpcosmology_torch.inference.ppc import posterior_predictive_check
+    from bumpcosmology_torch.utils.trace import load_trace
+
+    dev = resolve_device(device)
+    c = cfg.ppc
+    pe, sel, _ = _fit_inputs(cfg)
+    pop_data = pop_data_from_tables(pe, sel, dev)
+    cosmo_data = pop_cosmo_data_from_tables(pe, sel, dev)
+
+    candidates = []
+    for famname, fam in MASS_FAMILIES.items():
+        suffix = "" if famname == "bump" else f"_{famname}"
+        candidates.append((f"pop{suffix}", fam.trace_name, pop_data, fam.build, fam.pop_priors))
+        candidates.append((f"pop_cosmo{suffix}", fam.cosmo_trace_name, cosmo_data, fam.build, fam.cosmo_priors))
+    arrays = {"attrs/n_draws": np.asarray(c.n_draws)}
+    n_done = 0
+    for name, fname, data, build, priors in candidates:
+        path = cfg.paths.path(fname)
+        if not path.exists():
+            continue
+        post = load_trace(path).posterior
+        res = posterior_predictive_check(
+            post, list(priors), data, build=build, n_grid=cfg.fit.n_grid, n_z=cfg.fit.n_z,
+            n_draws=c.n_draws, seed=c.seed, batch=c.batch, model="pop_cosmo" if "cosmo" in name else "pop",
+            device=dev,
+        )
+        arrays[f"{name}/attrs/n_draws"] = np.asarray(res.n_draws)
+        msg = []
+        for col in res.p_values:
+            g = f"{name}/{col}/"
+            arrays.update({g + "attrs/p_value": np.asarray(res.p_values[col]),
+                           g + "attrs/label": np.asarray(res.labels[col]), g + "grid": res.grid[col],
+                           g + "pred_cdf_q": res.pred_cdf_q[col], g + "obs_cdf_q": res.obs_cdf_q[col],
+                           g + "ks_obs": res.ks_obs[col], g + "ks_rep": res.ks_rep[col]})
+            msg.append(f"{res.labels[col]}: p = {res.p_values[col]:.3f}")
+            if res.p_values[col] < 0.01:
+                print(
+                    f"[ppc] WARNING {name}/{res.labels[col]}: p = "
+                    f"{res.p_values[col]:.4f} — the fit does not reproduce "
+                    "the observed distribution of this observable"
+                )
+        print(f"[ppc] {name}: " + "; ".join(msg))
+        n_done += 1
+    if n_done == 0:
+        raise FileNotFoundError("ppc: no trace found (run `pipeline sample` / `sample_cosmo` first)")
+    out = cfg.paths.path("ppc.npz")
+    np.savez(out, **arrays)
+    return out
+
+
+def _stage_prior_sens(cfg: PipelineConfig, device=None):
+    """Prior-sensitivity battery on the saved traces → ``prior_sensitivity.npz``
+    (``_stage_prior_sens``, the JAX package's ``stages.py:1016-1095``):
+    each site's prior rescaled (x0.5, x2) and the trace importance-reweighted
+    (:mod:`~bumpcosmology_torch.inference.prior_sens`); the artifact records
+    the posterior-mean shift (in posterior sds) and sd ratio of every site
+    under every perturbation, and the reweighting's ESS fraction.  Host
+    numpy; ``device`` is resolved so that the stage, like the others, needs
+    the card unless the caller names the CPU.  Returns the artifact's path.
+    """
+    from bumpcosmology_torch.device import resolve_device
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.prior_sens import prior_sensitivity_suite
+    from bumpcosmology_torch.utils.trace import load_trace
+
+    resolve_device(device)
+    # the bump and PLPeak traces only, not BrokenPL's, as the JAX stage visits them
+    candidates = (
+        ("pop", lk.MASS_FAMILIES["bump"].trace_name, lk.POP_PRIORS),
+        ("pop_cosmo", lk.MASS_FAMILIES["bump"].cosmo_trace_name, lk.POP_COSMO_PRIORS),
+        ("pop_plpeak", lk.MASS_FAMILIES["plpeak"].trace_name, lk.PLPEAK_PRIORS),
+        ("pop_cosmo_plpeak", lk.MASS_FAMILIES["plpeak"].cosmo_trace_name, lk.PLPEAK_COSMO_PRIORS),
+    )
+    arrays = {}
+    n_done = 0
+    for name, fname, priors in candidates:
+        path = cfg.paths.path(fname)
+        if not path.exists():
+            continue
+        post = load_trace(path).posterior
+        results = prior_sensitivity_suite(post, priors)
+        if not results:
+            continue
+        site_names = [s for s in priors if s in post]
+        arrays.update({
+            f"{name}/perturbation": np.array([r.name for r in results], dtype=str),
+            f"{name}/site": np.array(site_names, dtype=str),
+            f"{name}/shift_sd": np.array([[r.shift_sd[s] for s in site_names] for r in results]),
+            f"{name}/sd_ratio": np.array([[r.sd_ratio[s] for s in site_names] for r in results]),
+            f"{name}/ess_frac": np.array([r.ess_frac for r in results]),
+        })
+        worst = max(
+            ((r.name, s, r.shift_sd[s]) for r in results for s in site_names if r.ess_frac > 0.05),
+            key=lambda t: abs(t[2]), default=None,
+        )
+        if worst is not None:
+            print(
+                f"[prior-sens] {name}: largest reliable shift {worst[2]:+.2f} "
+                f"posterior sds on '{worst[1]}' under {worst[0]}"
+            )
+        for r in results:
+            if r.ess_frac < 0.05:
+                print(
+                    f"[prior-sens] {name}: {r.name} reweighting ESS fraction "
+                    f"{r.ess_frac:.3f} < 0.05 — shift unreliable, refit to confirm"
+                )
+        n_done += 1
+    if n_done == 0:
+        raise FileNotFoundError("prior_sens: no trace found (run `pipeline sample` / `sample_cosmo` first)")
+    out = cfg.paths.path("prior_sensitivity.npz")
+    np.savez(out, **arrays)
+    return out
+
+
+def write_influence_artifact(out, model: str, names, infl: dict) -> None:
+    """Persist the per-event influence summary (sites × events) as ``.npz``
+    (``write_influence_artifact``, the JAX package's ``stages.py:1098-1108``):
+    ``attrs/model``, ``event`` and ``<site>/mean_loo``, ``<site>/delta_mean``,
+    ``<site>/z``."""
+    arrays = {"attrs/model": np.asarray(model), "event": np.array([str(n) for n in names], dtype=str)}
+    for site, v in infl.items():
+        for k in ("mean_loo", "delta_mean", "z"):
+            arrays[f"{site}/{k}"] = np.asarray(v[k])
+    np.savez(out, **arrays)

@@ -12,8 +12,8 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
 (phase 5) and fitted from prior draws to a trace (phase 7) — and the paths
 beside it: the mock stages (phase 6), the population-only fit (phase 8), the
 ChEES samplers (phase 9), the other two mass families in both fits (phase
-10) and the calibration suite (phase 11); and it holds every CUDA kernel
-against its plain PyTorch twin:
+10), the calibration suite (phase 11) and model comparison (phase 12); and
+it holds every CUDA kernel against its plain PyTorch twin:
 
 1. build every kernel from ``bumpcosmology_torch/csrc`` (one nvcc per source),
    and time the card's launch floor: an empty kernel through the same ctypes
@@ -33,7 +33,10 @@ against its plain PyTorch twin:
    Then B's query table per chain: the shared table copied once per chain
    (16 x 38,912 x 4) must give bit-identical forward values, and it and 20
    distinct per-chain tables of 2,816 rows (the SBC fleet's shape) are held
-   against the twin at the same limits, both epilogues, both ways;
+   against the twin at the same limits, both epilogues, both ways; and so
+   are phase 12's shapes: the shared table at C = 64 (compare's batch) and
+   the leave-one-out fleet's 56 per-chain tables of 38,656 rows (the
+   flagship without one event each, 34.6 MB);
 4. the 16-chain potential value+grad (through the ``lse`` epilogue), kernels
    against twins: |dU|/(1+|U|) < 2e-4 and |dgrad|/(1+|grad|) < 5e-3, timed with
    CUDA events;
@@ -111,11 +114,28 @@ against its plain PyTorch twin:
    each stage and read after it, and at the edges of its windows: one launch
    of each kernel each way per batched value+grad (per catalog in (c)).  The
    artifacts must carry the JAX layout's keys, every rank lie in [0,
-   n_bins), the rate check give numbers; the p-values are printed, not held.
+   n_bins), the rate check give numbers; the p-values are printed, not held;
+12. model comparison through its stages on the traces that phases 7, 8 and
+   10b wrote beside the flagship's fit inputs (16 chains x 10 draws each),
+   every launch count set to 0 before each stage and read after it: (a)
+   ``_stage_compare`` at ``CompareConfig``'s defaults (batches of 64 draws:
+   kernel A's forward and B's ``lse`` forward once a joint batch of the
+   pointwise matrix and of the evidence, no backward), each pointwise row
+   summing to the model's log-likelihood within 2e-4, the joint matrix card
+   against CPU within 2e-4; (b) ``_stage_ppc`` at ``PpcConfig``'s defaults
+   (B's ``rows`` forward once a joint batch of 32), on the first batch B
+   against its twin at its value limits and the weights card against CPU
+   within 2e-4, every p-value in [0, 1]; (c) ``_stage_prior_sens``
+   (host only: no launch, the JAX layout's keys); (d) ``_stage_loo`` on the
+   joint model cut as phase 11 cuts (30 warmup steps, 32 draws, ``max_depth``
+   5): 56 chains through B's per-chain tables, one launch of each kernel each
+   way per batched value+grad, the fleet potential of 3 catalogs card
+   against CPU at phase 4's limits, every influence z finite.  elpd, p_loo,
+   k̂, log Z and the p-values are printed, not held (short traces).
 
 The ``kernels`` line's ``launches`` are phase 7's (the joint fit, C: phase
-6's stages, B's per-chain rows: phase 11b's); ``launches_by_path`` gives
-every path, phases 6-11.  Every kernel is
+6's stages, B's per-chain rows: phase 11b's, and at the LOO fleet's shape
+phase 12d's); ``launches_by_path`` gives every path, phases 6-12.  Every kernel is
 timed twice: ``ms`` is its device time (20 launches captured
 in one CUDA graph and replayed, so the host's queueing rate is out of the
 figure), ``call_ms`` the time of one call of its Python wrapper as the main
@@ -144,7 +164,7 @@ CATALOG = ROOT / "benchmarks" / "flagship_catalog.npz"
 WARMUP16 = ROOT / "benchmarks" / "flagship_warmup16.npz"
 SEED = 20261016
 N_GRID, N_Z = 256, 1024
-N_DRAWS = 5
+N_DRAWS = 3
 MAX_DEPTH = 10
 # phases 7 and 8: the fits from prior draws, cut in depth (warmup_schedule(30): 15, 5 with a mass update, 10)
 FIT_CHAINS, FIT_WARMUP, FIT_SAMPLES, FIT_DEPTH, POP_FIT_DEPTH = 16, 30, 10, 6, 5
@@ -205,6 +225,11 @@ SBC_WARMUP, SBC_SAMPLES, SBC_DEPTH = 30, 32, 5
 SBC_COSMO_CAMPAIGN = 4_000_000
 SCORE_CATALOGS = 50
 FLEET_CPU_SIMS = 3
+# phase 12: model comparison at CompareConfig's and PpcConfig's defaults over the traces of phases 7, 8 and 10b;
+# the leave-one-out fleet (56 chains, each the flagship without one event) cut as phase 11 cuts the SBC fleet
+COMPARE_BATCH = 64
+LOO_WARMUP, LOO_SAMPLES, LOO_DEPTH = 30, 32, 5
+COMPARE_CPU_DRAWS = 64
 
 
 def log(msg: str) -> None:
@@ -340,7 +365,9 @@ def main() -> int:
 
 def run(mock_dir: Path) -> int:
     """Every phase, then the kernels line and the result line; ``mock_dir``
-    keeps phase 6's fit inputs for phase 10a."""
+    keeps phase 6's fit inputs for phase 10a, and in ``mock_dir / "compare"``
+    the flagship's fit inputs and the traces of phases 7, 8 and 10b for
+    phase 12."""
     import torch
 
     from bumpcosmology_torch.benchdata import load_pop_cosmo_data
@@ -570,6 +597,7 @@ def run(mock_dir: Path) -> int:
         f"{float(distinct[:n_ev_warps].mean()):.2f} (min {int(distinct[:n_ev_warps].min())}), injections mean "
         f"{float(distinct[n_ev_warps:].mean()):.2f} (min {int(distinct[n_ev_warps:].min())})")
     rows.update(kernel_b_layouts(tag, data, sites, tables, qry, gen))
+    rows.update(kernel_b_comparison_shapes(tag, data, sites, qry, gen))
     phase_done("3_kernel_b")
 
     # ---- phase 4: potential value+grad ----------------------------------
@@ -648,12 +676,18 @@ def run(mock_dir: Path) -> int:
     phase_done("6_mock_stages")
 
     # ---- phase 7: the joint fit from prior draws to a trace --------------
-    joint_launches = fit_phase(dev, tag, "joint")[0]
+    from bumpcosmology_torch.utils.io import write_table
+
+    compare_dir = mock_dir / "compare"  # the flagship's fit inputs and the traces of phases 7, 8, 10b for phase 12
+    compare_dir.mkdir()
+    for name, table in zip(("pe-samples.npz", "selection-samples.npz"), flagship_source_tables()):
+        write_table(compare_dir / name, table)
+    joint_launches = fit_phase(dev, tag, "joint", trace_dir=compare_dir)[0]
     launches = dict(joint_launches, snr_integral=mock_launches["snr_integral"])  # the main path's; C's is phase 6's
     phase_done("7_fit")
 
     # ---- phase 8: the population-only fit from prior draws to a trace ----
-    pop_launches, pop_spec, pop_theta0 = fit_phase(dev, tag, "pop")
+    pop_launches, pop_spec, pop_theta0 = fit_phase(dev, tag, "pop", trace_dir=compare_dir)
     phase_done("8_pop_fit")
 
     # ---- phase 9: the ChEES samplers -----------------------------------
@@ -667,7 +701,7 @@ def run(mock_dir: Path) -> int:
     # ---- phase 10: the other mass families, no kernel on their path ------
     brokenpl_launches = fit_phase(dev, tag, "pop", family="brokenpl", data_dir=mock_dir)[0]
     phase_done("10a_brokenpl_pop_fit")
-    plpeak_launches = fit_phase(dev, tag, "joint", family="plpeak")[0]
+    plpeak_launches = fit_phase(dev, tag, "joint", family="plpeak", trace_dir=compare_dir)[0]
     phase_done("10b_plpeak_joint_fit")
 
     # ---- phase 11: the calibration suite ----------------------------------
@@ -679,6 +713,12 @@ def run(mock_dir: Path) -> int:
     phase_done("11c_score_check")
     for k in ("logwts_lse_fwd_per_chain", "logwts_lse_bwd_per_chain"):  # the per-chain layout's path is 11b
         launches[k] = sbc_cosmo_launches[k]
+
+    # ---- phase 12: model comparison ----------------------------------------
+    comparison_launches = model_comparison_phase(dev, tag, compare_dir)
+    phase_done("12_model_comparison")
+    for k in ("logwts_lse_fwd_per_chain", "logwts_lse_bwd_per_chain"):  # at the LOO fleet's shape: 12d
+        launches[k + "_loo"] = comparison_launches["12d_loo"][k]
     log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
 
     sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
@@ -692,6 +732,8 @@ def run(mock_dir: Path) -> int:
         "logwts_lse_bwd": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
         "logwts_lse_fwd_per_chain": "bumpcosmology_tpu/ops/pallas_logwts.py:184",
         "logwts_lse_bwd_per_chain": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
+        "logwts_lse_fwd_per_chain_loo": "bumpcosmology_tpu/ops/pallas_logwts.py:184",
+        "logwts_lse_bwd_per_chain_loo": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
         "snr_integral": "bumpcosmology_tpu/mock/pallas_snr.py:116",
     }
     kernels = []
@@ -709,13 +751,17 @@ def run(mock_dir: Path) -> int:
                       "(the main path's gradient takes the lse epilogue)")
         elif name.endswith("_per_chain"):
             status = ("ok: built, matches its plain twin; a query table per chain (phase 3: 20 x 2,816 rows); "
-                      "launched on the SBC fleet of the joint model (phase 11b)")
-        by_path = {path: counts[name] for path, counts in (
+                      "launched on the SBC fleet of the joint model (phase 11b) and the LOO fleet (12d)")
+        elif name.endswith("_per_chain_loo"):
+            status = ("ok: built, matches its plain twin; a query table per chain at the LOO fleet's shape (phase 3: "
+                      "56 x 38,656 rows); launched on the LOO fleet of the joint model (phase 12d)")
+        counter = name[: -len("_loo")] if name.endswith("_loo") else name
+        by_path = {path: counts[counter] for path, counts in (
             ("6_mock_stages", mock_launches), ("7_joint_fit", joint_launches), ("8_pop_fit", pop_launches),
             ("9a_nuts_chees", hybrid_launches), ("9b_chees_pop", chees_launches),
             ("10a_brokenpl_pop_fit", brokenpl_launches), ("10b_plpeak_joint_fit", plpeak_launches),
             ("11a_sbc_pop", sbc_pop_launches), ("11b_sbc_pop_cosmo", sbc_cosmo_launches),
-            ("11c_score_check", score_launches))}
+            ("11c_score_check", score_launches), *comparison_launches.items())}
         kernels.append(dict(name=name, route="cuda", source=sources[name.split("_")[0]],
                             replaces=replaces[name], launches=launches[name], launches_by_path=by_path,
                             max_abs_err=row["max_abs_err"], ms=row["ms"], call_ms=row["call_ms"],
@@ -1224,7 +1270,7 @@ def flagship_source_tables():
     return pe, sel
 
 
-def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None):
+def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None, trace_dir=None):
     """The fit from prior draws to a trace, cut in depth: phase 7 (``model=
     "joint"``: ``run_pop_cosmo_fit``) and phase 8 (``model="pop"``:
     ``run_pop_fit``) of the bump at the flagship's width; phase 10a
@@ -1233,8 +1279,10 @@ def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None):
     ``family="plpeak"``, on the flagship).  The samplers are wrapped only to
     observe: the prior draws, the step-size search's and each warmup
     transition's batched value+grads (the spec's log-likelihood called with
-    gradients on), the warmup statistics and the draws.  Returns (the launch
-    counts of the run, the spec, the prior draws)."""
+    gradients on), the warmup statistics and the draws.  The trace is written
+    to ``data_dir`` or, for the flagship, to ``trace_dir`` (phase 12 reads it
+    there) or a temporary directory.  Returns (the launch counts of the run,
+    the spec, the prior draws)."""
     import tempfile
 
     import numpy as np
@@ -1307,7 +1355,7 @@ def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None):
         eps_search, warmup, sampling, fit, init)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            out_dir = Path(data_dir or tmp)
+            out_dir = Path(data_dir or trace_dir or tmp)
             cfg = PipelineConfig(paths=PathsConfig(data_dir=str(out_dir)), fit=cfg_fit)
             _zero_counters()
             t0 = time.perf_counter()
@@ -1562,45 +1610,101 @@ def kernel_b_layouts(tag: str, data, sites, tables, qry, gen):
         ("lse_fwd", lambda: kb._logwts_lse_fwd_cuda(*tables, copied, nobs, nsamp)))}
 
     # (ii) 20 distinct per-chain tables of the fleet's shape, under 20 chains' tables
-    tables20 = b_tables({k: torch.cat([v, v[: SBC_SIMS - c]]) for k, v in sites.items()}, data)
+    tables20 = b_tables(tiled_sites(sites, SBC_SIMS), data)
     fq = fleet_queries(data, SBC_SIMS, gen)
-    c20, n20 = fq.shape[:2]
-    errs, _, (lse_ev, lse_sel), (_, g_ev, g_sel) = b_against_twin("B per-chain", tables20, fq, SBC_NOBS, SBC_NSAMP,
-                                                                   gen)
-    fwd = lambda: kb._logwts_lse_fwd_cuda(*tables20, fq, SBC_NOBS, SBC_NSAMP)  # noqa: E731
-    bwd = lambda: kb._logwts_lse_bwd_cuda(*tables20, fq, lse_ev, lse_sel, g_ev, g_sel, SBC_NOBS,  # noqa: E731
-                                          SBC_NSAMP)
-
-    def bwd_plain():
-        r = kb._evaluate(*tables20, fq)
-        g = kb._lse_row_cotangent(r["out"], lse_ev, lse_sel, g_ev, g_sel, SBC_NOBS, SBC_NSAMP)
-        return kb._bwd_of_rows(r, *tables20, g)
-
-    (f_ms, f_call), (b_ms, b_call) = both_ms(fwd), both_ms(bwd)
-    f_plain = cuda_ms(lambda: kb._segment_lse(kb._evaluate(*tables20, fq)["out"], SBC_NOBS, SBC_NSAMP))
-    b_plain = cuda_ms(bwd_plain)
-    k_det = tables20[0].shape[1]
-    table_bytes = c20 * (k_det * 8 + N_GRID * 4 + 15 * 4)
-    seg_bytes = c20 * (SBC_NOBS + 1) * 4
-    out = {
-        "logwts_lse_fwd_per_chain": dict(
-            ms=f_ms, call_ms=f_call, plain_ms=f_plain, max_abs_err=errs["lse_fwd"],
-            bound=bound_ms(c20 * n20 * 16 + table_bytes + seg_bytes,
-                           c20 * n20 * (OPS_B_FWD_PER_QUERY + OPS_B_LSE_FWD_EXTRA))),
-        "logwts_lse_bwd_per_chain": dict(
-            ms=b_ms, call_ms=b_call, plain_ms=b_plain, max_abs_err=errs["lse_bwd"],
-            bound=bound_ms(c20 * n20 * 16 + 2 * table_bytes + 2 * seg_bytes,
-                           c20 * n20 * (OPS_B_BWD_PER_QUERY + OPS_B_LSE_BWD_EXTRA))),
-    }
+    out, errs, times = per_chain_lse_rows("B per-chain", tables20, fq, SBC_NOBS, SBC_NSAMP, gen)
     fmt = lambda d: json.dumps({k: float(f"{v:.3e}") for k, v in d.items()})  # noqa: E731
     log(f"{tag} phase 3 kernel B, the shared table copied per chain ({c} x {qry.shape[0]} x 4): forward values "
         f"bit-identical to the shared table's (rows and lse); max|err| against the twin {fmt(errs_copied)}; device "
         f"ms rows fwd {copied_ms['rows_fwd']:.5f}, lse fwd {copied_ms['lse_fwd']:.5f} (shared: phase 3 above)")
-    log(f"{tag} phase 3 kernel B, {c20} distinct per-chain tables of {n20} rows ({SBC_NOBS} events x {SBC_NSAMP} "
-        f"samples + {SBC_NSEL} injections a chain, K={k_det}, G={N_GRID}): max|err| against the twin {fmt(errs)}; "
-        f"lse fwd device {f_ms:.5f} ms, call {f_call:.4f} ms (plain {f_plain:.4f}), lse bwd device {b_ms:.5f} ms, "
-        f"call {b_call:.4f} ms (plain {b_plain:.4f})")
+    log(f"{tag} phase 3 kernel B, {fq.shape[0]} distinct per-chain tables of {fq.shape[1]} rows ({SBC_NOBS} events "
+        f"x {SBC_NSAMP} samples + {SBC_NSEL} injections a chain, K={tables20[0].shape[1]}, G={N_GRID}): max|err| "
+        f"against the twin {fmt(errs)}; {times}")
     return out
+
+
+def tiled_sites(sites, n: int):
+    """The constrained ``sites`` (C,) repeated to ``n`` chains."""
+    return {k: v.repeat(-(-n // v.shape[0]))[:n] for k, v in sites.items()}
+
+
+def per_chain_lse_rows(label: str, tables, fq, nobs: int, nsamp: int, gen, suffix: str = ""):
+    """Kernel B's ``lse`` epilogue on the per-chain tables ``fq`` (C, N, 4):
+    :func:`b_against_twin`, then both ways timed beside the twin and bounded.
+    Returns (the kernels-line rows ``logwts_lse_{fwd,bwd}_per_chain<suffix>``,
+    the errors, a line of times)."""
+    from bumpcosmology_torch.ops import cuda_logwts as kb
+
+    errs, _, (lse_ev, lse_sel), (_, g_ev, g_sel) = b_against_twin(label, tables, fq, nobs, nsamp, gen)
+    fwd = lambda: kb._logwts_lse_fwd_cuda(*tables, fq, nobs, nsamp)  # noqa: E731
+    bwd = lambda: kb._logwts_lse_bwd_cuda(*tables, fq, lse_ev, lse_sel, g_ev, g_sel, nobs, nsamp)  # noqa: E731
+
+    def bwd_plain():
+        r = kb._evaluate(*tables, fq)
+        g = kb._lse_row_cotangent(r["out"], lse_ev, lse_sel, g_ev, g_sel, nobs, nsamp)
+        return kb._bwd_of_rows(r, *tables, g)
+
+    (f_ms, f_call), (b_ms, b_call) = both_ms(fwd), both_ms(bwd)
+    f_plain = cuda_ms(lambda: kb._segment_lse(kb._evaluate(*tables, fq)["out"], nobs, nsamp))
+    b_plain = cuda_ms(bwd_plain)
+    c, n = fq.shape[:2]
+    table_bytes = c * (tables[0].shape[1] * 8 + N_GRID * 4 + 15 * 4)
+    seg_bytes = c * (nobs + 1) * 4
+    rows = {
+        "logwts_lse_fwd_per_chain" + suffix: dict(
+            ms=f_ms, call_ms=f_call, plain_ms=f_plain, max_abs_err=errs["lse_fwd"],
+            bound=bound_ms(c * n * 16 + table_bytes + seg_bytes, c * n * (OPS_B_FWD_PER_QUERY + OPS_B_LSE_FWD_EXTRA))),
+        "logwts_lse_bwd_per_chain" + suffix: dict(
+            ms=b_ms, call_ms=b_call, plain_ms=b_plain, max_abs_err=errs["lse_bwd"],
+            bound=bound_ms(c * n * 16 + 2 * table_bytes + 2 * seg_bytes,
+                           c * n * (OPS_B_BWD_PER_QUERY + OPS_B_LSE_BWD_EXTRA))),
+    }
+    (bf, bf_by), (bb, bb_by) = (rows[f"logwts_lse_{way}_per_chain{suffix}"]["bound"] for way in ("fwd", "bwd"))
+    times = (f"lse fwd device {f_ms:.5f} ms, call {f_call:.4f} ms (plain {f_plain:.4f}), bound {bf:.6f} ms by "
+             f"{bf_by}; lse bwd device {b_ms:.5f} ms, call {b_call:.4f} ms (plain {b_plain:.4f}), bound {bb:.6f} ms "
+             f"by {bb_by}")
+    return rows, errs, times
+
+
+def kernel_b_comparison_shapes(tag: str, data, sites, qry, gen):
+    """Phase 3, third part: kernel B at phase 12's shapes.  (i) The shared
+    table at C = 64 (``CompareConfig.batch``: the pointwise matrix's and the
+    evidence's batches; the 16 chains' tables four times over): both
+    epilogues, both ways, against the twin at phase 3's limits, and the
+    ``lse`` forward timed.  (ii) A query table per chain at the
+    leave-one-out fleet's shape: the flagship's 56 catalogs with one event
+    removed (``influence.make_loo_datas``), 56 x 38,656 rows (55 events x 256
+    samples + 24,576 injections a chain) under 56 chains' tables: the same
+    checks, then the per-chain ``lse`` kernels timed and bounded.  Returns
+    the kernels-line rows of (ii)."""
+    import torch
+
+    from bumpcosmology_torch.inference.influence import make_loo_datas
+    from bumpcosmology_torch.inference.likelihoods import query_table
+    from bumpcosmology_torch.ops import cuda_logwts as kb
+
+    nobs, nsamp = data.events.a.shape
+    fmt = lambda d: json.dumps({k: float(f"{v:.3e}") for k, v in d.items()})  # noqa: E731
+    t64 = b_tables(tiled_sites(sites, COMPARE_BATCH), data)
+    errs64 = b_against_twin(f"B shared C={COMPARE_BATCH}", t64, qry, nobs, nsamp, gen)[0]
+    f64, f64_call = both_ms(lambda: kb._logwts_lse_fwd_cuda(*t64, qry, nobs, nsamp))
+    n = qry.shape[0]
+    b64 = bound_ms(n * 16 + COMPARE_BATCH * (t64[0].shape[1] * 8 + N_GRID * 4 + 15 * 4 + (nobs + 1) * 4),
+                   COMPARE_BATCH * n * (OPS_B_FWD_PER_QUERY + OPS_B_LSE_FWD_EXTRA))
+    log(f"{tag} phase 3 kernel B, the shared table at C={COMPARE_BATCH} (compare's batch, {n} rows): max|err| "
+        f"against the twin {fmt(errs64)}; lse fwd device {f64:.5f} ms, call {f64_call:.4f} ms, bound {b64[0]:.6f} "
+        f"ms by {b64[1]}")
+    with torch.no_grad():
+        lq = query_table(make_loo_datas(data))
+    s, n = lq.shape[:2]
+    if (s, n) != (nobs, (nobs - 1) * nsamp + data.selection.a.shape[0]):
+        raise AssertionError(f"B per-chain LOO: query tables of shape {tuple(lq.shape)}")
+    t56 = b_tables(tiled_sites(sites, s), data)
+    rows, errs, times = per_chain_lse_rows("B per-chain LOO", t56, lq, nobs - 1, nsamp, gen, suffix="_loo")
+    log(f"{tag} phase 3 kernel B, the leave-one-out fleet's {s} per-chain tables of {n} rows ({nobs - 1} events x "
+        f"{nsamp} samples + {data.selection.a.shape[0]} injections a chain, {lq.numel() * 4 / 1e6:.1f} MB): max|err| "
+        f"against the twin {fmt(errs)}; {times}")
+    return rows
 
 
 def _now() -> float:
@@ -1859,6 +1963,350 @@ def score_check_phase(dev, tag: str):
         f"(not held at this count); launches {launches}, kernel C {sum(sim['snr_integral'])} in the simulations")
     return launches
 
+
+
+def _site_label(names) -> str:
+    """The stage's model name of a list of sampled sites (phase 12 has the bump's and PLPeak's traces)."""
+    from bumpcosmology_torch.inference.likelihoods import MASS_FAMILIES
+
+    for fam, suffix in (("bump", ""), ("plpeak", "_plpeak")):
+        if list(names) == list(MASS_FAMILIES[fam].pop_priors):
+            return "pop" + suffix
+        if list(names) == list(MASS_FAMILIES[fam].cosmo_priors):
+            return "pop_cosmo" + suffix
+    raise AssertionError(f"unknown sites {list(names)}")
+
+
+# launches of one device batch of phase 12, by model: the joint bump's pointwise and evidence batches run kernel
+# A's forward and kernel B's lse forward (shared table); its PPC batches kernel B's rows forward; the pop bump
+# kernel A's forward alone; PLPeak no kernel
+_BATCH_LAUNCHES = {
+    ("pointwise", "pop"): {"bump_fwd": 1}, ("pointwise", "pop_cosmo"): {"bump_fwd": 1, "logwts_lse_fwd": 1},
+    ("pointwise", "pop_cosmo_plpeak"): {},
+    ("evidence", "pop"): {"bump_fwd": 1}, ("evidence", "pop_cosmo"): {"bump_fwd": 1, "logwts_lse_fwd": 1},
+    ("evidence", "pop_cosmo_plpeak"): {},
+    ("ppc", "pop"): {"bump_fwd": 1}, ("ppc", "pop_cosmo"): {"bump_fwd": 1, "logwts_fwd": 1},
+    ("ppc", "pop_cosmo_plpeak"): {},
+}
+
+
+def _timed(batches: list, key, fn):
+    """``fn`` wrapped to record (key, its launches, its ms by CUDA events) per call."""
+    import torch
+
+    def run(*args, **kwargs):
+        before = _read_counters()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        stop.record()
+        torch.cuda.synchronize()
+        batches.append((key, {k: v for k, v in _delta(_read_counters(), before).items() if v},
+                        start.elapsed_time(stop)))
+        return out
+
+    return run
+
+
+def _check_batches(stage: str, batches: list, expected_counts: dict) -> str:
+    """Every batch launched what ``_BATCH_LAUNCHES`` says, and each model made
+    ``expected_counts[key]`` batches; returns ms per batch by key."""
+    seen = {}
+    for key, launches, ms in batches:
+        if launches != _BATCH_LAUNCHES[key]:
+            raise AssertionError(f"{stage}: a {key} batch launched {launches}, not {_BATCH_LAUNCHES[key]}")
+        seen.setdefault(key, []).append(ms)
+    if {k: len(v) for k, v in seen.items()} != expected_counts:
+        raise AssertionError(f"{stage}: batches by model {({k: len(v) for k, v in seen.items()})}, expected "
+                             f"{expected_counts}")
+    return "; ".join(f"{k[0]} {k[1]}: {len(v)} batches, median {sorted(v)[len(v) // 2]:.3f} ms (first {v[0]:.3f})"
+                     for k, v in seen.items())
+
+
+def model_comparison_phase(dev, tag: str, data_dir):
+    """Phase 12: the model-comparison stages on the traces of phases 7 (the
+    joint bump), 8 (the pop bump) and 10b (the joint PLPeak), which those
+    phases wrote into ``data_dir`` beside the flagship's fit inputs.  Every
+    launch count is set to 0 before each stage and read after it.
+
+    (a) ``_stage_compare`` at ``CompareConfig``'s defaults (160 draws a
+    trace in batches of 64): every pointwise and evidence batch of the joint
+    bump launches kernel A's forward and kernel B's ``lse`` forward once, the
+    pop bump's kernel A's forward once, PLPeak's nothing, and no backward
+    anywhere; each pointwise row sums to ``pop_loglike`` /
+    ``pop_cosmo_loglike`` at the same draw (|d|/(1+|ref|) < 2e-4); the joint
+    bump's matrix on the card against the CPU on its first 64 draws (phase
+    4's limit, 2e-4).  (b) ``_stage_ppc`` at ``PpcConfig``'s defaults
+    (batches of 32): the joint bump's batches through kernel B's ``rows``
+    forward once each; on the first batch, kernel B against its twin on the
+    batch's own tables at B's value limits, and the weights on the card
+    against the CPU's at phase 4's limit (2e-4: each device builds its own
+    tables, kernel A's among them); every p-value in [0, 1].  (c)
+    ``_stage_prior_sens``: host only, no launch, the JAX layout's keys.  (d)
+    ``_stage_loo`` with the joint model on phase 7's trace, cut as phase 11
+    cuts (``LOO_WARMUP`` warmup steps, ``LOO_SAMPLES`` draws, ``max_depth``
+    ``LOO_DEPTH``): 56 chains, each reading its own query table of 38,656
+    rows through kernel B; the 32 start candidates launch A's forward and B's
+    per-chain ``lse`` forward once each, the fleet one of each kernel each way
+    per batched value+grad; the fleet's potential for 3 catalogs card against
+    CPU at phase 4's limits; every influence z finite.  The values of elpd,
+    p_loo, k̂ and log Z are printed, not held (the traces are short).  Returns
+    the launch counts by path."""
+    import numpy as np
+    import torch
+
+    from bumpcosmology_torch.inference import evidence, influence, model_compare, ppc
+    from bumpcosmology_torch.inference import fleet as fleet_mod
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.model import value_and_grad
+    from bumpcosmology_torch.pipeline import stages
+    from bumpcosmology_torch.ops import cuda_logwts
+    from bumpcosmology_torch.pipeline.config import FitConfig, LooConfig, PathsConfig, PipelineConfig
+    from bumpcosmology_torch.utils.io import read_table
+    from bumpcosmology_torch.utils.trace import load_trace
+
+    cfg = PipelineConfig(paths=PathsConfig(data_dir=str(data_dir)), fit=FitConfig(n_grid=N_GRID, n_z=N_Z),
+                         loo=LooConfig(num_warmup=LOO_WARMUP, num_samples=LOO_SAMPLES, max_depth=LOO_DEPTH))
+    c_cmp, c_ppc = cfg.compare, cfg.ppc
+    pe, sel = read_table(cfg.paths.path("pe-samples.npz")), read_table(cfg.paths.path("selection-samples.npz"))
+    traces = {name: load_trace(cfg.paths.path(fname)).posterior for name, fname in (
+        ("pop", "trace.npz"), ("pop_cosmo", "trace_cosmo.npz"), ("pop_cosmo_plpeak", "trace_cosmo_plpeak.npz"))}
+    n_draws = {k: next(iter(v.values())).size for k, v in traces.items()}
+    launches, walls = {}, {}
+    log(f"{tag} phase 12 traces from phases 8, 7 and 10b: {json.dumps(n_draws)} draws; CompareConfig "
+        f"{json.dumps(vars(c_cmp))}, PpcConfig {json.dumps(vars(c_ppc))}; the LOO fleet cut: num_warmup {LOO_WARMUP} "
+        f"(default 400), num_samples {LOO_SAMPLES} (default 256), max_depth {LOO_DEPTH} (default 8)")
+
+    # ---- (a) _stage_compare ---------------------------------------------
+    batches = []
+    real = dict(pm=model_compare.pointwise_matrix, pot=evidence.make_potential)
+
+    def pm(fn, posterior, names, *args, **kwargs):
+        return real["pm"](_timed(batches, ("pointwise", _site_label(names)), fn), posterior, names, *args, **kwargs)
+
+    def make_pot(spec):
+        return _timed(batches, ("evidence", _site_label(spec.priors)), real["pot"](spec))
+
+    model_compare.pointwise_matrix, evidence.make_potential = pm, make_pot
+    try:
+        _zero_counters()
+        t0 = time.perf_counter()
+        table = stages._stage_compare(cfg, device=dev)
+        walls["12a_compare"] = _now() - t0
+        launches["12a_compare"] = _read_counters()
+    finally:
+        model_compare.pointwise_matrix, evidence.make_potential = real["pm"], real["pot"]
+    n_pw = {k: -(-min(v, c_cmp.max_draws) // c_cmp.batch) for k, v in n_draws.items()}
+    n_ev = {k: 2 * -(-(min(v, c_cmp.max_draws) - min(v, c_cmp.max_draws) // 2) // c_cmp.batch)
+            for k, v in n_draws.items()}
+    times = _check_batches("compare", batches, {**{("pointwise", k): v for k, v in n_pw.items()},
+                                                **{("evidence", k): v for k, v in n_ev.items()}})
+    with np.load(cfg.paths.path("model_compare.npz")) as d:
+        art = {k: d[k] for k in d.files}
+    if str(art["attrs/table"]) != table or sorted(k for k in art if k.endswith("/pointwise")) != sorted(
+            f"{k}/pointwise" for k in traces):
+        raise AssertionError(f"compare: the artifact's table or matrices are not the stage's: {sorted(art)}")
+    # each row sums to the model's log-likelihood at the same draw
+    pop_data, cosmo_data = (stages.pop_data_from_tables(pe, sel, dev), stages.pop_cosmo_data_from_tables(pe, sel, dev))
+    bounds, qry, rows = lk.dl_bounds_of(cosmo_data, margin=0.1), lk.query_table(cosmo_data), lk.pop_rows(pop_data)
+    loglikes = {
+        "pop": lambda s: lk.pop_loglike(s, pop_data, N_GRID, rows),
+        "pop_cosmo": lambda s: lk.pop_cosmo_loglike(s, cosmo_data, N_GRID, N_Z, bounds, qry),
+        "pop_cosmo_plpeak": lambda s: lk.pop_cosmo_loglike(s, cosmo_data, N_GRID, N_Z, bounds, qry,
+                                                           build=lk.MASS_FAMILIES["plpeak"].build),
+    }
+    priors = {"pop": lk.POP_PRIORS, "pop_cosmo": lk.POP_COSMO_PRIORS, "pop_cosmo_plpeak": lk.PLPEAK_COSMO_PRIORS}
+    sums, stats = {}, {}
+    for name, post in traces.items():
+        flat = {k: torch.tensor(post[k].reshape(-1), dtype=torch.float32, device=dev) for k in priors[name]}
+        with torch.inference_mode():
+            ll = torch.cat([loglikes[name]({k: v[lo:lo + c_cmp.batch] for k, v in flat.items()})
+                            for lo in range(0, n_draws[name], c_cmp.batch)]).double().cpu().numpy()
+        mat = art[f"{name}/pointwise"].astype(np.float64)
+        sums[name] = float((np.abs(mat.sum(1) - ll) / (1.0 + np.abs(ll))).max())
+        if not (mat.shape == (n_draws[name], len(np.unique(pe["evt"]))) and np.isfinite(mat).all()
+                and sums[name] < 2e-4):
+            raise AssertionError(f"compare {name}: pointwise matrix {mat.shape}, rows against the log-likelihood "
+                                 f"|d|/(1+|ref|) {sums[name]:.3e} (limit 2e-4)")
+        g = f"{name}/attrs/"
+        stats[name] = {"elpd": round(float(art[g + "elpd"]), 3), "p_loo": round(float(art[g + "p_loo"]), 3),
+                       "max_khat": round(float(art[f"{name}/khat"].max()), 3),
+                       "waic_elpd": round(float(art[g + "waic_elpd"]), 3),
+                       "log_z": round(float(art[g + "log_z"]), 3) if g + "log_z" in art else "failed"}
+    # the joint bump's matrix on the card against the CPU on the same draws
+    cpu_data = stages.pop_cosmo_data_from_tables(pe, sel, "cpu")
+    cpu_bounds, cpu_qry = lk.dl_bounds_of(cpu_data, margin=0.1), lk.query_table(cpu_data)
+    first = {k: v.reshape(-1)[:COMPARE_CPU_DRAWS][None] for k, v in traces["pop_cosmo"].items()}
+    t_cpu = time.perf_counter()
+    mat_cpu = model_compare.pointwise_matrix(
+        lambda s: model_compare.pop_cosmo_pointwise_loglike(s, cpu_data, N_GRID, N_Z, cpu_bounds, qry=cpu_qry),
+        first, list(priors["pop_cosmo"]), batch=COMPARE_CPU_DRAWS, device="cpu")
+    t_cpu = time.perf_counter() - t_cpu
+    mat_card = art["pop_cosmo/pointwise"][:COMPARE_CPU_DRAWS]
+    d_cpu = float((np.abs(mat_card - mat_cpu) / (1.0 + np.abs(mat_cpu))).max())
+    if not d_cpu < 2e-4:
+        raise AssertionError(f"compare: the joint pointwise matrix, card against CPU: |d|/(1+|ref|) {d_cpu:.3e}")
+    log(f"{tag} phase 12a _stage_compare: {walls['12a_compare']:.2f} s wall (host clock); {times}; rows against "
+        f"the log-likelihood, largest |d|/(1+|ref|) {json.dumps({k: float(f'{v:.3e}') for k, v in sums.items()})}; "
+        f"the joint matrix card against CPU on {COMPARE_CPU_DRAWS} draws {d_cpu:.3e} ({t_cpu:.2f} s on the host); "
+        f"launches {launches['12a_compare']}")
+    log(f"{tag} phase 12a by model (not held; {max(n_draws.values())} draws of unconverged chains): "
+        f"{json.dumps(stats)}")
+    log("phase 12a table:\n" + table + ("\n" + str(art["attrs/bf_table"]) if str(art["attrs/bf_table"]) else ""))
+    for k in ("bump_bwd", "logwts_bwd", "logwts_lse_bwd", "logwts_fwd", "logwts_lse_fwd_per_chain",
+              "logwts_lse_bwd_per_chain", "snr_integral"):
+        if launches["12a_compare"][k]:
+            raise AssertionError(f"compare: {k} launched {launches['12a_compare'][k]} times")
+
+    # ---- (b) _stage_ppc ---------------------------------------------------
+    batches = []
+    real = dict(joint=ppc.pop_cosmo_event_sel_logwts, pop=ppc._pop_event_sel_logwts)
+
+    def joint_w(sites, *args, build=None, **kwargs):
+        key = ("ppc", "pop_cosmo" if build is None else "pop_cosmo_plpeak")
+        return _timed(batches, key, real["joint"])(sites, *args, build=build, **kwargs)
+
+    def pop_w(sites, *args, build=None, **kwargs):
+        return _timed(batches, ("ppc", "pop" if build is None else "pop_plpeak"), real["pop"])(
+            sites, *args, build=build, **kwargs)
+
+    ppc.pop_cosmo_event_sel_logwts, ppc._pop_event_sel_logwts = joint_w, pop_w
+    try:
+        _zero_counters()
+        t0 = time.perf_counter()
+        path = stages._stage_ppc(cfg, device=dev)
+        walls["12b_ppc"] = _now() - t0
+        launches["12b_ppc"] = _read_counters()
+    finally:
+        ppc.pop_cosmo_event_sel_logwts, ppc._pop_event_sel_logwts = real["joint"], real["pop"]
+    times = _check_batches("ppc", batches, {("ppc", k): -(-min(v, c_ppc.n_draws) // c_ppc.batch)
+                                            for k, v in n_draws.items()})
+    with np.load(path) as d:
+        pvals = {k[: -len("/attrs/p_value")]: float(d[k]) for k in d.files if k.endswith("/attrs/p_value")}
+    if len(pvals) != 9 or not all(0.0 <= p <= 1.0 for p in pvals.values()):
+        raise AssertionError(f"ppc: p-values {pvals}")
+    # the first joint batch: kernel B against its twin on the batch's own tables and rows (B's value limits),
+    # and the whole device part on the card against the CPU (phase 4's limit: the tables are built on each
+    # device, kernel A's table among them, so their float32 rounding adds to B's)
+    flat = {k: traces["pop_cosmo"][k].reshape(-1)[:c_ppc.batch] for k in priors["pop_cosmo"]}
+    tables = b_tables({k: torch.as_tensor(v, device=dev) for k, v in flat.items()}, cosmo_data)
+    ppc_qry = lk.query_table(cosmo_data)
+    err_b = check_close("ppc batch, kernel B against its twin", cuda_logwts.logwts(*tables, ppc_qry),
+                        cuda_logwts.logwts_plain(*tables, ppc_qry), rtol=2e-5, atol=2e-5)
+    w_card = ppc._logwts_matrix(flat, cosmo_data, N_GRID, N_Z, None, c_ppc.batch, device=dev)
+    w_cpu = ppc._logwts_matrix(flat, cpu_data, N_GRID, N_Z, None, c_ppc.batch, device="cpu")
+    d_w = 0.0
+    for part, a, b in zip(("events", "selection"), w_card, w_cpu):
+        fin = np.isfinite(b)
+        if not np.array_equal(fin, np.isfinite(a)):
+            raise AssertionError(f"ppc weights ({part}): non-finite entries differ between card and CPU")
+        d_w = max(d_w, float((np.abs(a[fin] - b[fin]) / (1.0 + np.abs(b[fin]))).max()))
+    if not d_w < 2e-4:
+        raise AssertionError(f"ppc weights, card against CPU: |d|/(1+|ref|) {d_w:.3e} (limit 2e-4)")
+    log(f"{tag} phase 12b _stage_ppc: {walls['12b_ppc']:.2f} s wall (host clock); {times}; the first joint batch "
+        f"({c_ppc.batch} draws): kernel B against its twin max|err| {err_b:.3e} (rtol 2e-5, atol 2e-5), the "
+        f"weights card against CPU |d|/(1+|ref|) {d_w:.3e}; p-values (not held) "
+        f"{json.dumps({k: round(v, 3) for k, v in pvals.items()})}; launches {launches['12b_ppc']}")
+
+    # ---- (c) _stage_prior_sens ---------------------------------------------
+    _zero_counters()
+    t0 = time.perf_counter()
+    path = stages._stage_prior_sens(cfg, device=dev)
+    walls["12c_prior_sens"] = _now() - t0
+    launches["12c_prior_sens"] = _read_counters()
+    with np.load(path) as d:
+        keys = sorted(d.files)
+    _stage_artifact_keys("prior_sensitivity.npz", keys, [f"{g}/{k}" for g in traces for k in (
+        "perturbation", "site", "shift_sd", "sd_ratio", "ess_frac")])
+    if any(launches["12c_prior_sens"].values()):
+        raise AssertionError(f"prior_sens: launches {launches['12c_prior_sens']} (the stage is host only)")
+    log(f"{tag} phase 12c _stage_prior_sens: {walls['12c_prior_sens']:.2f} s wall (host clock), no launch; "
+        f"{len(keys)} arrays")
+
+    # ---- (d) _stage_loo: the leave-one-out fleet ------------------------------
+    marks, seen, counts = {}, {}, {"value_grad": 0}
+    real = dict(make=influence.make_loo_datas, fleet=fleet_mod.fleet_fit)
+
+    def make(data):
+        out = real["make"](data)
+        marks["datas"], seen["at_datas"] = _now(), _read_counters()
+        return out
+
+    def fit(make_pot, datas, theta0, *args, **kwargs):
+        marks["init"], seen["at_fleet"] = _now(), _read_counters()
+
+        def counted_make_pot(d):
+            pot = make_pot(d)
+
+            def counted(theta):
+                counts["value_grad"] += 1  # the fleet makes value+grads only
+                return pot(theta)
+
+            return counted
+
+        res = real["fleet"](counted_make_pot, datas, theta0, *args, **kwargs)
+        marks["fleet"], seen["after_fleet"] = _now(), _read_counters()
+        seen.update(res=res, datas=datas, make_pot=make_pot)
+        return res
+
+    influence.make_loo_datas, fleet_mod.fleet_fit = make, fit
+    try:
+        _zero_counters()
+        t0 = time.perf_counter()
+        stages._stage_loo(cfg, device=dev)
+        walls["12d_loo"] = _now() - t0
+        launches["12d_loo"] = _read_counters()
+    finally:
+        influence.make_loo_datas, fleet_mod.fleet_fit = real["make"], real["fleet"]
+    res, datas, n_vg = seen["res"], seen["datas"], counts["value_grad"]
+    s = res.thetas.shape[0]
+    init, fleet = _delta(seen["at_fleet"], seen["at_datas"]), _delta(seen["after_fleet"], seen["at_fleet"])
+    b = "logwts_lse_fwd_per_chain", "logwts_lse_bwd_per_chain"
+    others = lambda d, keep: [k for k, v in d.items() if v and k not in keep]  # noqa: E731
+    ok = (init["bump_fwd"] == init[b[0]] == 32 and not others(init, ("bump_fwd", b[0]))
+          and fleet["bump_fwd"] == fleet["bump_bwd"] == fleet[b[0]] == fleet[b[1]] == n_vg > 0
+          and not others(fleet, ("bump_fwd", "bump_bwd") + b) and s == len(np.unique(pe["evt"])))
+    if not ok:
+        raise AssertionError(f"loo: launches not once per potential: candidates {init}, fleet {fleet} ({n_vg} "
+                             f"batched value+grads, {s} chains)")
+    with np.load(cfg.paths.path("influence.npz")) as d:
+        art = {k: d[k] for k in d.files}
+    sites = sorted({k.split("/")[0] for k in art} - {"attrs", "event"})
+    _stage_artifact_keys("influence.npz", art, ["attrs/model", "event"] + [f"{site}/{k}" for site in sites for k in (
+        "mean_loo", "delta_mean", "z")])
+    z = np.stack([art[f"{site}/z"] for site in sites])
+    if sites != sorted(lk.POP_COSMO_PRIORS) or z.shape != (len(sites), s) or not np.isfinite(z).all():
+        raise AssertionError(f"loo: influence z of shape {z.shape} over sites {sites} is not finite")
+    pot = seen["make_pot"](datas)
+    theta = res.thetas[:, -1].contiguous()
+    vg_ms = cuda_ms(lambda: value_and_grad(pot, theta), reps=10)
+    idx = torch.arange(FLEET_CPU_SIMS, device=dev)
+    sub = lk.take_fleet(datas, idx)
+    u_k, g_k = value_and_grad(seen["make_pot"](sub), theta[:FLEET_CPU_SIMS])
+    u_c, g_c = (x.to(dev) for x in value_and_grad(seen["make_pot"](sub.to("cpu")), theta[:FLEET_CPU_SIMS].cpu()))
+    du = float(((u_k - u_c).abs() / (1.0 + u_c.abs())).max())
+    dg = float(((g_k - g_c).abs() / (1.0 + g_c.abs())).max())
+    if du >= 2e-4 or dg >= 5e-3 or not bool(torch.isfinite(u_k).all()):
+        raise AssertionError(f"loo fleet potential, card against CPU: |dU|/(1+|U|) {du:.3e}, "
+                             f"|dgrad|/(1+|grad|) {dg:.3e}")
+    fit_s = res.warmup_s + res.sampling_s
+    worst = np.unravel_index(np.abs(z).argmax(), z.shape)
+    split = dict(loo_datas=marks["datas"] - t0, candidates=marks["init"] - marks["datas"], fleet_warmup=res.warmup_s,
+                 fleet_sampling=res.sampling_s, summary_write=walls["12d_loo"] - (marks["fleet"] - t0))
+    n_rows = datas.events.a[0].numel() + datas.selection.a.shape[-1]
+    log(f"{tag} phase 12d _stage_loo(model='pop_cosmo'): {s} chains x {n_rows} rows a chain ({datas.events.a.shape[1]} "
+        f"events x {datas.events.a.shape[2]} samples + {datas.selection.a.shape[-1]} injections), {LOO_WARMUP} warmup "
+        f"steps + {LOO_SAMPLES} draws at max_depth {LOO_DEPTH}: {walls['12d_loo']:.2f} s wall (host clock, s: "
+        f"{json.dumps({k: round(v, 3) for k, v in split.items()})}); {n_vg} batched value+grads, "
+        f"{1e3 * fit_s / n_vg:.2f} ms each in the fleet, {vg_ms:.3f} ms alone at S = {s} (CUDA events, mean of 10); "
+        f"adapted step size median {float(res.eps.median()):.4g}, sampling mean accept {float(res.accept.mean()):.3f}; "
+        f"fleet potential of {FLEET_CPU_SIMS} catalogs, card against CPU: |dU|/(1+|U|) {du:.3e}, |dgrad|/(1+|grad|) "
+        f"{dg:.3e}; largest |z| {float(np.abs(z).max()):.2f} (site {sites[worst[0]]}, event {worst[1]}; not held); "
+        f"launches: stage {launches['12d_loo']}, candidates {init}, fleet {fleet}")
+    log(f"{tag} phase 12d profile: " + device_busy_share(
+        lambda: [value_and_grad(pot, theta) for _ in range(3)], f"three LOO fleet value+grads at S = {s}", n_vg=3))
+    log(f"{tag} phase 12 stage wall times (host clock, s): {json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+    return launches
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -145,6 +145,68 @@ def test_logwts_per_chain_queries_match_plain_and_the_shared_table(dev):
     _assert_cotangents_close(res[0][4], res[1][4])
 
 
+
+@pytest.mark.parametrize("layout,c,nobs,nsamp,nsel", [("shared", 64, 56, 256, 24576), ("per_chain", 56, 55, 256, 24576)])
+def test_logwts_at_the_model_comparison_shapes(dev, layout, c, nobs, nsamp, nsel):
+    """Kernel B at the shapes of model comparison: the shared table at C = 64
+    (the compare stage's batch) and a query table per chain at the LOO
+    fleet's 56 x 38,656 rows; both epilogues, both ways, against the twin."""
+    rng = np.random.default_rng(7)
+    n = nobs * nsamp + nsel
+    tables, qry = _logwts_inputs(rng, dev, c, 1024, 256, n)
+    if layout == "per_chain":
+        qry = torch.stack([qry[torch.as_tensor(rng.permutation(n), device=dev)] for _ in range(c)])
+    g = torch.as_tensor(rng.normal(size=(c, n)).astype(np.float32), device=dev)
+    g_ev = torch.as_tensor(rng.normal(size=(c, nobs)).astype(np.float32), device=dev)
+    g_sel = torch.as_tensor(rng.normal(size=c).astype(np.float32), device=dev)
+    res = []
+    for rows_fn, lse_fn in ((cuda_logwts.logwts, cuda_logwts.logwts_lse),
+                            (cuda_logwts.logwts_plain, cuda_logwts.logwts_lse_plain)):
+        leaves = [x.clone().requires_grad_(True) for x in tables]
+        out = rows_fn(*leaves, qry)
+        (out.nan_to_num(neginf=0.0) * g).sum().backward()
+        leaves_l = [x.clone().requires_grad_(True) for x in tables]
+        lse_ev, lse_sel = lse_fn(*leaves_l, qry, nobs, nsamp)
+        torch.autograd.backward([lse_ev, lse_sel], [g_ev, g_sel])
+        res.append((out.detach(), lse_ev.detach(), lse_sel.detach(), [x.grad for x in leaves],
+                    [x.grad for x in leaves_l]))
+    torch.cuda.synchronize()
+    for i in range(3):
+        torch.testing.assert_close(res[0][i], res[1][i], rtol=2e-5, atol=2e-5)
+    _assert_cotangents_close(res[0][3], res[1][3])
+    _assert_cotangents_close(res[0][4], res[1][4])
+
+
+def test_pointwise_matrix_on_the_card_matches_the_cpu(dev):
+    """The joint model's pointwise matrix (kernels A and B's lse forward, one
+    launch each a batch, no backward) against the same on the CPU: phase 4's
+    limit, |d|/(1+|ref|) < 2e-4; a tail batch of 6."""
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.model import constrain, prior_sample
+    from bumpcosmology_torch.inference.model_compare import pointwise_matrix, pop_cosmo_pointwise_loglike
+    from bumpcosmology_torch.testing import synthetic_pop_cosmo_data
+
+    mats = {}
+    for d in (dev, torch.device("cpu")):
+        data = synthetic_pop_cosmo_data(12, 64, 2048, seed=3, device=d)
+        bounds, qry = lk.dl_bounds_of(data, margin=0.1), lk.query_table(data)
+        if d == dev:
+            spec = lk.pop_cosmo_model_spec(data, 128, 256, device="cpu")
+            theta = prior_sample(spec, torch.Generator().manual_seed(2), shape=(70,))
+            post = {k: v.numpy()[None] for k, v in constrain(spec, theta).items()}
+            before = dict(cuda_logwts.LAUNCHES), dict(cuda_bump.LAUNCHES)
+        mats[d.type] = pointwise_matrix(lambda s: pop_cosmo_pointwise_loglike(s, data, 128, 256, bounds, qry=qry),
+                                        post, list(lk.POP_COSMO_PRIORS), batch=32, device=d)
+        if d == dev:
+            launched = {k: v - before[0][k] for k, v in cuda_logwts.LAUNCHES.items() if v != before[0][k]}
+            launched.update({k: v - before[1][k] for k, v in cuda_bump.LAUNCHES.items() if v != before[1][k]})
+            assert launched == {"logwts_lse_fwd": 3, "bump_fwd": 3}
+    ref = mats["cpu"]
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(np.isfinite(mats["cuda"]), fin)
+    assert fin.any()
+    assert float((np.abs(mats["cuda"][fin] - ref[fin]) / (1.0 + np.abs(ref[fin]))).max()) < 2e-4
+
 def test_snr_kernel_matches_plain(dev):
     """Kernel C against its plain twin, exact zeros (f_cut below f_min) included."""
     rng = np.random.default_rng(2)

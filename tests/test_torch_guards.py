@@ -64,7 +64,9 @@ def test_no_port_file_names_the_jax_packages(pattern):
 @pytest.mark.parametrize("name", ["inference/sampler.py", "inference/chees.py", "inference/diagnostics.py",
                                   "utils/trace.py", "utils/io.py", "pipeline/config.py", "pipeline/stages.py",
                                   "ops/logsumexp.py", "models/plpeak.py", "models/brokenpl.py",
-                                  "inference/calibration.py", "inference/fleet.py", "inference/score_check.py"])
+                                  "inference/calibration.py", "inference/fleet.py", "inference/score_check.py",
+                                  "inference/model_compare.py", "inference/evidence.py", "inference/modes.py",
+                                  "inference/ppc.py", "inference/prior_sens.py", "inference/influence.py"])
 def test_the_guards_cover_the_fit_modules(name):
     """The grep guard scans the fit's modules, and the import guard imports them."""
     assert PORT / name in list(PORT.rglob("*.py"))
