@@ -7,10 +7,13 @@ its layout so each module's counterpart is easy to find:
   the two hand-written Hopper kernels (``cuda_bump``, ``cuda_logwts``)
 - :mod:`bumpcosmology_torch.models`     — L1 population & cosmology models
 - :mod:`bumpcosmology_torch.inference`  — L2 priors, potential, likelihood, NUTS
-- :mod:`bumpcosmology_torch.utils`      — checkpoint loading
-- :mod:`bumpcosmology_torch.data`       — importance weights at fixed Planck18
+- :mod:`bumpcosmology_torch.utils`      — traces, tables and checkpoints
+- :mod:`bumpcosmology_torch.data`       — importance weights at fixed Planck18, the
+  GWTC and O3 injection-file ingestion, rehearsal fixtures and the input fetch
 - :mod:`bumpcosmology_torch.mock`       — the mock universe's injection campaign,
   observations and one-year catalog, with the SNR-integral kernel (``cuda_snr``)
+- :mod:`bumpcosmology_torch.pipeline`   — the stages, their DAG and the CLI
+  ``python -m bumpcosmology_torch.pipeline``
 
 Everything is batched over a leading chain axis: the potential takes
 ``theta`` of shape ``(C, dim)`` and one value+grad serves all ``C`` chains.

@@ -36,9 +36,11 @@
 // and bumpcosmology_torch/tools/kernel_times.py take it): the forward takes 18 us, and took
 // the same to within 1 us whatever the split of the rows over warps and lanes, so it is bound by
 // the depth of one row's chain of some 15 transcendentals and 8 dependent shared-memory reads,
-// not by instruction rate; the backward takes 63 us, of which 33 us are its shared-memory float
-// atomics (17 us the bump bins, 11 us the detector bins: measured with builds that left them
-// out and so gave wrong cotangents; those builds are not kept).
+// not by instruction rate; the backward took 63 us with shared-memory float atomics for its
+// table cotangents, 33 us of it in those atomics (17 us the bump bins, 11 us the detector bins:
+// measured with builds that left them out and so gave wrong cotangents; those builds are not
+// kept).  The atomics are now integer ones in fixed point (see "Table cotangents" below), so that
+// two launches on the same inputs give the same bits.
 //
 // Geometry: one thread-block cluster per chain (the choice; see below for the alternative).
 //   * Grid (8, C) with cluster dimension (8, 1, 1): 8 blocks share a chain, 128 blocks fill
@@ -68,11 +70,11 @@
 //     the cluster through distributed shared memory (an event's few pairs where they lie, the
 //     selection's one pair per block) and stores one number.
 //   * Backward: a thread accumulates the 13 live scalar cotangents in registers over all its
-//     rows; table cotangents go to the block's shared-memory bins with atomicAdd; the scalars
-//     are reduced once per block through shared memory; after cluster.sync() each block sums
-//     an eighth of the (2K + G + 15) values over the 8 blocks' shared memory in a fixed order
-//     and stores them.  Every output element is written exactly once: nothing is zeroed by the
-//     caller and no global atomic is used.
+//     rows; table cotangents go to the block's shared-memory bins in fixed point (below); the
+//     scalars are reduced once per block through shared memory in a fixed order; after
+//     cluster.sync() each block sums an eighth of the (2K + G + 15) values over the 8 blocks'
+//     shared memory in rank order and stores them.  Every output element is written exactly once:
+//     nothing is zeroed by the caller and no global atomic is used.
 //   * Arithmetic.  The weights of the two mass branches and the sigmoids come from the
 //     exponentials the forward already took (w = 1/(1+e) and e/(1+e)), so the backward adds
 //     divisions, no exp.  __expf, __logf(1+e) and __fdividef stand where the result enters a
@@ -87,15 +89,42 @@
 //     catalog 32 consecutive rows fall into 27 distinct bins on average (events) and 31
 //     (injections; chip_smoke.py phase 3 prints both), so there is little to combine and the
 //     backward was 6 us slower with it.  red.shared.add.f32 written in PTX changed nothing.
-//     What would remove the atomics is rows sorted by bin inside each segment when the query
-//     table is built, so that neighbouring lanes share a bin and a segmented shuffle adds them
-//     first; a combine belongs with that table, not before it.
-//   * Alternative not taken: per-block partials in a scratch tensor, combined by the last
-//     block to finish (__threadfence and one atomic ticket per chain).  It needs a zeroed
-//     ticket per launch (a memset, or a reset by the last block that a failed launch would
-//     leave dirty) and a round trip through L2 where the cluster reads its neighbours'
-//     shared memory directly; it was not built, so no time is given for it.
 //
+// Table cotangents: a sum in a fixed order, whatever order the rows arrive in.  Float atomicAdd
+// into shared memory rounds each partial sum, so the result depended on the order in which the
+// warps reached a bin, and two launches on the same inputs differed in the last bits (a seeded
+// fit on the card parted from itself after the first mass-matrix window).  Each table bin now
+// holds an exact integer: a contribution v is rounded once, to the nearest multiple of 2^-40, and
+// that integer x = rint(v 2^40) is added as two words, hi = floor(x / 2^32) (signed) and
+// lo = x - hi 2^32 in [0, 2^32), each with a 64-bit integer atomicAdd.  Integer addition is
+// associative, so the bin's sum is the same in any order; the cluster's combine adds the eight
+// blocks' words in rank order and converts hi 2^-8 + lo 2^-40 to float once.  Range: a row adds
+// to a bin at most twice (both masses in one bump bin), so with |v| < 2^52 / N the hi words sum
+// to less than 2N (2^60 / N + 1) < 2^62 in magnitude, inside int64, and the lo words to less than
+// 2N 2^32 < 2^62 for N < 2^29 (the backward refuses a larger N).  A contribution at or beyond the
+// limit (1.2e11 at the LOO fleet's 38,656 rows a chain, 4.4e10 at the mock catalog's 102,912), or
+// one not finite, sets bit 63 of its bin's lo word, which no sum reaches; the combine writes such
+// a bin as NaN rather than as a wrapped sum.  (The float atomics gave inf or a finite sum there.)
+// The paths' contributions are far inside the limit: in the lse route |g| <= |g_seg| (each row's
+// share of its segment's cotangent), and a bin adds g or g dout/dz times a bracket weight, of
+// order the likelihood's cotangents (1 to nobs) times |dout/dz| (below 10^3 on the flagship).
+// Resolution: each contribution is off by at most 2^-41 = 4.5e-13 and a bin by 2N of those
+// (3.5e-8 at N = 38,912), below the float32 rounding of a cotangent of order one and far inside
+// the limits against the twin (rtol 5e-4, atol 5e-4 x max|ref|) unless every cotangent of the
+// table is below 7e-5.
+// Shared memory: 16 bytes a bin where the float atomics took 4, so a detector row (two bins and
+// its float2) takes 40 bytes where it took 16: at G = 256 and 32 warps the backward fits K up to
+// 4,347 on an H100 (227 KB a block), where it fitted 11,062; the forward fits about 28,900.  Beyond it
+// the launch is refused and the wrapper names the most K that fits (logwts_max_k).  Two designs
+// set aside: per-warp partial bins combined in warp order
+// fit the bump table (G = 256 floats x 32 warps = 32 KB) but not the detector's 2K = 2,048 floats
+// x 32 warps, and the lanes of one warp would still need an order; rows sorted by detector bin
+// when the query table is built would still leave the bump bins, which move with theta.
+// Per-block partials in a scratch tensor, combined by the last block to finish, would need a
+// zeroed ticket per launch (a memset, or a reset by the last block that a failed launch would
+// leave dirty) and a round trip through L2 where the cluster reads its neighbours' shared memory
+// directly.
+
 // Query tables.  One table of N rows can serve every chain (the flagship fit: the chains share the
 // catalog), or each chain can read its own N rows (a fleet of fits, one catalog per chain, as the
 // calibration suite fits them): the table is then (C, N, 4) and chain c's rows start at c * N.
@@ -135,6 +164,15 @@ constexpr float LOG2 = 0.69314718055994531f;
 constexpr float MBH_MIN = 5.0f;
 constexpr float MREF = 30.0f;
 constexpr float QREF = 1.0f;
+// fixed-point table cotangents: units of 2^-40, split into words of 2^32 units
+constexpr double FX_ONE = 1099511627776.0;             // 2^40
+constexpr double FX_WORD = 4294967296.0;               // 2^32
+constexpr double FX_INV_WORD = 2.3283064365386963e-10;  // 2^-32
+constexpr double FX_HI_UNIT = 0.00390625;              // 2^-8: a hi word in units of one
+constexpr double FX_LO_UNIT = 9.094947017729282e-13;   // 2^-40
+constexpr float FX_RANGE = 4503599627370496.0f;        // 2^52: the bound on |v| N
+constexpr unsigned long long FX_MARK = 1ull << 63;     // a lo word's out-of-range mark
+constexpr int FX_MAX_N = 1 << 29;                      // the backward's rows a chain, below
 
 // scalar slots, as the Pallas layout (pallas_logwts.py:57-61); slots 13-14 (table
 // lengths) are kept for layout only: the kernel takes K and G as int arguments.
@@ -492,23 +530,45 @@ __device__ __forceinline__ void row_bwd(const Query& r, float g, const float* s,
   acc[DV] -= dpos * r.posz * s[INV_DV];
 }
 
-__device__ __forceinline__ void add_bins(const BinAdd& b, float* s_dbump) {
-  if (b.lo >= 0) {
-    atomicAdd(&s_dbump[b.lo], b.a);
-    atomicAdd(&s_dbump[b.lo + 1], b.b);
+// A chain's table-cotangent bins in shared memory, in fixed point (see the header): the hi and
+// lo words of each bin (bit 63 of lo marks a contribution out of range), and the limit on |v|.
+struct Bins {
+  unsigned long long* hi;
+  unsigned long long* lo;
+  float lim;
+};
+
+__device__ __forceinline__ void fx_add(const Bins& b, int bin, float v) {
+  if (v == 0.0f) return;
+  if (!(fabsf(v) < b.lim)) {  // also NaN and inf
+    atomicOr(&b.lo[bin], FX_MARK);
+    return;
+  }
+  const double x = rint((double)v * FX_ONE);
+  const double h = floor(x * FX_INV_WORD);
+  const double l = x - h * FX_WORD;  // exact: an integer in [0, 2^32)
+  atomicAdd(&b.hi[bin], (unsigned long long)(long long)h);
+  if (l != 0.0) atomicAdd(&b.lo[bin], (unsigned long long)l);
+}
+
+__device__ __forceinline__ void add_bins(const BinAdd& a, const Bins& b, int base) {
+  if (a.lo >= 0) {
+    fx_add(b, base + a.lo, a.a);
+    fx_add(b, base + a.lo + 1, a.b);
   }
 }
 
-// Adds one row's table cotangents to the block's shared-memory bins.
-__device__ __forceinline__ void add_row(const RowAdd& a, float* s_ddet, float* s_dbump) {
+// Adds one row's table cotangents to the block's bins: the detector's 2K interleaved
+// [d z, d log_jac] first, then the bump table's G.
+__device__ __forceinline__ void add_row(const RowAdd& a, const Bins& b, int K) {
   if (a.lo >= 0) {
-    atomicAdd(&s_ddet[2 * a.lo], a.gz * (1.0f - a.t));
-    atomicAdd(&s_ddet[2 * a.lo + 2], a.gz * a.t);
-    atomicAdd(&s_ddet[2 * a.lo + 1], a.g * (1.0f - a.t));
-    atomicAdd(&s_ddet[2 * a.lo + 3], a.g * a.t);
+    fx_add(b, 2 * a.lo, a.gz * (1.0f - a.t));
+    fx_add(b, 2 * a.lo + 2, a.gz * a.t);
+    fx_add(b, 2 * a.lo + 1, a.g * (1.0f - a.t));
+    fx_add(b, 2 * a.lo + 3, a.g * a.t);
   }
-  add_bins(a.b1, s_dbump);
-  add_bins(a.b2, s_dbump);
+  add_bins(a.b1, b, 2 * K);
+  add_bins(a.b2, b, 2 * K);
 }
 
 template <bool LSE, bool PER_CHAIN>
@@ -521,21 +581,27 @@ logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
                   float* __restrict__ d_det, float* __restrict__ d_bump,
                   float* __restrict__ d_scal, int K, int G, Work w) {
   extern __shared__ __align__(16) float smem[];
-  float2* s_det = reinterpret_cast<float2*>(smem);
-  float* s_bump = smem + 2 * K;
-  float* s_scal = s_bump + G;
-  float* s_ddet = s_scal + NSX_PAD;  // (2K,) interleaved [d z, d log_jac]
-  float* s_dbump = s_ddet + 2 * K;   // (G,)
-  float* s_dscal = s_dbump + G;      // (NS_PAD,)
-  float* s_red = s_dscal + NS_PAD;   // (NACC, blockDim.x)
-  const int n_out = 2 * K + G + NS_PAD;
+  const int nb = 2 * K + G;  // table-cotangent bins
+  Bins bins;
+  bins.hi = reinterpret_cast<unsigned long long*>(smem);          // (nb,)
+  bins.lo = bins.hi + nb;                                         // (nb,)
+  float2* s_det = reinterpret_cast<float2*>(bins.lo + nb);        // (K,)
+  float* s_bump = reinterpret_cast<float*>(s_det + K);            // (G,)
+  float* s_scal = s_bump + G;                                     // (NSX_PAD,)
+  float* s_dscal = s_scal + NSX_PAD;                              // (NS_PAD,)
+  float* s_red = s_dscal + NS_PAD;                                // (NACC, blockDim.x)
+  bins.lim = FX_RANGE / (float)max(w.N, 1);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int c = blockIdx.y;
   const float4* __restrict__ qc = PER_CHAIN ? qry + (size_t)c * w.N : qry;  // this chain's rows
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   load_tables(det, bump, scal, K, G, c, s_det, s_bump, s_scal);
-  for (int k = threadIdx.x; k < n_out; k += blockDim.x) s_ddet[k] = 0.0f;
+  for (int k = threadIdx.x; k < nb; k += blockDim.x) {
+    bins.hi[k] = 0ull;
+    bins.lo[k] = 0ull;
+  }
+  if (threadIdx.x < NS_PAD) s_dscal[threadIdx.x] = 0.0f;
   __syncthreads();
 
   float acc[NACC];
@@ -582,7 +648,7 @@ logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
       }
     }
 #pragma unroll
-    for (int j = 0; j < R_BWD; ++j) add_row(adds[j], s_ddet, s_dbump);
+    for (int j = 0; j < R_BWD; ++j) add_row(adds[j], bins, K);
   }
 
   // the block's scalar cotangents: once through shared memory, one warp per slot
@@ -596,18 +662,27 @@ logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
     if (lane == 0) s_dscal[k] = v;
   }
 
-  // the chain's cotangents: each block sums an eighth of the values over the cluster
+  // the chain's cotangents: each block sums an eighth of the values over the cluster, in rank order
   cluster.sync();
-  for (int i = rank * blockDim.x + threadIdx.x; i < n_out; i += CLUSTER * blockDim.x) {
-    float v = 0.0f;
+  const float nan = __int_as_float(0x7fc00000);
+  for (int i = rank * blockDim.x + threadIdx.x; i < nb + NS; i += CLUSTER * blockDim.x) {
+    if (i < nb) {
+      unsigned long long hi = 0ull, lo = 0ull, bad = 0ull;
 #pragma unroll
-    for (int r = 0; r < CLUSTER; ++r) v += cluster.map_shared_rank(s_ddet, r)[i];
-    if (i < 2 * K) {
-      d_det[(size_t)c * 2 * K + i] = v;
-    } else if (i < 2 * K + G) {
-      d_bump[(size_t)c * G + (i - 2 * K)] = v;
-    } else if (i - 2 * K - G < NS) {
-      d_scal[(size_t)c * NS + (i - 2 * K - G)] = v;
+      for (int r = 0; r < CLUSTER; ++r) {
+        const unsigned long long l = cluster.map_shared_rank(bins.lo, r)[i];
+        hi += cluster.map_shared_rank(bins.hi, r)[i];
+        lo += l & ~FX_MARK;
+        bad |= l & FX_MARK;
+      }
+      const float v = bad ? nan : (float)((double)(long long)hi * FX_HI_UNIT + (double)lo * FX_LO_UNIT);
+      if (i < 2 * K) d_det[(size_t)c * 2 * K + i] = v;
+      else d_bump[(size_t)c * G + (i - 2 * K)] = v;
+    } else {
+      float v = 0.0f;
+#pragma unroll
+      for (int r = 0; r < CLUSTER; ++r) v += cluster.map_shared_rank(s_dscal, r)[i - nb];
+      d_scal[(size_t)c * NS + (i - nb)] = v;
     }
   }
   cluster.sync();  // no block leaves while its shared memory may still be read
@@ -618,7 +693,9 @@ size_t fwd_smem(int K, int G, const Work& w, bool lse) {
 }
 
 size_t bwd_smem(int K, int G, int threads) {
-  return (4 * (size_t)K + 2 * (size_t)G + NSX_PAD + NS_PAD + (size_t)NACC * threads) * sizeof(float);
+  const size_t nb = 2 * (size_t)K + G;
+  return nb * 2 * sizeof(unsigned long long)
+         + (2 * (size_t)K + G + NSX_PAD + NS_PAD + (size_t)NACC * threads) * sizeof(float);
 }
 
 bool bad_shape(int C, int K, int G, int N, int qry_cs, int nobs, int nsamp) {  // qry_cs: 0 or N
@@ -627,6 +704,7 @@ bool bad_shape(int C, int K, int G, int N, int qry_cs, int nobs, int nsamp) {  /
 }
 
 constexpr int MAX_DEVICES = 64;
+constexpr int ERR_SMEM = -1;  // a launch that needs more shared memory than a block of the device has
 
 // The most dynamic shared memory a kernel has been allowed so far on each device, so that the
 // attribute is set when a launch first needs more than the default 48 KB, not on every launch.
@@ -643,6 +721,10 @@ int launch(Kernel kernel, SmemAllowed& allowed, int C, int threads, size_t smem,
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
     if (dev >= MAX_DEVICES || smem > allowed.bytes[dev]) {
+      int most = 0;
+      err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (err != cudaSuccess) return (int)err;
+      if (smem > (size_t)most) return ERR_SMEM;
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
       if (dev < MAX_DEVICES) allowed.bytes[dev] = smem;
@@ -682,7 +764,7 @@ extern "C" int logwts_fwd(const float* det, const float* bump, const float* scal
 extern "C" int logwts_bwd(const float* det, const float* bump, const float* scal, const float* qry,
                           const float* gout, float* d_det, float* d_bump, float* d_scal,
                           int C, int K, int G, int N, int qry_cs, void* stream) {
-  if (bad_shape(C, K, G, N, qry_cs, 0, 1)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(C, K, G, N, qry_cs, 0, 1) || N >= FX_MAX_N) return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   const Work w = make_work(N, 0, 1, R_BWD);
   const int threads = pick_threads(w, WARPS_BWD);
@@ -712,7 +794,7 @@ extern "C" int logwts_lse_bwd(const float* det, const float* bump, const float* 
                               const float* g_ev, int g_ev_s0, int g_ev_s1, const float* g_sel,
                               int g_sel_s0, float* d_det, float* d_bump, float* d_scal, int C,
                               int K, int G, int N, int qry_cs, int nobs, int nsamp, void* stream) {
-  if (bad_shape(C, K, G, N, qry_cs, nobs, nsamp)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(C, K, G, N, qry_cs, nobs, nsamp) || N >= FX_MAX_N) return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   const Work w = make_work(N, nobs, nsamp, R_BWD);
   const int threads = pick_threads(w, WARPS_BWD);
@@ -722,4 +804,21 @@ extern "C" int logwts_lse_bwd(const float* det, const float* bump, const float* 
                 det, bump, scal, reinterpret_cast<const float4*>(qry), (const float*)nullptr,
                 lse_ev, lse_sel, g_ev, g_ev_s0, g_ev_s1, g_sel, g_sel_s0, d_det, d_bump, d_scal,
                 K, G, w);
+}
+
+// The most detector-table rows K that a launch at (G, N, nobs, nsamp) fits in the shared memory of
+// a block of the current device (nobs = 0: the rows epilogue), or a negative CUDA error.  The
+// wrappers call it to name the limit when a launch was refused with ERR_SMEM.
+extern "C" int logwts_max_k(int backward, int G, int N, int nobs, int nsamp) {
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -(int)err;
+  const bool lse = nobs > 0;
+  const Work w = make_work(N, lse ? nobs : 0, lse ? nsamp : 1, backward ? R_BWD : R_FWD);
+  auto smem = [&](int K) {
+    return backward ? bwd_smem(K, G, pick_threads(w, WARPS_BWD)) : fwd_smem(K, G, w, lse);
+  };
+  const size_t at0 = smem(0), per_k = smem(1) - at0;
+  return (size_t)most < at0 ? 0 : (int)(((size_t)most - at0) / per_k);
 }

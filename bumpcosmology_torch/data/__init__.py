@@ -1,7 +1,9 @@
-"""Importance weights at fixed Planck18; see the JAX package's ``data``.
+"""L3: catalog ingestion and importance weighting; see the JAX package's ``data``.
 
-Only ``weights`` is ported so far (the mock campaign needs it); the GWTC
-loaders and resampling come in a later slice.
+``gwtc`` reads the GWTC PE releases and the O3 injection file, ``resample``
+redraws injections, ``rehearsal`` writes format-faithful input files from
+the mock universe and ``fetch`` downloads the real ones.  The readers and
+writers import h5py when they are called.
 """
 from bumpcosmology_torch.data.weights import (
     default_pop_wt,
@@ -13,3 +15,9 @@ from bumpcosmology_torch.data.weights import (
     planck18_dvc_dz_np,
     planck18_efunc_np,
 )
+from bumpcosmology_torch.data.gwtc import (
+    extract_posterior_samples,
+    extract_selection_samples,
+    RejectedEventError,
+)
+from bumpcosmology_torch.data.resample import resample_injections, importance_neff

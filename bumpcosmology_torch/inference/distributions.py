@@ -13,10 +13,11 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.special import log_ndtr, ndtri
 
 from bumpcosmology_torch.ops.special import softplus
 
-__all__ = ["Normal", "TruncatedNormal", "Uniform", "Distribution"]
+__all__ = ["Normal", "TruncatedNormal", "Uniform", "Distribution", "log_ndtr", "ndtri"]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -31,16 +32,16 @@ def _sigmoid_log_jac(u, width):
 
 @functools.lru_cache(maxsize=None)
 def _trunc_log_z(loc, scale, low, high) -> float:
-    def log_ndtr(v):
-        return float(torch.special.log_ndtr(torch.tensor(v, dtype=torch.float64)))
+    def log_ndtr64(v):
+        return float(log_ndtr(torch.tensor(v, dtype=torch.float64)))
 
     if low is None and high is None:
         return 0.0
     if high is None:
-        return log_ndtr(-(low - loc) / scale)
+        return log_ndtr64(-(low - loc) / scale)
     if low is None:
-        return log_ndtr((high - loc) / scale)
-    la, lb = log_ndtr((low - loc) / scale), log_ndtr((high - loc) / scale)
+        return log_ndtr64((high - loc) / scale)
+    la, lb = log_ndtr64((low - loc) / scale), log_ndtr64((high - loc) / scale)
     return lb + math.log1p(-math.exp(la - lb))
 
 
@@ -111,7 +112,7 @@ class TruncatedNormal(NamedTuple):
         lo_u = 0.0 if self.low is None else ndtr((self.low - self.loc) / self.scale)
         hi_u = 1.0 if self.high is None else ndtr((self.high - self.loc) / self.scale)
         u = lo_u + (hi_u - lo_u) * torch.rand(shape, generator=generator, device=device, dtype=dtype)
-        return self.loc + self.scale * torch.special.ndtri(u.clamp(1e-6, 1.0 - 1e-6))
+        return self.loc + self.scale * ndtri(u.clamp(1e-6, 1.0 - 1e-6))
 
     def unconstrain(self, x):
         if self.low is not None and self.high is not None:

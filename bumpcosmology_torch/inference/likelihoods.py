@@ -379,9 +379,14 @@ def pop_cosmo_segment_lse(sites: Dict[str, torch.Tensor], data: PopCosmoData,
 
 def pop_cosmo_loglike(sites: Dict[str, torch.Tensor], data: PopCosmoData,
                       n_grid: int = DEFAULT_N_GRID, n_z: int = 1024, dl_bounds=None,
-                      qry=None, plain: bool = False, build=None) -> torch.Tensor:
+                      qry=None, plain: bool = False, build=None, n_det=None) -> torch.Tensor:
     """Joint log-likelihood for sites of shape ``(C,)``; returns ``(C,)``:
-    :func:`pop_cosmo_segment_lse`'s two terms with their constants."""
+    :func:`pop_cosmo_segment_lse`'s two terms with their constants.
+
+    ``n_det`` is accepted for the JAX package's signature and changes
+    nothing: the detector table is built at ``n_z`` points, as the JAX package's
+    CPU and Pallas route builds it (``likelihoods.py:472``); its TPU bracket
+    path alone read ``n_det``."""
     nobs, nsamp = data.events.a.shape[-2:]
     lse_ev, lse_sel = pop_cosmo_segment_lse(sites, data, n_grid, n_z, dl_bounds, qry, plain, build)
     log_mu_sel = lse_sel - data.selection.log_ndraw
@@ -561,13 +566,18 @@ def pop_model_spec(data: PopData, n_grid: int = DEFAULT_N_GRID, device=None, pla
 
 
 def pop_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
-                         device=None, plain: bool = False) -> ModelSpec:
+                         device=None, plain: bool = False, n_det=None) -> ModelSpec:
     """The joint model as a :class:`ModelSpec` (15 sites) with ``data`` on
     ``device`` (``None`` means CUDA; raises without it).
 
     The dL bounds and the query table are fixed here, once.  ``plain=True``
     builds the same potential on the kernels' plain twins (the on-card
     comparison uses it; the main path does not).
+
+    ``n_det`` is accepted for the JAX package's signature and changes
+    nothing: the detector table is built at ``n_z`` points, as the JAX package's
+    CPU and Pallas route builds it (``likelihoods.py:472``); its TPU bracket
+    path alone read ``n_det``.
     """
     return _cosmo_spec(POP_COSMO_PRIORS, data, n_grid, n_z, device, plain)
 
@@ -624,8 +634,9 @@ def plpeak_loglike(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None
 
 
 def plpeak_cosmo_loglike(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
-                         dl_bounds=None, qry=None) -> torch.Tensor:
-    """Joint log-likelihood under POWER-LAW+PEAK (fused route with ``dl_bounds``)."""
+                         dl_bounds=None, qry=None, n_det=None) -> torch.Tensor:
+    """Joint log-likelihood under POWER-LAW+PEAK (fused route with ``dl_bounds``);
+    ``n_det`` as in :func:`pop_cosmo_loglike`, accepted and unused."""
     return pop_cosmo_loglike(sites, data, n_grid, n_z, dl_bounds, qry, build=_build_plpeak)
 
 
@@ -645,8 +656,9 @@ def brokenpl_loglike(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=No
 
 
 def brokenpl_cosmo_loglike(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
-                           dl_bounds=None, qry=None) -> torch.Tensor:
-    """Joint log-likelihood under BROKEN POWER LAW (fused route with ``dl_bounds``)."""
+                           dl_bounds=None, qry=None, n_det=None) -> torch.Tensor:
+    """Joint log-likelihood under BROKEN POWER LAW (fused route with ``dl_bounds``);
+    ``n_det`` as in :func:`pop_cosmo_loglike`, accepted and unused."""
     return pop_cosmo_loglike(sites, data, n_grid, n_z, dl_bounds, qry, build=_build_brokenpl)
 
 
@@ -696,8 +708,9 @@ def plpeak_model_spec(data: PopData, n_grid: int = DEFAULT_N_GRID, device=None) 
 
 
 def plpeak_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
-                            device=None) -> ModelSpec:
-    """The joint POWER-LAW+PEAK + flat-wCDM model (15 sites) on ``device`` (``None`` means CUDA)."""
+                            device=None, n_det=None) -> ModelSpec:
+    """The joint POWER-LAW+PEAK + flat-wCDM model (15 sites) on ``device`` (``None`` means CUDA).
+    ``n_det``: as in :func:`pop_cosmo_model_spec`, accepted and unused."""
     return _cosmo_spec(PLPEAK_COSMO_PRIORS, data, n_grid, n_z, device, build=_build_plpeak)
 
 
@@ -707,8 +720,9 @@ def brokenpl_model_spec(data: PopData, n_grid: int = DEFAULT_N_GRID, device=None
 
 
 def brokenpl_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
-                              device=None) -> ModelSpec:
-    """The joint BROKEN POWER LAW + flat-wCDM model (14 sites) on ``device`` (``None`` means CUDA)."""
+                              device=None, n_det=None) -> ModelSpec:
+    """The joint BROKEN POWER LAW + flat-wCDM model (14 sites) on ``device`` (``None`` means CUDA).
+    ``n_det``: as in :func:`pop_cosmo_model_spec`, accepted and unused."""
     return _cosmo_spec(BROKENPL_COSMO_PRIORS, data, n_grid, n_z, device, build=_build_brokenpl)
 
 

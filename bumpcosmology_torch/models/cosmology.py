@@ -24,14 +24,21 @@ from bumpcosmology_torch.ops.interp import interp, interp_unit_spaced, interp_un
 __all__ = [
     "HUBBLE_DISTANCE_H",
     "efunc",
+    "hubble_distance",
     "CosmologyTable",
     "build_cosmology",
     "DetectorFrameTable",
     "build_detector_table",
     "z_and_logjac_at_dl",
     "z_at_dl",
+    "z_at_dc",
+    "dc_at_z",
     "dl_at_z",
+    "ddl_dz_at_z",
+    "vc_at_z",
+    "dvc_dz_at_z",
     "dvc_and_ddl_at_z",
+    "log_diff_comoving_volume_rate",
     "planck18_table",
     "planck18_log_dvdz_grid",
 ]
@@ -47,6 +54,11 @@ def efunc(z, params: CosmoParams):
     return torch.sqrt(params.Om * opz * opz * opz + (1.0 - params.Om) * opz ** (3.0 * (1.0 + params.w)))
 
 
+def hubble_distance(params: CosmoParams):
+    """Hubble distance c/H0 in Gpc."""
+    return HUBBLE_DISTANCE_H / params.h
+
+
 class CosmologyTable(NamedTuple):
     """Distance/volume tables for one draw per chain; knots ``z[i] = expm1(u0 + i du)``."""
 
@@ -58,6 +70,11 @@ class CosmologyTable(NamedTuple):
     dl: torch.Tensor  # (C, n) luminosity distance
     ddl: torch.Tensor  # (C, n) d(dL)/dz
     dvc: torch.Tensor  # (C, n) dVc/dz = 4 pi dc^2 dH / E
+
+    @property
+    def vc(self) -> torch.Tensor:
+        """(C, n) comoving volume 4/3 pi dc^3, formed when read: the likelihood never reads it."""
+        return (4.0 / 3.0) * math.pi * self.dc * self.dc * self.dc
 
 
 def build_cosmology(params: CosmoParams, zmax: float = DEFAULT_ZMAX, n: int = DEFAULT_NZ) -> CosmologyTable:
@@ -81,9 +98,40 @@ def build_cosmology(params: CosmoParams, zmax: float = DEFAULT_ZMAX, n: int = DE
     )
 
 
+def _forward(table: CosmologyTable, z: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """O(1) lookup of a ``(C, n)`` table column at redshifts ``z`` of shape ``(C, M)``."""
+    return interp_unit_spaced(torch.log1p(z), table.u0, table.du, col)
+
+
+def dc_at_z(table: CosmologyTable, z: torch.Tensor) -> torch.Tensor:
+    """Comoving distance at redshifts ``z`` of shape ``(C, M)``."""
+    return _forward(table, z, table.dc)
+
+
 def dl_at_z(table: CosmologyTable, z: torch.Tensor) -> torch.Tensor:
     """Luminosity distance at redshifts ``z`` of shape ``(C, M)``."""
-    return interp_unit_spaced(torch.log1p(z), table.u0, table.du, table.dl)
+    return _forward(table, z, table.dl)
+
+
+def ddl_dz_at_z(table: CosmologyTable, z: torch.Tensor) -> torch.Tensor:
+    """d(dL)/dz at redshifts ``z`` of shape ``(C, M)``."""
+    return _forward(table, z, table.ddl)
+
+
+def vc_at_z(table: CosmologyTable, z: torch.Tensor) -> torch.Tensor:
+    """Comoving volume at redshifts ``z`` of shape ``(C, M)``."""
+    return _forward(table, z, table.vc)
+
+
+def dvc_dz_at_z(table: CosmologyTable, z: torch.Tensor) -> torch.Tensor:
+    """dVc/dz at redshifts ``z`` of shape ``(C, M)``."""
+    return _forward(table, z, table.dvc)
+
+
+def log_diff_comoving_volume_rate(table: CosmologyTable, z: torch.Tensor) -> torch.Tensor:
+    """log of 4 pi dVc/dz / (1+z), the comoving-volume x time-dilation measure
+    (``dvc`` already spans the 4 pi of sky)."""
+    return torch.log(_forward(table, z, table.dvc)) - torch.log1p(z)
 
 
 def dvc_and_ddl_at_z(table: CosmologyTable, z: torch.Tensor):
@@ -96,6 +144,11 @@ def dvc_and_ddl_at_z(table: CosmologyTable, z: torch.Tensor):
 def z_at_dl(table: CosmologyTable, dl: torch.Tensor) -> torch.Tensor:
     """Inverse lookup z(dL) for ``dl`` of shape ``(C, M)``."""
     return interp(dl, table.dl, table.z)
+
+
+def z_at_dc(table: CosmologyTable, dc: torch.Tensor) -> torch.Tensor:
+    """Inverse lookup z(dC) for ``dc`` of shape ``(C, M)``."""
+    return interp(dc, table.dc, table.z)
 
 
 class DetectorFrameTable(NamedTuple):

@@ -243,7 +243,24 @@ _SIGNATURES = {
     "logwts_bwd": ([_P] * 8 + [_I] * 5 + [_P], _I),
     "logwts_lse_fwd": ([_P] * 6 + [_I] * 7 + [_P], _I),
     "logwts_lse_bwd": ([_P] * 7 + [_I, _I, _P, _I] + [_P] * 3 + [_I] * 7 + [_P], _I),
+    "logwts_max_k": ([_I] * 5, _I),
 }
+_ERR_SMEM = -1  # csrc/logwts.cu's ERR_SMEM: the launch needs more shared memory than a block has
+
+
+def _raise_on(rc: int, what: str, k: int, g_len: int, n: int, nobs: int = 0, nsamp: int = 1) -> None:
+    """:func:`raise_on`, but a launch refused for its shared memory raises a
+    ``ValueError`` that names the most detector-table rows K (``fit.n_z``)
+    that fit at this shape.  The backward keeps its table cotangents in
+    64-bit fixed point (16 bytes a bin), so it reaches a smaller K than the
+    forward: 4,347 at G = 256 on an H100."""
+    if rc == _ERR_SMEM:
+        most = kernel_function("logwts", "logwts_max_k", _SIGNATURES)(int(what.endswith("_bwd")), g_len, n, nobs,
+                                                                        nsamp)
+        raise ValueError(f"{what}: a detector table of K = {k} rows (fit.n_z) with G = {g_len} bump bins needs "
+                         f"more shared memory than a block of this device has; at most K = {most} fit at "
+                         f"{n} query rows")
+    raise_on(rc, what)
 
 
 def _require_cuda_f32(t, name: str) -> None:
@@ -284,7 +301,7 @@ def _logwts_fwd_cuda(det, bump, scal, qry):
     rc = kernel_function("logwts", "logwts_fwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), out.data_ptr(),
         c, k, g_len, n, qry_cs, stream)
-    raise_on(rc, "logwts_fwd")
+    _raise_on(rc, "logwts_fwd", k, g_len, n)
     LAUNCHES["logwts_fwd" + ("_per_chain" if qry_cs else "")] += 1
     return out
 
@@ -299,7 +316,7 @@ def _logwts_bwd_cuda(det, bump, scal, qry, g):
     rc = kernel_function("logwts", "logwts_bwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), g.data_ptr(),
         d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), c, k, g_len, n, qry_cs, stream)
-    raise_on(rc, "logwts_bwd")
+    _raise_on(rc, "logwts_bwd", k, g_len, n)
     LAUNCHES["logwts_bwd" + ("_per_chain" if qry_cs else "")] += 1
     return d_det, d_bump, d_scal
 
@@ -312,7 +329,7 @@ def _logwts_lse_fwd_cuda(det, bump, scal, qry, nobs: int, nsamp: int):
     rc = kernel_function("logwts", "logwts_lse_fwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), lse_ev.data_ptr(),
         lse_sel.data_ptr(), c, k, g_len, n, qry_cs, nobs, nsamp, stream)
-    raise_on(rc, "logwts_lse_fwd")
+    _raise_on(rc, "logwts_lse_fwd", k, g_len, n, nobs, nsamp)
     LAUNCHES["logwts_lse_fwd" + ("_per_chain" if qry_cs else "")] += 1
     return lse_ev, lse_sel
 
@@ -335,7 +352,7 @@ def _logwts_lse_bwd_cuda(det, bump, scal, qry, lse_ev, lse_sel, g_ev, g_sel, nob
         lse_sel.data_ptr(), g_ev.data_ptr(), g_ev.stride(0), g_ev.stride(1), g_sel.data_ptr(),
         g_sel.stride(0), d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), c, k, g_len, n,
         qry_cs, nobs, nsamp, stream)
-    raise_on(rc, "logwts_lse_bwd")
+    _raise_on(rc, "logwts_lse_bwd", k, g_len, n, nobs, nsamp)
     LAUNCHES["logwts_lse_bwd" + ("_per_chain" if qry_cs else "")] += 1
     return d_det, d_bump, d_scal
 

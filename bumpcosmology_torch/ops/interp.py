@@ -15,26 +15,79 @@ extrapolation); gradients flow to the queries and to the table values.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["interp", "inverse_interp", "interp_unit_spaced", "interp_unit_spaced_columns", "unit_bracket"]
 
 
-def _take(fp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """fp[..., idx] for a 1-D table or a batched ``(*batch, K)`` table."""
-    if fp.dim() == 1:
-        return fp[idx]
-    return torch.gather(fp, -1, idx)
+class _Rows(torch.autograd.Function):
+    """``flat[idx]`` for a table's flattened rows ``flat`` ``(R, ...)``, with a
+    backward whose sums do not depend on the order of its atomics.
+
+    ``torch.gather``'s backward adds the cotangents of the entries that share
+    a row with float atomics, so the sum's rounding changes from launch to
+    launch on CUDA.  Here each row (and column) takes a power of two ``q``
+    with ``2^52 q`` above its largest cotangent times the count ``n`` of all
+    entries; the row's cotangents are rounded to multiples of ``q``, so every
+    partial sum is a multiple of ``q`` below ``2^53 q``, exact in float64,
+    and the row's sum is the same in any order.  A cotangent moves by at most
+    ``q/2``, below ``n 2^-52`` of its row's largest (5.6e-10 at ``n = 2.5e6``,
+    under the float32 rounding of the result unless the row's cotangents
+    cancel a hundredfold; a count per row would sharpen that for one more
+    pass over ``idx``); a row's scale never reaches another's, so chains that
+    diverge leave the others' rows as they are.  A row with a non-finite
+    cotangent is non-finite."""
+
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype = flat.shape, flat.dtype
+        return flat[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        g, rows = g.reshape(idx.numel(), -1), idx.reshape(-1)
+        largest = torch.zeros((ctx.shape[0], g.shape[1]), dtype=g.dtype, device=g.device).scatter_reduce_(
+            0, rows[:, None].expand_as(g), g.abs(), "amax")
+        # largest < 2^e (frexp); a row's total stays below n 2^e <= 2^(e + ceil(log2 n))
+        q = torch.exp2(torch.frexp(largest)[1].double() + (math.ceil(math.log2(max(rows.numel(), 1))) - 52))
+        sums = torch.zeros_like(q).index_add_(0, rows, torch.round(g.double() / q[rows]))
+        return (sums * q).to(ctx.dtype).reshape(ctx.shape), None
+
+
+def _bracket_rows(table: torch.Tensor, lo: torch.Tensor, row_dim: int):
+    """(rows ``lo``, rows ``lo + 1``) of ``table`` along ``row_dim`` (-1: a
+    value per row; -2: trailing columns), with the table's leading batch
+    axes matching ``lo``'s (``(*batch, M)``) or none.  On the card both rows
+    come from one index of the flattened table, whose backward sums in a
+    fixed order (:class:`_Rows`); the CPU's ``gather`` backward adds in
+    order already, so there it is kept."""
+    batch = table.shape[: table.dim() + row_dim]
+    if table.device.type == "cpu":
+        if row_dim == -1 and not batch:
+            take = lambda i: torch.gather(table, 0, i.reshape(-1)).reshape(i.shape)  # noqa: E731
+        elif row_dim == -1:
+            take = lambda i: torch.gather(table, -1, i)  # noqa: E731
+        else:
+            take = lambda i: torch.gather(table, -2, i.unsqueeze(-1).expand(*i.shape, table.shape[-1]))  # noqa: E731
+        return take(lo), take(lo + 1)
+    k = table.shape[row_dim]
+    starts = (torch.arange(batch.numel(), device=table.device).reshape(*batch, 1) * k if batch
+              else torch.zeros((1,) * lo.dim(), dtype=torch.long, device=table.device))
+    idx = lo + torch.stack((starts, starts + 1))
+    return _Rows.apply(table.reshape(-1, *table.shape[table.dim() + row_dim + 1:]), idx).unbind(0)
 
 
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     """Linear interpolation of ``fp`` given at increasing ``xp`` (searchsorted
     with ``right=True``, as the JAX package's gather form)."""
     n = xp.shape[-1]
-    hi = torch.searchsorted(xp.contiguous(), x.contiguous(), right=True).clamp(1, n - 1)
-    lo = hi - 1
-    x_lo, x_hi = _take(xp, lo), _take(xp, hi)
-    f_lo, f_hi = _take(fp, lo), _take(fp, hi)
+    lo = torch.searchsorted(xp.contiguous(), x.contiguous(), right=True).clamp(1, n - 1) - 1
+    x_lo, x_hi = _bracket_rows(xp, lo, -1)
+    f_lo, f_hi = _bracket_rows(fp, lo, -1)
     denom = x_hi - x_lo
     pos = denom > 0
     t = torch.where(pos, (x - x_lo) / torch.where(pos, denom, torch.ones_like(denom)), 0.0)
@@ -63,7 +116,7 @@ def interp_unit_spaced(x: torch.Tensor, x0, dx, fp: torch.Tensor) -> torch.Tenso
     """Linear interpolation on the uniform grid ``x0 + k*dx``; ``fp`` is
     ``(K,)`` or ``(*batch, K)``."""
     lo, t = unit_bracket(x, x0, dx, fp.shape[-1])
-    f_lo, f_hi = _take(fp, lo), _take(fp, lo + 1)
+    f_lo, f_hi = _bracket_rows(fp, lo, -1)
     return f_lo + t * (f_hi - f_lo)
 
 
@@ -72,7 +125,5 @@ def interp_unit_spaced_columns(x: torch.Tensor, x0, dx, cols: torch.Tensor) -> t
     columns share one bracket; returns ``(*batch, M, ncol)`` (the JAX
     package's ``(K, C)`` table case, with leading chain axes)."""
     lo, t = unit_bracket(x, x0, dx, cols.shape[-2])
-    idx = lo.unsqueeze(-1).expand(*lo.shape, cols.shape[-1])
-    f_lo = torch.gather(cols, -2, idx)
-    f_hi = torch.gather(cols, -2, idx + 1)
+    f_lo, f_hi = _bracket_rows(cols, lo, -2)
     return f_lo + t.unsqueeze(-1) * (f_hi - f_lo)

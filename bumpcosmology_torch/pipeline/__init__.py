@@ -1,1 +1,3 @@
-"""The pipeline stages of the port (L4/L6): the population-only and joint fits."""
+"""The pipeline of the port (L4/L6): ingestion, the fits, the mock universe,
+calibration and model comparison as stages of an artifact-cached DAG, and
+the CLI ``python -m bumpcosmology_torch.pipeline``."""

@@ -44,7 +44,8 @@ class IngestConfig:
     pe_seed: int = 232970088
     sel_seed: int = 727228188
     far_threshold: float = 1.0
-    # offline fallback of the data stages (not ported yet): rehearsal fixtures
+    # offline fallback of the fetch stage (CLI --rehearsal): format-faithful
+    # rehearsal fixtures from the mock universe, written with no download attempted
     rehearsal_fallback: bool = False
     rehearsal_events: int = 8
     rehearsal_campaign_ndraw: int = 200_000

@@ -1,10 +1,17 @@
 """Pipeline stages (L4); counterpart of the JAX package's
-``pipeline/stages.py``: the two fits, population-only and joint population +
-cosmology, for every mass family of ``likelihoods.MASS_FAMILIES``, and the
-mock-universe stages that turn the injection campaign into fit inputs:
+``pipeline/stages.py``: ingestion of the GWTC releases and the O3 injection
+file, the two fits, population-only and joint population + cosmology, for
+every mass family of ``likelihoods.MASS_FAMILIES``, and the mock-universe
+stages that turn the injection campaign into fit inputs:
 
+    _stage_fetch -> _stage_draw_pe_samples, _stage_draw_selection_samples
+                 -> run_pop_fit / run_pop_cosmo_fit
     _stage_mock_injections -> _stage_mock_observations -> _stage_mock_year_samples
                            -> _stage_mock_fit_inputs -> run_pop_fit / run_pop_cosmo_fit
+
+The ingestion stages read and write HDF5 (the releases' format) and need
+h5py; they write the fit inputs ``pe-samples.npz`` and
+``selection-samples.npz``, which the other stages read on a host without it.
 
 Tables are ``{column: numpy array}`` (:mod:`bumpcosmology_torch.utils.io`)
 and traces ``.npz`` stores (:mod:`bumpcosmology_torch.utils.trace`): the
@@ -21,16 +28,22 @@ The model-comparison stages read the fit inputs and the saved traces:
 key the arrays by the JAX package's HDF5 paths, with attributes under
 ``attrs/<name>`` and ``<group>/attrs/<name>``.
 Every stage runs on ``device`` (``None`` means CUDA; it raises without it).
-The DAG and the data stages are not ported yet.
+:func:`build_pipeline` assembles the stages into a :class:`~bumpcosmology_torch.pipeline.dag.Pipeline`;
+the JAX package's ``figures`` and ``report`` stages are not ported yet.
 """
 from __future__ import annotations
+
+import re
+from glob import glob
+from pathlib import Path
 
 import numpy as np
 
 from bumpcosmology_torch.pipeline.config import PipelineConfig
+from bumpcosmology_torch.pipeline.dag import Pipeline, Stage
 from bumpcosmology_torch.utils.io import read_table, write_table
 
-__all__ = ["group_events", "pop_data_from_tables", "pop_cosmo_data_from_tables", "run_pop_fit",
+__all__ = ["build_pipeline", "group_events", "pop_data_from_tables", "pop_cosmo_data_from_tables", "run_pop_fit",
            "run_pop_cosmo_fit", "mass_family", "write_sbc_artifact", "write_influence_artifact"]
 
 
@@ -68,6 +81,117 @@ def _nuts_config(cfg: PipelineConfig):
 
     return NutsConfig(max_depth=cfg.fit.max_depth, target_accept=cfg.fit.target_accept,
                       shared_mass=cfg.fit.shared_mass)
+
+
+# ------------------------------------------------------------------ ingestion
+
+
+def _require_h5py(stage: str) -> None:
+    """Raises the ``ImportError`` that tells where ingestion runs when h5py is absent."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError as err:
+        raise ImportError(
+            f"the {stage} stage reads and writes the releases' HDF5 files and needs h5py, which this host "
+            "lacks.  Ingestion (fetch, draw_pe_samples, draw_selection_samples) runs on a host that has h5py; "
+            "copy the input_manifest.json, pe-samples.npz and selection-samples.npz it writes into this "
+            "host's data directory, and the stages here find ingestion up to date and read them.") from err
+
+
+def _stage_fetch(cfg: PipelineConfig, device=None):
+    """Download the 56 GWTC PE releases and the O3 injection file from Zenodo
+    (``showyourwork.yml:27-94``), checking and resuming as needed.
+
+    When no usable input is left: with ``ingest.rehearsal_fallback`` (CLI
+    ``--rehearsal``), write rehearsal fixtures (their mock campaign's SNRs on
+    ``device``), else stop with what to do.  Under the rehearsal no download
+    is attempted (the JAX package tries one first): a rehearsal is for a
+    host without network."""
+    _require_h5py("fetch")
+    from bumpcosmology_torch.data.fetch import fetch_inputs
+    from bumpcosmology_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    offline = cfg.ingest.rehearsal_fallback
+    counts = fetch_inputs(cfg.paths.pe_raw_dir, cfg.paths.injection_file,
+                          manifest_out=str(cfg.paths.path("input_manifest.json")), offline=offline)
+    print("[fetch] {present} present, {downloaded} downloaded, {failed} failed".format(**counts)
+          + (" (offline: no download attempted)" if offline else ""))
+    have_pe = bool(glob(str(Path(cfg.paths.pe_raw_dir) / "*.h5")))
+    have_inj = Path(cfg.paths.injection_file).exists()
+    if have_pe and have_inj:
+        return
+    if not cfg.ingest.rehearsal_fallback:
+        raise RuntimeError(
+            f"fetch left no usable inputs (PE files: {have_pe}, injection file: {have_inj}).  Either (a) place "
+            f"the GWTC-2.1/GWTC-3 releases under {cfg.paths.pe_raw_dir} and the endo3 injection file at "
+            f"{cfg.paths.injection_file} by other means, or (b) rerun with --rehearsal (config: "
+            "ingest.rehearsal_fallback=true) to write format-faithful rehearsal fixtures and complete the "
+            "pipeline offline.")
+    print(f"[fetch] no usable inputs and rehearsal fallback enabled — writing {cfg.ingest.rehearsal_events} "
+          "rehearsal events + injection file (format-faithful mock inputs; see data/rehearsal.py)")
+    from bumpcosmology_torch.data.rehearsal import write_rehearsal_catalog
+
+    n = write_rehearsal_catalog(cfg.paths.pe_raw_dir, cfg.paths.injection_file,
+                                n_events=cfg.ingest.rehearsal_events,
+                                campaign_ndraw=cfg.ingest.rehearsal_campaign_ndraw,
+                                seed=cfg.ingest.rehearsal_seed, device=dev)
+    print(f"[fetch] rehearsal fallback wrote {n} PE files + injection file")
+
+
+def _stage_draw_pe_samples(cfg: PipelineConfig, device=None):
+    """``cfg.ingest.nsamp_pe`` samples of every accepted event, reweighted to
+    the fiducial population (its intensity on ``device``) → ``pe-samples.npz``
+    (columns ``m1 q z wt evt``); rejected events are skipped with a line."""
+    _require_h5py("draw_pe_samples")
+    from bumpcosmology_torch.data import RejectedEventError, default_pop_wt, extract_posterior_samples
+    from bumpcosmology_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(cfg.ingest.pe_seed)
+    files = sorted(glob(str(Path(cfg.paths.pe_raw_dir) / "*.h5")))
+    if not files:
+        raise FileNotFoundError(
+            f"no GWTC posterior files in {cfg.paths.pe_raw_dir} — run the 'fetch' stage (or place the "
+            "GWTC-2.1/GWTC-3 releases there by hand; offline, rerun with --rehearsal for format-faithful "
+            "fixtures)")
+    cols = {k: [] for k in ("m1", "q", "z", "wt", "evt")}
+    for f in files:
+        m = re.match(r"^.*(GW[0-9_]+[0-9]+).*\.h5$", f)
+        name = m[1] if m else Path(f).stem
+        try:
+            drawn = extract_posterior_samples(f, cfg.ingest.nsamp_pe, rng=rng,
+                                              desired_pop_wt=lambda m1, q, z: default_pop_wt(m1, q, z, device=dev))
+        except (RejectedEventError, ValueError) as err:
+            print(f"[draw_pe_samples] skipping {name}: {err}")
+            continue
+        for k, v in zip(("m1", "q", "z", "wt"), drawn):
+            cols[k].append(v)
+        cols["evt"].append(np.full(len(drawn[0]), name))
+    if not cols["evt"]:
+        raise ValueError(f"no event of the {len(files)} files in {cfg.paths.pe_raw_dir} passed ingestion")
+    write_table(cfg.paths.path("pe-samples.npz"), {k: np.concatenate(v) for k, v in cols.items()})
+
+
+def _stage_draw_selection_samples(cfg: PipelineConfig, device=None):
+    """``cfg.ingest.nsamp_sel`` detected injections, reweighted to the
+    fiducial population (on ``device``) → ``selection-samples.npz`` (columns
+    ``m1 q z pdraw ndraw``)."""
+    _require_h5py("draw_selection_samples")
+    from bumpcosmology_torch.data import default_pop_wt, extract_selection_samples
+    from bumpcosmology_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(cfg.ingest.sel_seed)
+    m1, q, z, pdraw, ndraw = extract_selection_samples(
+        cfg.paths.injection_file, cfg.ingest.nsamp_sel,
+        desired_pop_wt=lambda m1, q, z: default_pop_wt(m1, q, z, device=dev),
+        far_threshold=cfg.ingest.far_threshold, rng=rng)
+    write_table(cfg.paths.path("selection-samples.npz"),
+                {"m1": m1, "q": q, "z": z, "pdraw": pdraw, "ndraw": np.full(len(m1), ndraw)})
+
+
+# ----------------------------------------------------------------------- fits
 
 
 def run_pop_fit(cfg: PipelineConfig, pe_table=None, sel_table=None, trace_out=None, device=None):
@@ -805,3 +929,48 @@ def write_influence_artifact(out, model: str, names, infl: dict) -> None:
         for k in ("mean_loo", "delta_mean", "z"):
             arrays[f"{site}/{k}"] = np.asarray(v[k])
     np.savez(out, **arrays)
+
+
+# ------------------------------------------------------------------- assembly
+
+
+def build_pipeline(cfg: PipelineConfig, device=None) -> Pipeline:
+    """Every stage of the port with its inputs and ``.npz`` outputs under
+    ``cfg.paths.data_dir``, each run on ``device`` (``None`` means CUDA; a
+    stage raises without it when it runs).  The JAX package's ``figures``
+    and ``report`` stages are not ported yet."""
+    p = cfg.paths.path
+    loo_trace, loo_after = (("trace_cosmo.npz", "sample_cosmo") if cfg.loo.model == "pop_cosmo"
+                            else ("trace.npz", "sample"))
+    fit_inputs = [p("pe-samples.npz"), p("selection-samples.npz")]
+    return Pipeline([
+        Stage("fetch", lambda: _stage_fetch(cfg, device), outputs=[p("input_manifest.json")]),
+        Stage("draw_pe_samples", lambda: _stage_draw_pe_samples(cfg, device), outputs=[p("pe-samples.npz")],
+              after=["fetch"]),
+        Stage("draw_selection_samples", lambda: _stage_draw_selection_samples(cfg, device),
+              inputs=[Path(cfg.paths.injection_file)], outputs=[p("selection-samples.npz")], after=["fetch"]),
+        Stage("sample", lambda: run_pop_fit(cfg, device=device), inputs=fit_inputs, outputs=[p("trace.npz")],
+              after=["draw_pe_samples", "draw_selection_samples"]),
+        Stage("sample_cosmo", lambda: run_pop_cosmo_fit(cfg, device=device), inputs=fit_inputs,
+              outputs=[p("trace_cosmo.npz")], after=["draw_pe_samples", "draw_selection_samples"]),
+        Stage("mock_injections", lambda: _stage_mock_injections(cfg, device), outputs=[p("mock_injections.npz")]),
+        Stage("mock_observations", lambda: _stage_mock_observations(cfg, device),
+              inputs=[p("mock_injections.npz")], outputs=[p("mock_observations.npz")], after=["mock_injections"]),
+        Stage("mock_fit_inputs", lambda: _stage_mock_fit_inputs(cfg, device),
+              inputs=[p("mock_injections.npz"), p("mock_year_samples.npz")], outputs=fit_inputs,
+              after=["mock_year_samples"]),
+        Stage("sbc", lambda: _stage_sbc(cfg, device), outputs=[p("sbc_ranks.npz")]),
+        Stage("score_check", lambda: _stage_score_check(cfg, device), outputs=[p("score_check.npz")]),
+        Stage("loo", lambda: _stage_loo(cfg, device), inputs=fit_inputs + [p(loo_trace)],
+              outputs=[p("influence.npz")], after=[loo_after]),
+        Stage("compare", lambda: _stage_compare(cfg, device),
+              inputs=fit_inputs + [p("trace.npz"), p("trace_cosmo.npz")], outputs=[p("model_compare.npz")],
+              after=["sample", "sample_cosmo"]),
+        Stage("ppc", lambda: _stage_ppc(cfg, device), inputs=fit_inputs + [p("trace.npz")], outputs=[p("ppc.npz")],
+              after=["sample"]),
+        Stage("prior_sens", lambda: _stage_prior_sens(cfg, device), inputs=[p("trace.npz")],
+              outputs=[p("prior_sensitivity.npz")], after=["sample"]),
+        Stage("mock_year_samples", lambda: _stage_mock_year_samples(cfg, device),
+              inputs=[p("mock_injections.npz"), p("mock_observations.npz")], outputs=[p("mock_year_samples.npz")],
+              after=["mock_observations"]),
+    ])

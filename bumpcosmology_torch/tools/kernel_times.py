@@ -22,7 +22,8 @@ power limit.  Needs one NVIDIA GPU and nvcc.
   3's limits); where it takes a query table per chain, also the shared table
   copied once per chain (``*_copied``, 16 x 38,912 x 4) and 20 distinct
   per-chain tables of 2,816 rows (``*_per_chain``, the SBC fleet's shape,
-  ``chip_smoke.fleet_queries``).
+  ``chip_smoke.fleet_queries``) and the leave-one-out fleet's 56 tables of
+  38,656 rows (``*_per_chain_loo``, ``influence.make_loo_datas``).
 * ``--kernel c``: ``csrc/snr.cu`` on the rows of phase 6's 10^7-draw campaign
   (the same draws as ``chip_smoke.run_campaign``'s, about 7 s of host draws a run), phase 6's
   limits (rtol 2e-5 / atol 1e-6, the same exact zeros) and timers (5 calls in
@@ -138,11 +139,14 @@ def kernel_b_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
 
 def per_chain_layouts(data, sites, tables, qry, row, gen):
     """Kernel B on (C, N, 4) query tables: the shared table copied per chain,
-    and the SBC fleet's 20 distinct tables (both held by ``chip_smoke.b_against_twin``)."""
+    the SBC fleet's 20 distinct tables and the leave-one-out fleet's 56 (each
+    held by ``chip_smoke.b_against_twin``)."""
     import torch
 
+    from bumpcosmology_torch.inference.influence import make_loo_datas
+    from bumpcosmology_torch.inference.likelihoods import query_table
     from bumpcosmology_torch.ops import cuda_logwts as kb
-    from chip_smoke import SBC_NOBS, SBC_NSAMP, SBC_SIMS, b_against_twin, b_tables, fleet_queries
+    from chip_smoke import SBC_NOBS, SBC_NSAMP, SBC_SIMS, b_against_twin, b_tables, fleet_queries, tiled_sites
 
     nobs, nsamp = data.events.a.shape
     c = tables[0].shape[0]
@@ -158,6 +162,14 @@ def per_chain_layouts(data, sites, tables, qry, row, gen):
                                           errs["lse_fwd"])
     out["logwts_lse_bwd_per_chain"] = row(
         lambda: kb._logwts_lse_bwd_cuda(*t20, fq, lse_ev, lse_sel, g_ev, g_sel, SBC_NOBS, SBC_NSAMP), errs["lse_bwd"])
+    with torch.no_grad():
+        lq = query_table(make_loo_datas(data))
+    t56 = b_tables(tiled_sites(sites, lq.shape[0]), data)
+    errs, _, (lse_ev, lse_sel), (_, g_ev, g_sel) = b_against_twin("B per-chain LOO", t56, lq, nobs - 1, nsamp, gen)
+    out["logwts_lse_fwd_per_chain_loo"] = row(lambda: kb._logwts_lse_fwd_cuda(*t56, lq, nobs - 1, nsamp),
+                                              errs["lse_fwd"])
+    out["logwts_lse_bwd_per_chain_loo"] = row(
+        lambda: kb._logwts_lse_bwd_cuda(*t56, lq, lse_ev, lse_sel, g_ev, g_sel, nobs - 1, nsamp), errs["lse_bwd"])
     return out
 
 

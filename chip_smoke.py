@@ -12,8 +12,9 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
 (phase 5) and fitted from prior draws to a trace (phase 7) — and the paths
 beside it: the mock stages (phase 6), the population-only fit (phase 8), the
 ChEES samplers (phase 9), the other two mass families in both fits (phase
-10), the calibration suite (phase 11) and model comparison (phase 12); and
-it holds every CUDA kernel against its plain PyTorch twin:
+10), the calibration suite (phase 11), model comparison (phase 12) and the
+pipeline's command line (phase 13); and it holds every CUDA kernel against
+its plain PyTorch twin:
 
 1. build every kernel from ``bumpcosmology_torch/csrc`` (one nvcc per source),
    and time the card's launch floor: an empty kernel through the same ctypes
@@ -27,7 +28,8 @@ it holds every CUDA kernel against its plain PyTorch twin:
 3. kernel B (detector-frame log-weights) at full size, N=38,912, K=1024,
    G=256, C=16, both epilogues, forward and backward.  ``rows``: values rtol
    2e-5 / atol 2e-5 (the same -inf rows), every cotangent rtol 5e-4 with atol
-   5e-4 x the largest reference entry (float32 atomics sum in another order).
+   5e-4 x the largest reference entry (the twin's float32 scatter sums in
+   another order than the kernel's fixed-point bins).
    ``lse`` (56 per-event and one selection log-sum-exp per chain, and the
    cotangents from a random (C, nobs) + (C,) cotangent): the same limits.
    Then B's query table per chain: the shared table copied once per chain
@@ -36,10 +38,13 @@ it holds every CUDA kernel against its plain PyTorch twin:
    against the twin at the same limits, both epilogues, both ways; and so
    are phase 12's shapes: the shared table at C = 64 (compare's batch) and
    the leave-one-out fleet's 56 per-chain tables of 38,656 rows (the
-   flagship without one event each, 34.6 MB);
+   flagship without one event each, 34.6 MB).  At the shared C = 16 shape
+   and both per-chain shapes, two backward launches on the same inputs must
+   agree bit for bit, both epilogues (the table cotangents are summed in
+   fixed point);
 4. the 16-chain potential value+grad (through the ``lse`` epilogue), kernels
    against twins: |dU|/(1+|U|) < 2e-4 and |dgrad|/(1+|grad|) < 5e-3, timed with
-   CUDA events;
+   CUDA events; two value+grads at the same thetas must agree bit for bit;
 5. ``run_sampling`` for a few NUTS draws, then the effective-sample-size
    diagnostics (``pop_cosmo_event_sel_logwts`` and ``selection_neff_terms``, the
    ``rows`` epilogue) on the last draw of every chain, with every launch count
@@ -131,11 +136,28 @@ it holds every CUDA kernel against its plain PyTorch twin:
    5): 56 chains through B's per-chain tables, one launch of each kernel each
    way per batched value+grad, the fleet potential of 3 catalogs card
    against CPU at phase 4's limits, every influence z finite.  elpd, p_loo,
-   k̂, log Z and the p-values are printed, not held (short traces).
+   k̂, log Z and the p-values are printed, not held (short traces);
+13. the command line, ``bumpcosmology_torch.pipeline.__main__.main``, into a
+   fresh data directory holding copies of phase 6's ``pe-samples.npz`` and
+   ``selection-samples.npz`` and the record of an ingestion made elsewhere
+   (``fetch_inputs(offline=True)``: no download is attempted): ``list``
+   (ingestion fresh, ``sample_cosmo`` stale), then ``sample_cosmo`` at the
+   catalog's full width cut in depth only (4 chains, 20 warmup steps, 8
+   draws, ``max_depth`` 4), every launch count set to 0 just before and
+   read just after: kernel A and B's ``lse`` epilogue once per batched
+   value+grad (the forwards also for the prior draws' potentials), B's
+   ``rows`` forward once for the deterministics; the trace must load with
+   every site finite at (4, 8[, k]); then ``sample_cosmo`` again, which must
+   report ``up to date`` and launch nothing.  At that path's shape (the
+   catalog's 102,912 rows under the trace's last draw of each chain, C = 4)
+   kernel B, both epilogues both ways, is held against its twin at phase
+   3's limits and its backward twice bit for bit, and the potential's
+   value+grad against the plain twins at phase 4's limits and twice bit for
+   bit.
 
 The ``kernels`` line's ``launches`` are phase 7's (the joint fit, C: phase
 6's stages, B's per-chain rows: phase 11b's, and at the LOO fleet's shape
-phase 12d's); ``launches_by_path`` gives every path, phases 6-12.  Every kernel is
+phase 12d's); ``launches_by_path`` gives every path, phases 6-13.  Every kernel is
 timed twice: ``ms`` is its device time (20 launches captured
 in one CUDA graph and replayed, so the host's queueing rate is out of the
 figure), ``call_ms`` the time of one call of its Python wrapper as the main
@@ -228,6 +250,8 @@ FLEET_CPU_SIMS = 3
 # phase 12: model comparison at CompareConfig's and PpcConfig's defaults over the traces of phases 7, 8 and 10b;
 # the leave-one-out fleet (56 chains, each the flagship without one event) cut as phase 11 cuts the SBC fleet
 COMPARE_BATCH = 64
+# phase 13: the command line's sample_cosmo on phase 6's fit inputs, cut in depth only
+CLI_CHAINS, CLI_WARMUP, CLI_SAMPLES, CLI_DEPTH = 4, 20, 8, 4
 LOO_WARMUP, LOO_SAMPLES, LOO_DEPTH = 30, 32, 5
 COMPARE_CPU_DRAWS = 64
 
@@ -598,15 +622,19 @@ def run(mock_dir: Path) -> int:
         f"{float(distinct[n_ev_warps:].mean()):.2f} (min {int(distinct[n_ev_warps:].min())})")
     rows.update(kernel_b_layouts(tag, data, sites, tables, qry, gen))
     rows.update(kernel_b_comparison_shapes(tag, data, sites, qry, gen))
+    kernel_b_repeats(tag, data, sites, tables, qry, gen)
     phase_done("3_kernel_b")
 
     # ---- phase 4: potential value+grad ----------------------------------
     pot, pot_plain = make_potential(spec), make_potential(spec_plain)
     u_k, g_k = value_and_grad(pot, theta)
     u_p, g_p = value_and_grad(pot_plain, theta)
+    u_k2, g_k2 = value_and_grad(pot, theta)
     torch.cuda.synchronize()
     if not (torch.isfinite(u_k).all() and torch.isfinite(g_k).all()):
         raise AssertionError("potential: non-finite value or gradient at the warm thetas")
+    if not (torch.equal(u_k, u_k2) and torch.equal(g_k, g_k2)):
+        raise AssertionError("potential: two value+grads at the same thetas differ")
     du = float(((u_k - u_p).abs() / (1.0 + u_p.abs())).max())
     dg = float(((g_k - g_p).abs() / (1.0 + g_p.abs())).max())
     if du >= 2e-4 or dg >= 5e-3:
@@ -615,7 +643,8 @@ def run(mock_dir: Path) -> int:
     vg_ms = cuda_ms(lambda: value_and_grad(pot, theta), reps=10)
     vg_plain_ms = cuda_ms(lambda: value_and_grad(pot_plain, theta), reps=10)
     log(f"{tag} phase 4 potential (C={c}, 15 sites): |dU|/(1+|U|) {du:.3e}, "
-        f"|dgrad|/(1+|grad|) {dg:.3e}; batched value+grad {vg_ms:.3f} ms with the kernels, "
+        f"|dgrad|/(1+|grad|) {dg:.3e}; two value+grads bit-identical (value and gradient); batched value+grad "
+        f"{vg_ms:.3f} ms with the kernels, "
         f"{vg_plain_ms:.3f} ms with the plain twins (CUDA events, mean of 10)")
     phase_done("4_potential")
 
@@ -719,6 +748,10 @@ def run(mock_dir: Path) -> int:
     phase_done("12_model_comparison")
     for k in ("logwts_lse_fwd_per_chain", "logwts_lse_bwd_per_chain"):  # at the LOO fleet's shape: 12d
         launches[k + "_loo"] = comparison_launches["12d_loo"][k]
+
+    # ---- phase 13: the pipeline's command line ------------------------------
+    cli_launches = cli_phase(tag, mock_dir)
+    phase_done("13_cli")
     log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
 
     sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
@@ -761,7 +794,7 @@ def run(mock_dir: Path) -> int:
             ("9a_nuts_chees", hybrid_launches), ("9b_chees_pop", chees_launches),
             ("10a_brokenpl_pop_fit", brokenpl_launches), ("10b_plpeak_joint_fit", plpeak_launches),
             ("11a_sbc_pop", sbc_pop_launches), ("11b_sbc_pop_cosmo", sbc_cosmo_launches),
-            ("11c_score_check", score_launches), *comparison_launches.items())}
+            ("11c_score_check", score_launches), *comparison_launches.items(), ("13_cli_sample_cosmo", cli_launches))}
         kernels.append(dict(name=name, route="cuda", source=sources[name.split("_")[0]],
                             replaces=replaces[name], launches=launches[name], launches_by_path=by_path,
                             max_abs_err=row["max_abs_err"], ms=row["ms"], call_ms=row["call_ms"],
@@ -772,6 +805,163 @@ def run(mock_dir: Path) -> int:
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def cli_phase(tag: str, inputs_dir: Path) -> dict:
+    """Phase 13: ``python -m bumpcosmology_torch.pipeline`` through its
+    ``main``, on the card (its default device), into a fresh data directory
+    with copies of the fit inputs in ``inputs_dir`` (phase 6's) and an
+    ingestion record written offline; see the module docstring.  Returns the
+    launch counts of the ``sample_cosmo`` run."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from bumpcosmology_torch.data.fetch import fetch_inputs
+    from bumpcosmology_torch.inference import sampler
+    from bumpcosmology_torch.pipeline.__main__ import main
+    from bumpcosmology_torch.utils.trace import load_trace
+
+    def cli(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]}: exit code {rc}")
+        return out.getvalue()
+
+    calls = {"value_grad": 0, "value": 0}
+    real_fit = sampler.fit
+
+    def fit(spec, *args, **kwargs):
+        def counted(sites):  # one call per batched potential: with gradients on, a value+grad
+            calls["value_grad" if torch.is_grad_enabled() else "value"] += 1
+            return spec.loglike(sites)
+
+        return real_fit(spec._replace(loglike=counted), *args, **kwargs)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        data = Path(tmp) / "run"
+        data.mkdir()
+        for name in ("pe-samples.npz", "selection-samples.npz"):
+            shutil.copy(inputs_dir / name, data / name)
+        # the record of an ingestion made on another host; offline: no download is attempted
+        fetch_inputs(data / "pe-samples-raw", data / "endo3_bbhpop-LIGO-T2100113-v12.hdf5",
+                     manifest_out=str(data / "input_manifest.json"), offline=True)
+        # --rehearsal keeps the fetch stage offline should it ever run here
+        raw = [f"paths.pe_raw_dir={data / 'pe-samples-raw'}",
+               f"paths.injection_file={data / 'endo3_bbhpop-LIGO-T2100113-v12.hdf5'}"]
+        argv = ["sample_cosmo", "--data-dir", str(data), "--rehearsal", f"fit.num_chains={CLI_CHAINS}",
+                f"fit.num_warmup={CLI_WARMUP}", f"fit.num_samples={CLI_SAMPLES}", f"fit.max_depth={CLI_DEPTH}", *raw]
+        listing = {line.split()[0]: line.split()[1]
+                   for line in cli(["list", "--data-dir", str(data), *raw]).splitlines()}
+        want = {"fetch": "[fresh]", "draw_pe_samples": "[fresh]", "draw_selection_samples": "[fresh]",
+                "sample_cosmo": "[stale]"}
+        if any(listing.get(k) != v for k, v in want.items()):
+            raise AssertionError(f"cli list: {listing}")
+        sampler.fit = fit
+        try:
+            _zero_counters()
+            t0 = time.perf_counter()
+            first = cli(argv)
+            wall = time.perf_counter() - t0
+            launches = _read_counters()
+        finally:
+            sampler.fit = real_fit
+        _zero_counters()
+        t0 = time.perf_counter()
+        second = cli(argv)
+        wall2 = time.perf_counter() - t0
+        again = _read_counters()
+        trace = load_trace(data / "trace_cosmo.npz")
+        shape_checks = cli_shape_checks(data, trace)
+        pe = np.load(data / "pe-samples.npz")
+        n_events = len(np.unique(pe["samples/evt"]))
+        n_rows = int(pe["samples/m1"].shape[0]) + int(np.load(data / "selection-samples.npz")["samples/m1"].shape[0])
+
+    chains, draws = CLI_CHAINS, CLI_SAMPLES
+    n_vg, n_prior = calls["value_grad"], calls["value"]
+    n_chunks = -(-chains * draws // 128)
+    ok = (launches["bump_bwd"] == launches["logwts_lse_bwd"] == n_vg > 0 and launches["logwts_fwd"] == n_chunks
+          and launches["bump_fwd"] == launches["logwts_lse_fwd"] + n_chunks == n_vg + n_prior + n_chunks
+          and launches["logwts_bwd"] == 0 and 1 <= n_prior <= 50)
+    if not ok:
+        raise AssertionError(f"cli sample_cosmo: not one launch of A and B each way per value+grad ({n_vg}), "
+                             f"{n_chunks} forwards for the deterministics: {launches}")
+    if "[pipeline] sample_cosmo: running..." not in first or "[pipeline] sample_cosmo: up to date" not in second:
+        raise AssertionError(f"cli sample_cosmo: the first run did not run the fit or the second did not report "
+                             f"it up to date:\n{first[-2000:]}\n{second[-2000:]}")
+    if any(again.values()) or "running" in second:
+        raise AssertionError(f"cli sample_cosmo: the up-to-date run launched {again}")
+    bad = [k for k, v in trace.posterior.items() if v.shape[:2] != (chains, draws) or not np.isfinite(v).all()]
+    if bad or trace.attrs.get("model") != "pop_cosmo":
+        raise AssertionError(f"cli sample_cosmo: trace sites not finite at ({chains}, {draws}): {bad}; "
+                             f"attrs {trace.attrs}")
+    log(f"{tag} phase 13 cli: list, then sample_cosmo ({n_events} events, {n_rows} rows, {chains} chains, "
+        f"{CLI_WARMUP} warmup steps, {draws} draws, max_depth {CLI_DEPTH}) in {wall:.2f} s wall: {n_vg} batched "
+        f"value+grads, {n_prior} prior "
+        f"potentials, launches {launches}; the trace reads back finite at ({chains}, {draws}); again: up to "
+        f"date in {wall2:.2f} s, launches {sum(again.values())}")
+    log(f"{tag} phase 13 at the CLI's shape: {shape_checks}")
+    return launches
+
+
+def cli_shape_checks(data_dir: Path, trace, dev=None) -> str:
+    """Phase 13's shape held against the plain versions: the joint data of
+    the CLI's fit inputs in ``data_dir`` (phase 6's mock catalog, 796 events
+    x 128 samples + 1,024 selection rows) under the ``trace``'s last draw of
+    each chain.  Kernel B, both epilogues both ways, against its twin at
+    phase 3's limits (:func:`b_against_twin`) and its backward twice, bit for
+    bit (:func:`b_backward_repeats`); the potential's value+grad with the
+    kernels against the plain twins at phase 4's limits, and twice, bit for
+    bit.  Runs on the card unless ``dev`` says otherwise.  Returns a line of
+    the results."""
+    import numpy as np
+    import torch
+
+    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_model_spec, query_table
+    from bumpcosmology_torch.inference.model import constrain, make_potential, unconstrain, value_and_grad
+    from bumpcosmology_torch.pipeline.stages import pop_cosmo_data_from_tables
+    from bumpcosmology_torch.utils.io import read_table
+
+    dev = torch.device("cuda") if dev is None else dev
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    jd = pop_cosmo_data_from_tables(read_table(data_dir / "pe-samples.npz"),
+                                    read_table(data_dir / "selection-samples.npz"), dev)
+    spec, spec_plain = (pop_cosmo_model_spec(jd, N_GRID, N_Z, device=dev, plain=plain) for plain in (False, True))
+    last = {k: torch.as_tensor(np.asarray(trace.posterior[k])[:, -1], dtype=torch.float32, device=dev)
+            for k in spec.names}
+    theta = unconstrain(spec, last)
+    if not bool(torch.isfinite(theta).all()):
+        raise AssertionError("cli shape: the trace's last draws do not map to finite unconstrained thetas")
+    with torch.no_grad():
+        tables = b_tables(constrain(spec, theta), jd)
+    qry = query_table(jd)
+    nobs, nsamp = jd.events.a.shape
+    errs = b_against_twin("B cli", tables, qry, nobs, nsamp, gen)[0]
+    shape = b_backward_repeats("B cli", tables, qry, nobs, nsamp, gen)
+    pot, pot_plain = make_potential(spec), make_potential(spec_plain)
+    u_k, g_k = value_and_grad(pot, theta)
+    u_p, g_p = value_and_grad(pot_plain, theta)
+    u_k2, g_k2 = value_and_grad(pot, theta)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(u_k).all() and torch.isfinite(g_k).all()):
+        raise AssertionError("cli shape: non-finite potential or gradient at the trace's last draws")
+    if not (torch.equal(u_k, u_k2) and torch.equal(g_k, g_k2)):
+        raise AssertionError("cli shape: two value+grads at the same thetas differ")
+    du = float(((u_k - u_p).abs() / (1.0 + u_p.abs())).max())
+    dg = float(((g_k - g_p).abs() / (1.0 + g_p.abs())).max())
+    if du >= 2e-4 or dg >= 5e-3:
+        raise AssertionError(f"cli shape: potential kernels vs plain |dU|/(1+|U|) {du:.3e}, "
+                             f"|dgrad|/(1+|grad|) {dg:.3e}")
+    fmt = json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+    return (f"kernel B ({shape}, {nobs} events x {nsamp} samples, K={tables[0].shape[1]}) max|err| against the "
+            f"twin {fmt}, two backward launches bit-identical; potential |dU|/(1+|U|) {du:.3e}, |dgrad|/(1+|grad|) "
+            f"{dg:.3e} against the plain twins, two value+grads bit-identical")
 
 
 def device_busy_share(run, label: str, n_vg=None) -> str:
@@ -1577,6 +1767,54 @@ def b_against_twin(label: str, tables, qry, nobs: int, nsamp: int, gen):
                     check_close(f"{label} lse selection", res_l[0][1], res_l[1][1], rtol=2e-5, atol=2e-5)),
         lse_bwd=check_cotangents(f"{label} lse", res_l[0][2:], res_l[1][2:]))
     return errs, res[0][0], res_l[0][:2], (g_rows * torch.isfinite(res[0][0]), g_ev, g_sel)
+
+
+def b_backward_repeats(label: str, tables, qry, nobs: int, nsamp: int, gen) -> str:
+    """Kernel B's backward, both epilogues, launched twice on the same inputs
+    ((N, 4) or (C, N, 4) query rows, random cotangents): the two results must
+    agree bit for bit (the table cotangents are summed in fixed point, the
+    scalars and the cluster's combine in a fixed order).  Returns the shape."""
+    import torch
+
+    from bumpcosmology_torch.ops import cuda_logwts as kb
+
+    c, n = tables[0].shape[0], qry.shape[-2]
+    dev = qry.device
+    out = kb._logwts_fwd_cuda(*tables, qry)
+    g_rows = torch.randn((c, n), generator=gen, device=dev) * torch.isfinite(out)
+    lse_ev, lse_sel = kb._logwts_lse_fwd_cuda(*tables, qry, nobs, nsamp)
+    g_ev = torch.randn((c, nobs), generator=gen, device=dev)
+    g_sel = torch.randn((c,), generator=gen, device=dev)
+    for way, fn in (("rows", lambda: kb._logwts_bwd_cuda(*tables, qry, g_rows)),
+                    ("lse", lambda: kb._logwts_lse_bwd_cuda(*tables, qry, lse_ev, lse_sel, g_ev, g_sel, nobs, nsamp))):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        differ = [name for name, x, y in zip(("d_det", "d_bump", "d_scal"), first, second) if not torch.equal(x, y)]
+        if differ:
+            raise AssertionError(f"{label} {way} backward: two launches on the same inputs differ in {differ}")
+    return f"{c} x {n}" + (" per chain" if qry.dim() == 3 else " shared")
+
+
+def kernel_b_repeats(tag: str, data, sites, tables, qry, gen) -> None:
+    """Phase 3, fourth part: :func:`b_backward_repeats` at every shape the
+    phase runs B at: the shared table at C = 16 x 38,912 rows, and a query
+    table per chain at the SBC fleet's 20 x 2,816 and the leave-one-out
+    fleet's 56 x 38,656 rows."""
+    import torch
+
+    from bumpcosmology_torch.inference.influence import make_loo_datas
+    from bumpcosmology_torch.inference.likelihoods import query_table
+
+    nobs, nsamp = data.events.a.shape
+    shapes = [b_backward_repeats("B", tables, qry, nobs, nsamp, gen)]
+    shapes.append(b_backward_repeats("B per-chain", b_tables(tiled_sites(sites, SBC_SIMS), data),
+                                     fleet_queries(data, SBC_SIMS, gen), SBC_NOBS, SBC_NSAMP, gen))
+    with torch.no_grad():
+        lq = query_table(make_loo_datas(data))
+    shapes.append(b_backward_repeats("B per-chain LOO", b_tables(tiled_sites(sites, lq.shape[0]), data), lq,
+                                     nobs - 1, nsamp, gen))
+    log(f"{tag} phase 3 kernel B: two backward launches bit-identical (d_det, d_bump, d_scal; rows and lse "
+        f"epilogues) at {', '.join(shapes)}")
 
 
 def kernel_b_layouts(tag: str, data, sites, tables, qry, gen):

@@ -146,6 +146,52 @@ def test_logwts_per_chain_queries_match_plain_and_the_shared_table(dev):
 
 
 
+@pytest.mark.parametrize("layout", ["shared", "per_chain"])
+def test_logwts_backward_is_bit_identical_between_launches(dev, layout):
+    """Two launches of kernel B's backward on the same inputs agree bit for
+    bit, both epilogues, with the shared query table and with one a chain:
+    the table cotangents are summed in fixed point, so the order in which
+    the rows reach a bin does not show in the result."""
+    rng = np.random.default_rng(11)
+    c, nobs, nsamp, nsel = 8, 24, 256, 6000
+    n = nobs * nsamp + nsel
+    tables, qry = _logwts_inputs(rng, dev, c, 1024, 256, n)
+    if layout == "per_chain":
+        qry = torch.stack([qry[torch.as_tensor(rng.permutation(n), device=dev)] for _ in range(c)])
+    out = cuda_logwts._logwts_fwd_cuda(*tables, qry)
+    g = torch.as_tensor(rng.normal(size=(c, n)).astype(np.float32), device=dev) * torch.isfinite(out)
+    lse_ev, lse_sel = cuda_logwts._logwts_lse_fwd_cuda(*tables, qry, nobs, nsamp)
+    g_ev = torch.as_tensor(rng.normal(size=(c, nobs)).astype(np.float32), device=dev)
+    g_sel = torch.as_tensor(rng.normal(size=c).astype(np.float32), device=dev)
+    for fn in (lambda: cuda_logwts._logwts_bwd_cuda(*tables, qry, g),
+               lambda: cuda_logwts._logwts_lse_bwd_cuda(*tables, qry, lse_ev, lse_sel, g_ev, g_sel, nobs, nsamp)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(x).all()) for x in first)
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_logwts_backward_names_the_largest_detector_table_that_fits(dev):
+    """The backward's fixed-point bins take 16 bytes each, so it fits fewer
+    detector-table rows K than the forward: at K = 8,192 the forward runs and
+    the backward is refused with a ValueError naming the most K that fits,
+    and at that K it runs."""
+    rng = np.random.default_rng(12)
+    c, n = 2, 4096
+    tables, qry = _logwts_inputs(rng, dev, c, 8192, 256, n)
+    out = cuda_logwts._logwts_fwd_cuda(*tables, qry)
+    g = torch.as_tensor(rng.normal(size=(c, n)).astype(np.float32), device=dev) * torch.isfinite(out)
+    with pytest.raises(ValueError, match=r"K = 8192 rows \(fit.n_z\).*at most K = \d+ fit") as err:
+        cuda_logwts._logwts_bwd_cuda(*tables, qry, g)
+    most = int(str(err.value).split("at most K = ")[1].split()[0])
+    assert 1024 < most < 8192
+    tables, qry = _logwts_inputs(rng, dev, c, most, 256, n)
+    out = cuda_logwts._logwts_fwd_cuda(*tables, qry)
+    d = cuda_logwts._logwts_bwd_cuda(*tables, qry, torch.ones_like(out) * torch.isfinite(out))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in d)
+
+
 @pytest.mark.parametrize("layout,c,nobs,nsamp,nsel", [("shared", 64, 56, 256, 24576), ("per_chain", 56, 55, 256, 24576)])
 def test_logwts_at_the_model_comparison_shapes(dev, layout, c, nobs, nsamp, nsel):
     """Kernel B at the shapes of model comparison: the shared table at C = 64

@@ -5,7 +5,8 @@
 * Entry points given ``device=None`` (meaning CUDA) raise on a host without
   CUDA instead of carrying on on the CPU: the data loaders, the model specs
   of every family, the samplers, ``fit`` and the fit stages, the mock
-  campaign and the four mock stages.
+  campaign and the four mock stages, ingestion and its stages, the
+  benchmark catalogs and the pipeline CLI.
 * A kernel wrapper given a CUDA tensor raises on what the kernel does not take
   and never takes the plain twin.
 * The ctypes signatures agree with the ``extern "C"`` declarations they bind.
@@ -66,7 +67,9 @@ def test_no_port_file_names_the_jax_packages(pattern):
                                   "ops/logsumexp.py", "models/plpeak.py", "models/brokenpl.py",
                                   "inference/calibration.py", "inference/fleet.py", "inference/score_check.py",
                                   "inference/model_compare.py", "inference/evidence.py", "inference/modes.py",
-                                  "inference/ppc.py", "inference/prior_sens.py", "inference/influence.py"])
+                                  "inference/ppc.py", "inference/prior_sens.py", "inference/influence.py",
+                                  "data/gwtc.py", "data/resample.py", "data/rehearsal.py", "data/fetch.py",
+                                  "pipeline/dag.py", "pipeline/__main__.py", "benchdata.py"])
 def test_the_guards_cover_the_fit_modules(name):
     """The grep guard scans the fit's modules, and the import guard imports them."""
     assert PORT / name in list(PORT.rglob("*.py"))
@@ -187,6 +190,45 @@ def _mock_entry_points():
 def test_mock_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         _mock_entry_points()[entry]()
+    assert not (ROOT / "no-such-directory").exists()
+
+
+def _ingestion_entry_points():
+    from bumpcosmology_torch import benchdata
+    from bumpcosmology_torch.data.rehearsal import write_rehearsal_catalog
+    from bumpcosmology_torch.pipeline import stages
+    from bumpcosmology_torch.pipeline.__main__ import main
+    from bumpcosmology_torch.pipeline.config import PathsConfig, PipelineConfig
+
+    # a data directory that does not exist: an entry point must raise before it reads or writes anything;
+    # the rehearsal fallback keeps the fetch stage offline
+    missing = ROOT / "no-such-directory"
+    cfg = PipelineConfig(paths=PathsConfig(data_dir=str(missing), pe_raw_dir=str(missing / "raw"),
+                                           injection_file=str(missing / "inj.hdf5")))
+    cfg.ingest.rehearsal_fallback = True
+    return {
+        **{name: (lambda name=name: getattr(stages, f"_stage_{name}")(cfg))
+           for name in ("fetch", "draw_pe_samples", "draw_selection_samples")},
+        "write_rehearsal_catalog": lambda: write_rehearsal_catalog(missing / "raw", missing / "inj.hdf5",
+                                                                   campaign_ndraw=100),
+        "mock_pop_data": lambda: benchdata.mock_pop_data(ndraw_campaign=100),
+        "mock_pop_cosmo_data": lambda: benchdata.mock_pop_cosmo_data(ndraw_campaign=100),
+        "flagship_pop_cosmo_data": lambda: benchdata.flagship_pop_cosmo_data(ROOT / "benchmarks" / "flagship_catalog.npz"),
+        "cli": lambda: main(["sample_cosmo", "--rehearsal", "--data-dir", str(missing)]),
+    }
+
+
+@pytest.mark.parametrize("entry", ["fetch", "draw_pe_samples", "draw_selection_samples", "write_rehearsal_catalog",
+                                   "mock_pop_data", "mock_pop_cosmo_data", "flagship_pop_cosmo_data", "cli"])
+def test_ingestion_entry_points_raise_without_cuda(no_cuda, monkeypatch, entry):
+    from bumpcosmology_torch.data import fetch
+
+    def refuse(url, dest, timeout):
+        raise AssertionError("a download was attempted")
+
+    monkeypatch.setattr(fetch, "_download", refuse)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _ingestion_entry_points()[entry]()
     assert not (ROOT / "no-such-directory").exists()
 
 

@@ -124,3 +124,36 @@ def test_unit_bracket_takes_a_nan_position_as_the_reference_does():
     assert torch.equal(batched[0].isnan(), got.isnan())
     lo, t, slope = cuda_logwts._bracket(torch.tensor([2.5, float("nan")]), 8)
     assert lo.tolist() == [2, 0] and t.isnan().tolist() == [False, True] and slope.tolist() == [True, False]
+
+
+@pytest.mark.parametrize("ncol", [1, 2])
+def test_table_row_cotangents_sum_the_same_in_any_order(ncol):
+    """The lookups' backward (``interp._Rows``) adds a row's cotangents
+    exactly: the same bits whatever order the entries come in (the CPU's
+    ``index_add_`` takes them in order, so a permutation stands for the
+    card's atomics), within 1e-9 of the row's float64 sum relative to its
+    largest cotangent, and a row of huge cotangents (a diverging chain)
+    leaves the other rows' sums as they are."""
+    rng = np.random.default_rng(3)
+    rows, n = 40, 5000
+    idx = torch.as_tensor(rng.integers(0, rows, (2, n)))
+    g = rng.normal(size=(2, n, ncol)).astype(np.float32) * np.exp(rng.uniform(-8, 8, (2, n, 1))).astype(np.float32)
+    g[idx.numpy() == 7] *= np.float32(1e30)  # one row of huge cotangents
+    g = torch.as_tensor(g if ncol > 1 else g[..., 0])
+
+    def backward(order):
+        flat = torch.zeros((rows, ncol) if ncol > 1 else (rows,), requires_grad=True)
+        i, gg = idx.reshape(-1)[order].reshape(2, n), g.reshape(2 * n, -1)[order].reshape(g.shape)
+        tinterp._Rows.apply(flat, i).backward(gg)
+        return flat.grad
+
+    first = backward(torch.arange(2 * n))
+    for seed in range(3):
+        assert torch.equal(backward(torch.as_tensor(np.random.default_rng(seed).permutation(2 * n))), first)
+    g64, i64 = g.reshape(2 * n, -1).double().numpy(), idx.reshape(-1).numpy()
+    exact = np.zeros((rows, ncol))
+    np.add.at(exact, i64, g64)
+    largest = np.zeros((rows, ncol))
+    np.maximum.at(largest, i64, np.abs(g64))
+    got = first.reshape(rows, ncol).double().numpy()
+    assert np.all(np.abs(got - exact) <= 1e-9 * largest + np.abs(exact) * 2.0 ** -24)
