@@ -39,11 +39,24 @@ reads catalog ``s``.  :func:`pop_rows` and :func:`query_table` then give
 ``(4, S, N)`` and ``(S, N, 4)`` rows, and the likelihoods take them as they
 take one catalog's, with no loop over S: kernel B reads one query table per
 chain.  :func:`take_fleet` picks the catalogs of a subset of the chains.
+
+**Shards.**  Data split along the ``data`` axis of a mesh
+(:func:`~bumpcosmology_torch.parallel.shard_pop_data`,
+``shard_pop_cosmo_data``) fill the data's ``shard`` field (:class:`DataShard`:
+the axis's process group and the catalog's global sizes; ``None`` for a
+whole catalog).  :func:`pop_loglike` and
+:func:`pop_cosmo_loglike` then weigh this rank's rows (through kernels A
+and B, as for a whole catalog), combine the per-event and selection
+log-sum-exps over the group (:func:`sharded_logsumexp`) and sum the sites'
+gradient over it (:func:`~bumpcosmology_torch.ops.collectives.copy_to_group`);
+the deterministics gather the rows' weights first.  So a spec built on a
+shard gives every rank of the group the whole catalog's potential: the
+counterpart of the JAX package's GSPMD placement.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -74,19 +87,23 @@ from bumpcosmology_torch.models.parameters import (
 from bumpcosmology_torch.models.plpeak import PLPeakMassParams, PLPeakPopulationParams, build_plpeak_population
 from bumpcosmology_torch.models.population import COORDS, QREF, build_population, log_dndmdqdv
 from bumpcosmology_torch.models.redshift import ZREF
+from bumpcosmology_torch.ops.collectives import all_gather_cat, copy_to_group
 from bumpcosmology_torch.ops.cuda_logwts import cosmo_frame_logwts, cosmo_frame_logwts_lse, query_rows
+from bumpcosmology_torch.ops.logsumexp import sharded_logsumexp
 from bumpcosmology_torch.ops.interp import interp_unit_spaced, unit_bracket
 
 __all__ = [
     "EventData",
     "SelectionData",
     "FixedCosmoGrid",
+    "DataShard",
     "PopData",
     "PopCosmoData",
     "make_pop_data",
     "make_pop_cosmo_data",
     "population_from_sites",
     "cosmo_from_sites",
+    "dl_range",
     "dl_bounds_of",
     "query_table",
     "selection_neff_terms",
@@ -159,27 +176,39 @@ class FixedCosmoGrid(NamedTuple):
         return interp_unit_spaced(torch.log1p(z), self.u0, self.du, self.log_dv)
 
 
+class DataShard(NamedTuple):
+    """What a rank's slice of a catalog needs of the whole catalog."""
+
+    group: object  # the process group along the mesh's ``data`` axis
+    nsamp: int  # PE samples per event in the whole catalog (the ``- log nsamp`` term)
+    dl_range: Optional[tuple]  # (smallest, largest) dL of the whole catalog (joint model)
+
+
 class PopData(NamedTuple):
     events: EventData  # source frame (m1, q, z)
     selection: SelectionData
     planck: FixedCosmoGrid
+    shard: Optional[DataShard] = None  # this rank's slice of a catalog split along ``data``
 
     def to(self, device) -> "PopData":
         return PopData(
             EventData(*(x.to(device) for x in self.events)),
             SelectionData(*(x.to(device) for x in self.selection)),
             self.planck._replace(log_dv=self.planck.log_dv.to(device)),
+            self.shard,
         )
 
 
 class PopCosmoData(NamedTuple):
     events: EventData
     selection: SelectionData
+    shard: Optional[DataShard] = None
 
     def to(self, device) -> "PopCosmoData":
         return PopCosmoData(
             EventData(*(x.to(device) for x in self.events)),
             SelectionData(*(x.to(device) for x in self.selection)),
+            self.shard,
         )
 
 
@@ -246,12 +275,37 @@ def cosmo_from_sites(sites: Dict[str, torch.Tensor]) -> CosmoParams:
     return CosmoParams(h=sites["h"], Om=sites["Om"], w=sites["w"])
 
 
+def dl_range(data: PopCosmoData):
+    """(smallest, largest) event/selection dL of the data (of every catalog of a fleet)."""
+    return (min(float(data.events.c.min()), float(data.selection.c.min())),
+            max(float(data.events.c.max()), float(data.selection.c.max())))
+
+
 def dl_bounds_of(data: PopCosmoData, margin: float = 0.05):
     """(dl_lo, dl_hi) floats bracketing every event/selection dL (of every
-    catalog of a fleet)."""
-    lo = min(float(data.events.c.min()), float(data.selection.c.min()))
-    hi = max(float(data.events.c.max()), float(data.selection.c.max()))
+    catalog of a fleet; of the whole catalog for a shard, so that every rank
+    builds the same detector table)."""
+    lo, hi = dl_range(data) if data.shard is None else data.shard.dl_range
     return lo * (1.0 - margin), hi * (1.0 + margin)
+
+
+def _combine_shards(lse_ev: torch.Tensor, lse_sel: torch.Tensor, group):
+    """The per-event ``(C, nobs)`` and selection ``(C,)`` log-sum-exps of a
+    shard's rows combined over the ranks of ``group``: one max and one sum
+    all-reduce for both terms."""
+    nobs = lse_ev.shape[-1]
+    lse = sharded_logsumexp(torch.cat([lse_ev, lse_sel[:, None]], dim=1)[..., None], group, axis=-1)
+    return lse[:, :nobs], lse[:, nobs]
+
+
+def _whole_rows(log_w: torch.Tensor, log_sel_w: torch.Tensor, data):
+    """A shard's event ``(C, nobs, nsamp/k)`` and selection ``(C, nsel/k)``
+    weights gathered over its group, in the catalog's order (unchanged for
+    data that are not a shard)."""
+    if data.shard is None:
+        return log_w, log_sel_w
+    group = data.shard.group
+    return all_gather_cat(log_w, group, dim=-1), all_gather_cat(log_sel_w, group, dim=-1)
 
 
 def _flat_events(x: torch.Tensor) -> torch.Tensor:
@@ -386,9 +440,15 @@ def pop_cosmo_loglike(sites: Dict[str, torch.Tensor], data: PopCosmoData,
     ``n_det`` is accepted for the JAX package's signature and changes
     nothing: the detector table is built at ``n_z`` points, as the JAX package's
     CPU and Pallas route builds it (``likelihoods.py:472``); its TPU bracket
-    path alone read ``n_det``."""
+    path alone read ``n_det``.  Data that are a shard give the whole
+    catalog's log-likelihood on every rank of the shard's group."""
     nobs, nsamp = data.events.a.shape[-2:]
+    shard = data.shard
+    if shard is not None:
+        sites, nsamp = copy_to_group(sites, shard.group), shard.nsamp
     lse_ev, lse_sel = pop_cosmo_segment_lse(sites, data, n_grid, n_z, dl_bounds, qry, plain, build)
+    if shard is not None:
+        lse_ev, lse_sel = _combine_shards(lse_ev, lse_sel, shard.group)
     log_mu_sel = lse_sel - data.selection.log_ndraw
     return lse_ev.sum(-1) - nobs * math.log(nsamp) - nobs * log_mu_sel
 
@@ -440,6 +500,7 @@ def pop_cosmo_deterministics(sites: Dict[str, torch.Tensor], data: PopCosmoData,
     nobs = data.events.a.shape[0]
     pop, cosmo, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, dl_bounds, qry,
                                                               plain)
+    log_w, log_sel_w = _whole_rows(log_w, log_sel_w, data)
     out = _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
     out.update(_bump_extras(pop))
     out["hz"] = _hz(cosmo, log_w)
@@ -487,11 +548,18 @@ def pop_loglike(sites: Dict[str, torch.Tensor], data: PopData, n_grid: int = DEF
     """Population-only log-likelihood for sites of shape ``(C,)``; returns
     ``(C,)`` (``pop_loglike``, the JAX package's ``likelihoods.py:292-305``).
     ``build`` selects the family (``None``: the bump); a fleet's data (leading
-    axis S = C) give chain ``s`` catalog ``s``."""
+    axis S = C) give chain ``s`` catalog ``s``; data that are a shard give the
+    whole catalog's log-likelihood on every rank of the shard's group."""
     nobs, nsamp = data.events.a.shape[-2:]
+    shard = data.shard
+    if shard is not None:
+        sites, nsamp = copy_to_group(sites, shard.group), shard.nsamp
     _, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, plain, build)
-    log_like = torch.logsumexp(log_w, -1) - math.log(nsamp)
-    log_mu_sel = torch.logsumexp(log_sel_w, -1) - data.selection.log_ndraw
+    lse_ev, lse_sel = torch.logsumexp(log_w, -1), torch.logsumexp(log_sel_w, -1)
+    if shard is not None:
+        lse_ev, lse_sel = _combine_shards(lse_ev, lse_sel, shard.group)
+    log_like = lse_ev - math.log(nsamp)
+    log_mu_sel = lse_sel - data.selection.log_ndraw
     return log_like.sum(-1) - nobs * log_mu_sel
 
 
@@ -502,6 +570,7 @@ def pop_deterministics(sites: Dict[str, torch.Tensor], data: PopData, n_grid: in
     shared set, ``mbhmax`` and ``fpl``."""
     nobs = data.events.a.shape[0]
     pop, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, plain)
+    log_w, log_sel_w = _whole_rows(log_w, log_sel_w, data)
     out = _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
     out.update(_bump_extras(pop))
     return out
@@ -616,6 +685,7 @@ def _build_brokenpl(sites, n_grid):
 def _family_deterministics(build, sites, data: PopData, n_grid: int, rows=None):
     nobs = data.events.a.shape[0]
     pop, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, build=build)
+    log_w, log_sel_w = _whole_rows(log_w, log_sel_w, data)
     return _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
 
 
@@ -623,6 +693,7 @@ def _family_cosmo_deterministics(build, sites, data: PopCosmoData, n_grid: int, 
     """The non-fused route (no ``dl_bounds``), as the JAX package's family deterministics take."""
     nobs = data.events.a.shape[0]
     pop, cosmo, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, build=build)
+    log_w, log_sel_w = _whole_rows(log_w, log_sel_w, data)
     out = _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
     out["hz"] = _hz(cosmo, log_w)
     return out
@@ -798,9 +869,9 @@ def stack_fleet(datas):
     first = datas[0]
     if isinstance(first, torch.Tensor):
         return torch.stack(list(datas))
-    if isinstance(first, PopData):
-        return PopData(stack_fleet([d.events for d in datas]), stack_fleet([d.selection for d in datas]),
-                       first.planck)
+    if isinstance(first, (PopData, PopCosmoData)):
+        return first._replace(events=stack_fleet([d.events for d in datas]),
+                              selection=stack_fleet([d.selection for d in datas]))
     return type(first)(*(stack_fleet(list(xs)) for xs in zip(*datas)))
 
 
@@ -810,6 +881,6 @@ def take_fleet(data, idx: torch.Tensor):
     indexed on its leading axis, but a :class:`PopData`'s shared grid."""
     if isinstance(data, torch.Tensor):
         return data.index_select(0, idx)
-    if isinstance(data, PopData):
-        return PopData(take_fleet(data.events, idx), take_fleet(data.selection, idx), data.planck)
+    if isinstance(data, (PopData, PopCosmoData)):
+        return data._replace(events=take_fleet(data.events, idx), selection=take_fleet(data.selection, idx))
     return type(data)(*(take_fleet(x, idx) for x in data))

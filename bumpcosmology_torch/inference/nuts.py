@@ -407,7 +407,8 @@ def _generator(generator, seed, dev):
 def run_warmup(potential: Callable, theta0: torch.Tensor, num_warmup: int,
                cfg: NutsConfig = NutsConfig(), generator: Optional[torch.Generator] = None,
                seed: int = 0, device=None,
-               progress: Optional[Callable[[int, int, float], None]] = None):
+               progress: Optional[Callable[[int, int, float], None]] = None,
+               chunk_size: Optional[int] = None):
     """Windowed warmup of every chain of ``theta0`` (C, dim) (``run_warmup``,
     nuts.py:663-711): returns ``(WarmupResult, NutsStats)``, the second with
     each warmup transition's statistics, (C, num_warmup) each (``None``
@@ -415,7 +416,11 @@ def run_warmup(potential: Callable, theta0: torch.Tensor, num_warmup: int,
 
     ``device=None`` means CUDA and raises without it.  The step-size search
     starts from a standard-normal momentum and the identity mass matrix.
-    ``progress(step, num_warmup, mean_accept)`` is called after every transition.
+    ``progress(step, num_warmup, mean_accept)`` is called after every chunk
+    of at most ``chunk_size`` transitions of a window (``None``: after every
+    transition).  In the JAX package ``chunk_size`` bounds the steps of one
+    compiled execution; here nothing is compiled, so it only spaces the
+    reports, as the fleet's ``chunk_size`` does.
     """
     dev = resolve_device(device)
     gen = _generator(generator, seed, dev)
@@ -430,14 +435,14 @@ def run_warmup(potential: Callable, theta0: torch.Tensor, num_warmup: int,
     da, wf = _da_init(eps), _welford_init(c, dim, theta0)
     stats, step = [], 0
     for n_steps, update_mass in warmup_schedule(num_warmup):
-        for _ in range(n_steps):
+        for k in range(n_steps):
             state, st = nuts_transition(potential, state, torch.exp(da.log_eps), cov, chol, gen,
                                         cfg.max_depth)
             da = _da_update(da, st.accept_prob, cfg)
             wf = _welford_update(wf, state.theta)
             stats.append(st)
             step += 1
-            if progress is not None:
+            if progress is not None and (chunk_size is None or (k + 1) % chunk_size == 0 or k + 1 == n_steps):
                 progress(step, num_warmup, float(st.accept_prob.mean()))
         if update_mass:
             cov, chol, da, wf = _end_window(cov, chol, da, wf, cfg.shared_mass)

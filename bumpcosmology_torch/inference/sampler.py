@@ -8,6 +8,11 @@ deterministic sites are a separate post-pass in chunks of draws, each chunk
 one chain batch of the model, so the sampling loop carries no
 predictive-grid work.  One ``torch.Generator`` drives the prior draws, the
 warmup and the sampling, in that order.
+
+On a mesh (:func:`~bumpcosmology_torch.parallel.make_mesh`) each chain row
+runs its share of the chains on a spec built from data split along the
+mesh's ``data`` axis; the ranks of a row draw from one seed and so take the
+same steps, and the rows' draws are gathered on every rank.
 """
 from __future__ import annotations
 
@@ -122,8 +127,10 @@ def fit(
     deterministics_fn: Optional[Callable] = None,
     init_theta=None,
     warmup_state: Optional[WarmupResult] = None,
+    mesh=None,
     checkpoint_path: Optional[str] = None,
     sampler: str = "nuts",
+    warmup_chunk_size: Optional[int] = None,
     chees_num_adapt: int = 150,
     verbose: bool = True,
     device=None,
@@ -143,7 +150,30 @@ def fit(
     checkpoint at ``checkpoint_path``, which is otherwise written after
     warmup (beside NUTS's mid-sampling checkpoint).  ``deterministics_fn``
     takes batched sites and returns batched deterministic sites.
+
+    ``mesh``: chain row ``r`` of the mesh runs chains ``r·n .. (r+1)·n - 1``,
+    ``n = num_chains / rows``, on ``spec`` (built from
+    :func:`~bumpcosmology_torch.parallel.shard_pop_data` or
+    ``shard_pop_cosmo_data`` of the catalog, so that the ranks of a row
+    evaluate one potential together).  The ranks of a row keep in lockstep:
+    they draw from one generator seed and see the same all-reduced values,
+    so they take the same accept and U-turn decisions.  With more than one
+    row, row ``r`` seeds its generator from (``seed``, ``r``).  The posterior,
+    the statistics and the states are gathered over the rows, so every rank
+    returns ``(num_chains, num_samples)``; ``timings`` are the rank's own.
+    ``init_theta`` and ``warmup_state`` hold every chain, and each row takes
+    its own.  A mesh takes no ``checkpoint_path``.  On a 1 x 1 mesh the fit
+    is :func:`fit` without one, bit for bit.
+
+    ``warmup_chunk_size`` spaces the warmup's ``progress`` reports (every
+    chunk of at most that many transitions of a window; the fleet's
+    ``chunk_size`` does the same).  In the JAX package it bounds the steps of
+    one compiled execution, which the port does not have.
     """
+    if mesh is not None:
+        return _fit_on_mesh(mesh, spec, seed, num_warmup, num_samples, num_chains, cfg, deterministics_fn,
+                            init_theta, warmup_state, checkpoint_path, sampler, warmup_chunk_size,
+                            chees_num_adapt, verbose, device)
     dev = resolve_device(device)
     if spec.device.type != dev.type:
         raise ValueError(f"the spec's data lie on {spec.device}, but the fit was asked to run on {dev}")
@@ -172,7 +202,7 @@ def fit(
                     print(f"[fit] warmup {step}/{total} (accept {accept:.2f}, "
                           f"{time.perf_counter() - t0:.0f}s)", flush=True)
         warm, _ = run_warmup(potential, init_theta, num_warmup, cfg, generator=gen, device=dev,
-                             progress=progress)
+                             progress=progress, chunk_size=warmup_chunk_size)
         _sync(dev)
         timings["warmup_s"] = time.perf_counter() - t0
         if verbose:
@@ -238,3 +268,56 @@ def fit(
 
     return FitResult(posterior=posterior, sample_stats=sample_stats, warmup_state=warm,
                      final_state=final, timings=timings)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of equally shaped named tuples (or of bare leaves)."""
+    if isinstance(trees[0], tuple):
+        return type(trees[0])(*(_tree_map(fn, *xs) for xs in zip(*trees)))
+    return fn(*trees)
+
+
+def _row_seed(seed: Union[int, torch.Generator], row: int) -> int:
+    base = seed.initial_seed() if isinstance(seed, torch.Generator) else int(seed)
+    return int(np.random.SeedSequence([base, row]).generate_state(1, np.uint64)[0])
+
+
+def _fit_on_mesh(mesh, spec, seed, num_warmup, num_samples, num_chains, cfg, deterministics_fn, init_theta,
+                 warmup_state, checkpoint_path, sampler, warmup_chunk_size, chees_num_adapt, verbose,
+                 device) -> FitResult:
+    """:func:`fit` of this rank's chain row, gathered over the rows."""
+    import torch.distributed as dist
+
+    from bumpcosmology_torch.parallel.mesh import CHAIN_AXIS
+
+    rows, row = mesh.shape[CHAIN_AXIS], mesh.index(CHAIN_AXIS)
+    if num_chains % rows:
+        raise ValueError(f"{num_chains} chains do not divide into {rows} chain rows")
+    if checkpoint_path is not None:
+        raise ValueError("fit: a mesh takes no checkpoint_path (each row adapts its own chains)")
+    n = num_chains // rows
+    mine = slice(row * n, (row + 1) * n)
+    if init_theta is not None:
+        init_theta = torch.as_tensor(init_theta)[mine]
+    if warmup_state is not None:
+        warmup_state = _tree_map(lambda t: t[mine], warmup_state)
+    res = fit(spec, _row_seed(seed, row) if rows > 1 else seed, num_warmup, num_samples, n, cfg, deterministics_fn,
+              init_theta, warmup_state, sampler=sampler, warmup_chunk_size=warmup_chunk_size,
+              chees_num_adapt=chees_num_adapt, verbose=verbose, device=device)
+
+    def host(t):
+        return t.cpu().numpy()
+
+    mine_parts = (res.posterior, res.sample_stats, _tree_map(host, res.warmup_state), _tree_map(host, res.final_state))
+    group = mesh.group(CHAIN_AXIS)
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, mine_parts, group=group)
+    dev = resolve_device(device)
+
+    def state(i):
+        return _tree_map(lambda *xs: torch.as_tensor(np.concatenate(xs), device=dev), *(p[i] for p in parts))
+
+    return FitResult(
+        posterior={k: np.concatenate([p[0][k] for p in parts]) for k in res.posterior},
+        sample_stats={k: np.concatenate([p[1][k] for p in parts]) for k in res.sample_stats},
+        warmup_state=state(2), final_state=state(3), timings=res.timings)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, which is loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
-Libraries land in ``bumpcosmology_torch/_build/`` (git-ignored) under a name
+Libraries land in ``BUILD_DIR``, by default ``bumpcosmology_torch/_build/``
+(git-ignored; ``utils.enable_compilation_cache`` moves it), under a name
 that carries a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  :func:`build_kernels` starts one
 ``nvcc`` per source, all at once.
@@ -23,12 +24,13 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build_kernels", "load_kernel", "kernel_function",
+__all__ = ["KERNEL_SOURCES", "DEFAULT_BUILD_DIR", "BUILD_DIR", "build_kernels", "load_kernel", "kernel_function",
            "check_cuda", "cuda_stream", "raise_on"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 KERNEL_SOURCES = ("bump", "logwts", "snr", "floor")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

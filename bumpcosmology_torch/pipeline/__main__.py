@@ -8,9 +8,8 @@ Examples:
       paths.pe_raw_dir=$d/pe-samples-raw paths.injection_file=$d/endo3_bbhpop-LIGO-T2100113-v12.hdf5
 
 Targets are stage names (``list`` shows them, fresh or stale), ``all``
-(``sample`` and ``sample_cosmo``; the JAX package's ``all`` also draws the
-figures and the report, which are not ported yet) or ``mock`` (the mock
-universe through ``mock_year_samples``).  Stages run on the card unless
+(``sample``, ``sample_cosmo``, ``figures`` and ``report``) or ``mock`` (the
+mock universe through ``mock_year_samples``).  Stages run on the card unless
 ``--device cpu`` is given; without CUDA and without ``--device cpu`` the
 command raises.  Ingestion (``fetch``, ``draw_pe_samples``,
 ``draw_selection_samples``) needs h5py and runs on a host that has it; the
@@ -18,10 +17,14 @@ fit inputs it writes (``pe-samples.npz``, ``selection-samples.npz``) are
 what the card's stages read.
 
 Flags of the JAX package's CLI: ``--platform`` is ``--device`` here;
-``--host-devices`` is dropped (one card: the chains and data mesh is not
-ported); ``--no-compile-cache`` is dropped (nothing is compiled with XLA;
-the kernels' nvcc builds are kept in ``bumpcosmology_torch/_build/`` on
-their own).  ``--rehearsal`` attempts no download here (the JAX package's
+``--host-devices`` is dropped (it made virtual CPU devices for XLA's mesh;
+the port's mesh is made of ``torch.distributed`` ranks, which a stage run
+from the command line does not start); ``--no-compile-cache`` is dropped
+(nothing is compiled with XLA; the kernels' nvcc builds are kept in
+``bumpcosmology_torch/_build/``, or in the directory that the environment
+variable ``BUMPCOSMOLOGY_CACHE_DIR`` names).  The figures and the report need matplotlib, seaborn and pandas:
+on the card's host they may be drawn elsewhere from the copied artifacts
+(``figures report --device cpu``).  ``--rehearsal`` attempts no download here (the JAX package's
 tries Zenodo first and falls back when that fails): a rehearsal is for a
 host without network.  ``--data-dir`` moves the artifacts only, as in the
 JAX package: the raw inputs stay at ``paths.pe_raw_dir`` and
@@ -37,9 +40,10 @@ from pathlib import Path
 from bumpcosmology_torch.device import resolve_device
 from bumpcosmology_torch.pipeline.config import PipelineConfig
 from bumpcosmology_torch.pipeline.stages import build_pipeline
+from bumpcosmology_torch.utils.compile_cache import enable_compilation_cache
 
 GROUPS = {
-    "all": ["sample", "sample_cosmo"],
+    "all": ["sample", "sample_cosmo", "figures", "report"],
     "mock": ["mock_year_samples"],
 }
 
@@ -64,6 +68,7 @@ def main(argv=None) -> int:
         parser.error(f"unrecognized arguments: {' '.join(unknown)} (--platform is --device here; "
                      "--host-devices and --no-compile-cache are not ported)")
     device = resolve_device(args.device)
+    enable_compilation_cache()  # BUMPCOSMOLOGY_CACHE_DIR, if set, holds the kernels' builds
 
     cfg = PipelineConfig.load(args.config, rest)
     if args.data_dir:

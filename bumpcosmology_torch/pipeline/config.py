@@ -65,7 +65,7 @@ class FitConfig:
     target_accept: float = 0.8
     n_grid: int = 256
     n_z: int = 1024
-    n_chain_shards: int = 1  # mesh rows for the chains axis (not ported: one card)
+    n_chain_shards: int = 1  # mesh rows for the chains axis (no stage reads it, as in the JAX package)
     shared_mass: bool = False  # pool mass-matrix adaptation across chains
     # mass-model family: "bump" (the reference's physical PISN-bump model),
     # "plpeak" (the GWTC-3 fiducial POWER-LAW+PEAK, models/plpeak.py) or

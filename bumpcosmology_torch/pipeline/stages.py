@@ -27,9 +27,12 @@ The model-comparison stages read the fit inputs and the saved traces:
 :func:`_stage_prior_sens` (→ ``prior_sensitivity.npz``).  Their artifacts
 key the arrays by the JAX package's HDF5 paths, with attributes under
 ``attrs/<name>`` and ``<group>/attrs/<name>``.
+:func:`_stage_figures` draws every figure whose artifact exists into
+``<data_dir>/figures`` and :func:`_stage_report` compiles them with the
+traces' summaries into ``<data_dir>/report`` (both need matplotlib and
+seaborn, and raise an ``ImportError`` naming what is missing).
 Every stage runs on ``device`` (``None`` means CUDA; it raises without it).
-:func:`build_pipeline` assembles the stages into a :class:`~bumpcosmology_torch.pipeline.dag.Pipeline`;
-the JAX package's ``figures`` and ``report`` stages are not ported yet.
+:func:`build_pipeline` assembles the stages into a :class:`~bumpcosmology_torch.pipeline.dag.Pipeline`.
 """
 from __future__ import annotations
 
@@ -931,14 +934,57 @@ def write_influence_artifact(out, model: str, names, infl: dict) -> None:
     np.savez(out, **arrays)
 
 
+# -------------------------------------------------------- figures and report
+
+
+def _require_plotting(stage: str) -> None:
+    """Raises the ``ImportError`` that names the plotting libraries this host lacks."""
+    import importlib
+
+    from bumpcosmology_torch.figures.plots import PLOTTING_LIBRARIES
+
+    missing = []
+    for name in PLOTTING_LIBRARIES:
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            missing.append(name)
+    if missing:
+        raise ImportError(
+            f"the {stage} stage draws with matplotlib, seaborn and pandas; this host lacks {', '.join(missing)}.  "
+            "Copy the data directory's artifacts (traces and stage outputs) to a host that has them and run "
+            "`python -m bumpcosmology_torch.pipeline figures report --device cpu` there.")
+
+
+def _stage_figures(cfg: PipelineConfig, device=None):
+    """Draw every figure whose artifact exists into ``<data_dir>/figures``
+    (``_stage_figures``, the JAX package's ``stages.py:1112-1118``); the bump
+    curves are built on ``device`` (``None`` means CUDA)."""
+    from bumpcosmology_torch.figures.plots import render_all
+
+    _require_plotting("figures")
+    made = render_all(cfg, out_dir=Path(cfg.paths.data_dir) / "figures", device=device)
+    print(f"[figures] wrote {len(made)} figure(s)")
+
+
+def _stage_report(cfg: PipelineConfig, device=None):
+    """Compile ``ms.tex``, ``ms.md`` and ``report.pdf`` into ``<data_dir>/report``
+    (``_stage_report``, the JAX package's ``stages.py:1121-1130``)."""
+    from bumpcosmology_torch.figures.report import generate_report
+
+    _require_plotting("report")
+    out = generate_report(cfg, out_dir=Path(cfg.paths.data_dir) / "report", device=device)
+    print(f"[report] wrote {', '.join(str(v) for v in out.values())}")
+
+
 # ------------------------------------------------------------------- assembly
 
 
 def build_pipeline(cfg: PipelineConfig, device=None) -> Pipeline:
     """Every stage of the port with its inputs and ``.npz`` outputs under
     ``cfg.paths.data_dir``, each run on ``device`` (``None`` means CUDA; a
-    stage raises without it when it runs).  The JAX package's ``figures``
-    and ``report`` stages are not ported yet."""
+    stage raises without it when it runs).  ``figures`` and ``report`` have
+    no outputs, so they run whenever they are asked for."""
     p = cfg.paths.path
     loo_trace, loo_after = (("trace_cosmo.npz", "sample_cosmo") if cfg.loo.model == "pop_cosmo"
                             else ("trace.npz", "sample"))
@@ -973,4 +1019,8 @@ def build_pipeline(cfg: PipelineConfig, device=None) -> Pipeline:
         Stage("mock_year_samples", lambda: _stage_mock_year_samples(cfg, device),
               inputs=[p("mock_injections.npz"), p("mock_observations.npz")], outputs=[p("mock_year_samples.npz")],
               after=["mock_observations"]),
+        Stage("figures", lambda: _stage_figures(cfg, device), inputs=[p("trace.npz"), p("trace_cosmo.npz")],
+              outputs=[]),
+        Stage("report", lambda: _stage_report(cfg, device), inputs=[p("trace.npz"), p("trace_cosmo.npz")],
+              outputs=[], after=["figures"]),
     ])

@@ -12,9 +12,10 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
 (phase 5) and fitted from prior draws to a trace (phase 7) — and the paths
 beside it: the mock stages (phase 6), the population-only fit (phase 8), the
 ChEES samplers (phase 9), the other two mass families in both fits (phase
-10), the calibration suite (phase 11), model comparison (phase 12) and the
-pipeline's command line (phase 13); and it holds every CUDA kernel against
-its plain PyTorch twin:
+10), the calibration suite (phase 11), model comparison (phase 12), the
+pipeline's command line (phase 13) and the scale-out layer with the host
+utilities (phase 14); and it holds every CUDA kernel against its plain
+PyTorch twin:
 
 1. build every kernel from ``bumpcosmology_torch/csrc`` (one nvcc per source),
    and time the card's launch floor: an empty kernel through the same ctypes
@@ -151,13 +152,47 @@ its plain PyTorch twin:
    report ``up to date`` and launch nothing.  At that path's shape (the
    catalog's 102,912 rows under the trace's last draw of each chain, C = 4)
    kernel B, both epilogues both ways, is held against its twin at phase
-   3's limits and its backward twice bit for bit, and the potential's
+   3's limits and its backward twice bit for bit, kernel A against its
+   float64 twin at phase 2's limits, and the potential's
    value+grad against the plain twins at phase 4's limits and twice bit for
-   bit.
+   bit;
+14. the scale-out layer and the host utilities: (a) two ranks on the one
+   card (this script started again with ``--scale-out-rank``, joined by gloo
+   through a ``file://`` store: NCCL refuses two ranks on one device, so the
+   CUDA tensors of the collectives are staged through the host), the
+   flagship split along the mesh's ``data`` axis (56 events x 128 PE samples
+   + 12,288 injections: 19,456 rows a rank): the 16 committed chains' joint
+   value+grad through a spec built on the shard, with every launch count set
+   to 0 just before one value+grad and read just after (kernels A and B's
+   ``lse`` once each way on each rank, nothing else), held against the dense
+   value+grad on the card at phase 4's limits; ``make_sharded_pop_cosmo_loglike``
+   must give the same bits; the sharded and dense ms a value+grad; and at
+   this shape kernel B (both epilogues both ways) against its twin and twice
+   bit for bit, kernel A against its float64 twin, the potential against the
+   plain twins and twice bit for bit (``kernels_against_plain``); (b)
+   ``fit(mesh=)`` cut in depth only (4 chains, 5 draws, ``max_depth`` 4):
+   on two chain rows (a 2 x 1 mesh, 10 warmup steps from prior draws; every
+   site finite at (4, 5), the rows drawing differently) and on one row over
+   the data split (a 1 x 2 mesh), from prior draws with 10 warmup steps and
+   from the committed adapted state with none: there each rank returns the
+   draws it computed itself, and the two must be identical; the second
+   within 1e-3 (|d|/(1+|ref|)) of a dense fit from the same state and seed;
+   after the first two, ``kernels_against_plain`` at the fit's shape (C = 2
+   on the whole catalog, C = 4 on the shard); (c)
+   ``native.network_snr_native`` (the repository's ``native/`` C++ library,
+   built with make) against kernel C on 4,096 rows at rtol 5e-3 / atol 1e-3,
+   and whether make and g++ are on the host; (d) the five
+   ``dNdm_PISN_effects`` curves (one launch of kernel A) against the CPU's
+   at A's forward limits; (e) ``utils.profiling.trace`` around one joint
+   value+grad writes a non-empty trace; (f) which of matplotlib, seaborn
+   and pandas import here, and with all three the figures of phases 7-12's
+   artifacts are drawn.
 
 The ``kernels`` line's ``launches`` are phase 7's (the joint fit, C: phase
 6's stages, B's per-chain rows: phase 11b's, and at the LOO fleet's shape
-phase 12d's); ``launches_by_path`` gives every path, phases 6-13.  Every kernel is
+phase 12d's); ``launches_by_path`` gives every path, phases 6-14 (phase
+14's on each rank: the sharded value+grad and the three mesh fits; and
+the launches of 14c and 14d).  Every kernel is
 timed twice: ``ms`` is its device time (20 launches captured
 in one CUDA graph and replayed, so the host's queueing rate is out of the
 figure), ``call_ms`` the time of one call of its Python wrapper as the main
@@ -254,6 +289,12 @@ COMPARE_BATCH = 64
 CLI_CHAINS, CLI_WARMUP, CLI_SAMPLES, CLI_DEPTH = 4, 20, 8, 4
 LOO_WARMUP, LOO_SAMPLES, LOO_DEPTH = 30, 32, 5
 COMPARE_CPU_DRAWS = 64
+# phase 14: two ranks on the one card (the flagship split along data), fit(mesh=) on two chain rows cut in depth
+# only, the native SNR on a few thousand rows
+SCALE_RANKS, SCALE_TIMEOUT_S = 2, 400
+MESH_FIT_CHAINS, MESH_FIT_WARMUP, MESH_FIT_SAMPLES, MESH_FIT_DEPTH = 4, 10, 5, 4
+MESH_FIT_DENSE_TOL = 1e-3
+NATIVE_ROWS = 4096
 
 
 def log(msg: str) -> None:
@@ -383,6 +424,15 @@ def main() -> int:
     except ImportError as err:
         print(f"chip_smoke: the port package is not beside this script ({err})", file=sys.stderr)
         return 2
+    if len(sys.argv) > 1:  # one rank of phase 14, started by the script itself
+        import argparse
+
+        parser = argparse.ArgumentParser(description="one rank of phase 14 (started by chip_smoke.py)")
+        parser.add_argument("--scale-out-rank", type=int, required=True)
+        parser.add_argument("--store", type=Path, required=True)
+        args = parser.parse_args()
+        scale_out_rank(args.scale_out_rank, args.store)
+        return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         return run(Path(tmp))
 
@@ -752,6 +802,10 @@ def run(mock_dir: Path) -> int:
     # ---- phase 13: the pipeline's command line ------------------------------
     cli_launches = cli_phase(tag, mock_dir)
     phase_done("13_cli")
+
+    # ---- phase 14: the scale-out layer and the host utilities ---------------
+    scale_launches = scale_out_phase(dev, tag, spec, theta, compare_dir)
+    phase_done("14_scale_out")
     log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
 
     sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
@@ -794,7 +848,8 @@ def run(mock_dir: Path) -> int:
             ("9a_nuts_chees", hybrid_launches), ("9b_chees_pop", chees_launches),
             ("10a_brokenpl_pop_fit", brokenpl_launches), ("10b_plpeak_joint_fit", plpeak_launches),
             ("11a_sbc_pop", sbc_pop_launches), ("11b_sbc_pop_cosmo", sbc_cosmo_launches),
-            ("11c_score_check", score_launches), *comparison_launches.items(), ("13_cli_sample_cosmo", cli_launches))}
+            ("11c_score_check", score_launches), *comparison_launches.items(), ("13_cli_sample_cosmo", cli_launches),
+            *scale_launches.items())}
         kernels.append(dict(name=name, route="cuda", source=sources[name.split("_")[0]],
                             replaces=replaces[name], launches=launches[name], launches_by_path=by_path,
                             max_abs_err=row["max_abs_err"], ms=row["ms"], call_ms=row["call_ms"],
@@ -914,17 +969,13 @@ def cli_shape_checks(data_dir: Path, trace, dev=None) -> str:
     """Phase 13's shape held against the plain versions: the joint data of
     the CLI's fit inputs in ``data_dir`` (phase 6's mock catalog, 796 events
     x 128 samples + 1,024 selection rows) under the ``trace``'s last draw of
-    each chain.  Kernel B, both epilogues both ways, against its twin at
-    phase 3's limits (:func:`b_against_twin`) and its backward twice, bit for
-    bit (:func:`b_backward_repeats`); the potential's value+grad with the
-    kernels against the plain twins at phase 4's limits, and twice, bit for
-    bit.  Runs on the card unless ``dev`` says otherwise.  Returns a line of
-    the results."""
+    each chain, through :func:`kernels_against_plain`.  Runs on the card
+    unless ``dev`` says otherwise.  Returns a line of the results."""
     import numpy as np
     import torch
 
-    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_model_spec, query_table
-    from bumpcosmology_torch.inference.model import constrain, make_potential, unconstrain, value_and_grad
+    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_model_spec
+    from bumpcosmology_torch.inference.model import unconstrain
     from bumpcosmology_torch.pipeline.stages import pop_cosmo_data_from_tables
     from bumpcosmology_torch.utils.io import read_table
 
@@ -932,36 +983,89 @@ def cli_shape_checks(data_dir: Path, trace, dev=None) -> str:
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     jd = pop_cosmo_data_from_tables(read_table(data_dir / "pe-samples.npz"),
                                     read_table(data_dir / "selection-samples.npz"), dev)
-    spec, spec_plain = (pop_cosmo_model_spec(jd, N_GRID, N_Z, device=dev, plain=plain) for plain in (False, True))
+    spec = pop_cosmo_model_spec(jd, N_GRID, N_Z, device=dev)
     last = {k: torch.as_tensor(np.asarray(trace.posterior[k])[:, -1], dtype=torch.float32, device=dev)
             for k in spec.names}
     theta = unconstrain(spec, last)
     if not bool(torch.isfinite(theta).all()):
         raise AssertionError("cli shape: the trace's last draws do not map to finite unconstrained thetas")
+    return kernels_against_plain("cli", jd, theta, gen)
+
+
+def a_against_twin(label: str, sites, gen) -> tuple:
+    """Kernel A on the mass scalars of ``sites`` (C,) at ``N_GRID``, forward
+    and VJP (a random cotangent), against its plain twin in float64 at phase
+    2's limits, and its backward launched twice, bit for bit.  Returns the
+    (forward, VJP) max |err|."""
+    import torch
+
+    from bumpcosmology_torch.inference.likelihoods import population_from_sites
+    from bumpcosmology_torch.ops import cuda_bump
+
+    mp = population_from_sites(sites).mass
+    p5 = torch.stack([mp.a, mp.b, mp.mpisn, mp.mbhmax, mp.sigma], dim=1).detach().contiguous()
+    g = torch.randn((p5.shape[0], N_GRID), generator=gen, device=p5.device)
+    leaf, ref_leaf = p5.clone().requires_grad_(True), p5.double().requires_grad_(True)
+    out = cuda_bump.bump_log_dn(leaf, N_GRID)
+    (out * g).sum().backward()
+    ref = cuda_bump.bump_log_dn_plain(ref_leaf, N_GRID)
+    (ref * g.double()).sum().backward()
+    d1 = cuda_bump._bump_bwd_cuda(p5, out.detach(), g, N_GRID)
+    d2 = cuda_bump._bump_bwd_cuda(p5, out.detach(), g, N_GRID)
+    torch.cuda.synchronize()
+    if not torch.equal(d1, d2):
+        raise AssertionError(f"A-bwd {label} C={p5.shape[0]}: two launches on the same inputs differ")
+    return (check_close(f"A-fwd {label}", out.detach(), ref.detach().float(), rtol=1e-4, atol=5e-5),
+            check_close(f"A-bwd {label}", leaf.grad, ref_leaf.grad.float(), rtol=2e-4, atol=1e-5))
+
+
+def kernels_against_plain(label: str, data, theta, gen) -> str:
+    """Kernels A and B at the shape that the joint ``data`` and the
+    unconstrained ``theta`` (C, d) give them, held against the plain
+    versions: kernel B, both epilogues both ways, against its twin at phase
+    3's limits (:func:`b_against_twin`) and its backward twice bit for bit
+    (:func:`b_backward_repeats`); kernel A against its float64 twin at phase
+    2's limits (:func:`a_against_twin`); the potential's value+grad with the
+    kernels against the plain twins at phase 4's limits, and twice, bit for
+    bit.  ``data`` may be a shard: B then weighs the rank's own rows, the
+    value+grads are the whole catalog's (collectives of the shard's group),
+    and every rank of the group must make the same call.  Returns a line of
+    the results."""
+    import torch
+
+    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_model_spec, query_table
+    from bumpcosmology_torch.inference.model import constrain, make_potential, value_and_grad
+
+    spec, spec_plain = (pop_cosmo_model_spec(data, N_GRID, N_Z, device=theta.device, plain=plain)
+                        for plain in (False, True))
     with torch.no_grad():
-        tables = b_tables(constrain(spec, theta), jd)
-    qry = query_table(jd)
-    nobs, nsamp = jd.events.a.shape
-    errs = b_against_twin("B cli", tables, qry, nobs, nsamp, gen)[0]
-    shape = b_backward_repeats("B cli", tables, qry, nobs, nsamp, gen)
+        sites = constrain(spec, theta)
+        tables = b_tables(sites, data)
+    qry = query_table(data)
+    nobs, nsamp = data.events.a.shape
+    errs = b_against_twin(f"B {label}", tables, qry, nobs, nsamp, gen)[0]
+    shape = b_backward_repeats(f"B {label}", tables, qry, nobs, nsamp, gen)
+    a_fwd, a_bwd = a_against_twin(label, sites, gen)
     pot, pot_plain = make_potential(spec), make_potential(spec_plain)
     u_k, g_k = value_and_grad(pot, theta)
     u_p, g_p = value_and_grad(pot_plain, theta)
     u_k2, g_k2 = value_and_grad(pot, theta)
     torch.cuda.synchronize()
     if not (torch.isfinite(u_k).all() and torch.isfinite(g_k).all()):
-        raise AssertionError("cli shape: non-finite potential or gradient at the trace's last draws")
+        raise AssertionError(f"{label}: non-finite potential or gradient")
     if not (torch.equal(u_k, u_k2) and torch.equal(g_k, g_k2)):
-        raise AssertionError("cli shape: two value+grads at the same thetas differ")
+        raise AssertionError(f"{label}: two value+grads at the same thetas differ")
     du = float(((u_k - u_p).abs() / (1.0 + u_p.abs())).max())
     dg = float(((g_k - g_p).abs() / (1.0 + g_p.abs())).max())
     if du >= 2e-4 or dg >= 5e-3:
-        raise AssertionError(f"cli shape: potential kernels vs plain |dU|/(1+|U|) {du:.3e}, "
+        raise AssertionError(f"{label}: potential kernels vs plain |dU|/(1+|U|) {du:.3e}, "
                              f"|dgrad|/(1+|grad|) {dg:.3e}")
     fmt = json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
     return (f"kernel B ({shape}, {nobs} events x {nsamp} samples, K={tables[0].shape[1]}) max|err| against the "
-            f"twin {fmt}, two backward launches bit-identical; potential |dU|/(1+|U|) {du:.3e}, |dgrad|/(1+|grad|) "
-            f"{dg:.3e} against the plain twins, two value+grads bit-identical")
+            f"twin {fmt}, two backward launches bit-identical; kernel A (C={theta.shape[0]}, G={N_GRID}) against "
+            f"its float64 twin fwd {a_fwd:.3e}, VJP {a_bwd:.3e}, two backward launches bit-identical; potential "
+            f"|dU|/(1+|U|) {du:.3e}, |dgrad|/(1+|grad|) {dg:.3e} against the plain twins, two value+grads "
+            "bit-identical")
 
 
 def device_busy_share(run, label: str, n_vg=None) -> str:
@@ -2544,6 +2648,304 @@ def model_comparison_phase(dev, tag: str, data_dir):
     log(f"{tag} phase 12d profile: " + device_busy_share(
         lambda: [value_and_grad(pot, theta) for _ in range(3)], f"three LOO fleet value+grads at S = {s}", n_vg=3))
     log(f"{tag} phase 12 stage wall times (host clock, s): {json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 14
+
+
+def scale_out_rank(rank: int, store: Path) -> None:
+    """One rank of phase 14 (a, b), in its own process on the one card: see
+    :func:`scale_out_phase`.  Writes ``rank<r>.json`` and its fits' draws
+    (``rank<r>_rows.npz``, ``rank<r>_split.npz``; rank 0 also the dense
+    fit's, ``dense.npz``) into ``store``, whose ``file://`` store joins the
+    ranks.  Every rank makes the same collectives in the same order; a check
+    that fails raises (and the phase stops the other rank)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from bumpcosmology_torch.benchdata import load_pop_cosmo_data
+    from bumpcosmology_torch.device import resolve_device
+    from bumpcosmology_torch.inference.likelihoods import POP_COSMO_PRIORS, pop_cosmo_model_spec
+    from bumpcosmology_torch.inference.model import ModelSpec, make_potential, value_and_grad
+    from bumpcosmology_torch.inference.nuts import NutsConfig
+    from bumpcosmology_torch.inference.sampler import _tree_map, fit
+    from bumpcosmology_torch.parallel import make_mesh, make_sharded_pop_cosmo_loglike, shard_pop_cosmo_data
+    from bumpcosmology_torch.utils.checkpoint import load_warmup
+
+    # NCCL refuses two ranks on one device: gloo, with the CUDA tensors staged through the host
+    dist.init_process_group("gloo", init_method=f"file://{store}/store", world_size=SCALE_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        dev = resolve_device(None)  # the card
+        gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+        data = load_pop_cosmo_data(CATALOG)
+        theta = load_warmup(WARMUP16).state.theta
+        split = make_mesh(1)  # one chain row, the data split over the ranks
+        rows = make_mesh(SCALE_RANKS)  # a chain row a rank, the data whole in each
+        shard = shard_pop_cosmo_data(data, split)
+        spec = pop_cosmo_model_spec(shard, N_GRID, N_Z)
+        out = {"backend": str(dist.get_backend()), "mesh": dict(split.shape),
+               "rows_a_rank": int(shard.events.a.numel() + shard.selection.a.shape[0])}
+
+        # (a) the main path: one joint value+grad of the committed chains on the shard
+        pot = make_potential(spec)
+        value_and_grad(pot, theta)  # first call: the tables' allocations and the kernels' loading
+        _zero_counters()
+        u, g = value_and_grad(pot, theta)
+        torch.cuda.synchronize()
+        vg = {"launches": _read_counters(), "ms": cuda_ms(lambda: value_and_grad(pot, theta), reps=10)}
+        explicit = make_potential(ModelSpec(dict(POP_COSMO_PRIORS),
+                                            make_sharded_pop_cosmo_loglike(split, data, N_GRID, N_Z), dev))
+        u_e, g_e = value_and_grad(explicit, theta)
+        if not (torch.equal(u_e, u) and torch.equal(g_e, g)):
+            raise AssertionError("phase 14a: make_sharded_pop_cosmo_loglike and the spec on the shard differ")
+        dense = make_potential(pop_cosmo_model_spec(data, N_GRID, N_Z))
+        value_and_grad(dense, theta)
+        u_d, g_d = value_and_grad(dense, theta)
+        du = float(((u - u_d).abs() / (1.0 + u_d.abs())).max())
+        dg = float(((g - g_d).abs() / (1.0 + g_d.abs())).max())
+        if not (du < 2e-4 and dg < 5e-3) or not bool(torch.isfinite(u).all() and torch.isfinite(g).all()):
+            raise AssertionError(f"phase 14a against dense: |dU|/(1+|U|) {du:.3e}, |dgrad|/(1+|grad|) {dg:.3e}")
+        vg.update(du=du, dg=dg, dense_ms=cuda_ms(lambda: value_and_grad(dense, theta), reps=10),
+                  checks=kernels_against_plain("14a shard", shard, theta, gen))
+        out["vg"] = vg
+
+        # (b) fit(mesh=): two chain rows; one row over the data split, from prior draws and from the committed
+        # adapted state (rank 0 runs the dense fit of the latter beside it)
+        kw = dict(num_samples=MESH_FIT_SAMPLES, num_chains=MESH_FIT_CHAINS, cfg=NutsConfig(max_depth=MESH_FIT_DEPTH),
+                  verbose=False)
+        warm = _tree_map(lambda t: t[:MESH_FIT_CHAINS].contiguous(), load_warmup(WARMUP16))
+        n = MESH_FIT_CHAINS // SCALE_RANKS
+        for name, mesh, fit_data, mine, start in (
+                ("rows", rows, shard_pop_cosmo_data(data, rows), slice(rank * n, (rank + 1) * n),
+                 dict(num_warmup=MESH_FIT_WARMUP)),
+                ("split", split, shard, slice(None), dict(num_warmup=MESH_FIT_WARMUP)),
+                ("split_warm", split, shard, None, dict(num_warmup=0, warmup_state=warm))):
+            _zero_counters()
+            t0 = time.perf_counter()
+            res = fit(pop_cosmo_model_spec(fit_data, N_GRID, N_Z), SEED, mesh=mesh, **start, **kw)
+            torch.cuda.synchronize()
+            out[name] = {"wall_s": time.perf_counter() - t0, "launches": _read_counters(), "mesh": dict(mesh.shape),
+                         "timings": res.timings}
+            np.savez(store / f"rank{rank}_{name}.npz", **res.posterior)
+            if name == "split_warm" and rank == 0:
+                t0 = time.perf_counter()
+                res_d = fit(pop_cosmo_model_spec(data, N_GRID, N_Z), SEED, **start, **kw)
+                out["dense_fit_s"] = time.perf_counter() - t0
+                np.savez(store / "dense.npz", **res_d.posterior)
+            if mine is not None:  # the kernels at the fit's shape (its chains and rows a rank), at its last state
+                out[name]["checks"] = kernels_against_plain(f"14b {name}", fit_data,
+                                                            res.final_state.state.theta[mine].contiguous(), gen)
+        (store / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def scale_out_phase(dev, tag: str, spec, theta, data_dir: Path) -> dict:
+    """Phase 14: the scale-out layer and the host utilities on the card.
+
+    (a) ``SCALE_RANKS`` ranks on the one card (processes of this script,
+    gloo), the flagship split along ``data`` (56 events x 128 PE samples +
+    12,288 injections a rank): the joint value+grad of the 16 committed
+    chains through a spec built on the shard, with every launch count set to
+    0 just before one value+grad and read just after (kernels A and B's
+    ``lse`` once each way on each rank), held against the dense value+grad
+    on the card at phase 4's limits; ``make_sharded_pop_cosmo_loglike`` must
+    give the same bits; and at this shape :func:`kernels_against_plain`.
+    (b) ``fit(mesh=)`` cut in depth only, twice: on two chain rows (a 2 x 1
+    mesh: (4, 5) finite draws, the rows drawing differently) and on one row
+    over the data split (a 1 x 2 mesh: the two ranks' draws identical, each
+    rank having computed its own, and within ``MESH_FIT_DENSE_TOL`` of a
+    dense fit from the same seed); after each, :func:`kernels_against_plain`
+    at its shape.  (c) ``native.network_snr_native`` against kernel C on
+    ``NATIVE_ROWS`` rows at ``tests/test_native.py``'s rtol 5e-3 / atol
+    1e-3.  (d) The ``dNdm_PISN_effects`` curves on the card (one launch of
+    kernel A) against the CPU at A's forward limits.  (e)
+    ``utils.profiling.trace`` around one value+grad writes a non-empty
+    trace.  (f) Which plotting libraries import; with all three, the figures
+    of ``data_dir``'s traces and stage artifacts are drawn.  Returns the
+    launch counts by path."""
+    import importlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from bumpcosmology_torch import native
+    from bumpcosmology_torch.data.weights import planck18_dl_np
+    from bumpcosmology_torch.figures import plots
+    from bumpcosmology_torch.inference.model import make_potential, value_and_grad
+    from bumpcosmology_torch.mock.snr import network_snr_batched
+    from bumpcosmology_torch.utils.profiling import trace
+
+    launches = {}
+    # (a, b): the ranks, each writing its output to a file; one that fails stops the other
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        store = Path(tmp)
+        t0 = time.perf_counter()
+        logs = [open(store / f"rank{r}.log", "w") for r in range(SCALE_RANKS)]
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--scale-out-rank", str(r),
+                                   "--store", str(store)], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+                 for r, f in enumerate(logs)]
+        try:
+            while any(p.poll() is None for p in procs) and not any(p.poll() for p in procs):
+                if time.perf_counter() - t0 > SCALE_TIMEOUT_S:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError("phase 14 ranks failed: " + " | ".join(
+                f"rank {r} rc {p.returncode}: {(store / f'rank{r}.log').read_text()[-3000:]}"
+                for r, p in enumerate(procs)))
+        ranks_wall = time.perf_counter() - t0
+        outs = [json.loads((store / f"rank{r}.json").read_text()) for r in range(SCALE_RANKS)]
+        draws = {name: [dict(np.load(store / f"rank{r}_{name}.npz")) for r in range(SCALE_RANKS)]
+                 for name in ("rows", "split", "split_warm")}
+        dense = dict(np.load(store / "dense.npz"))
+    per_vg = {"bump_fwd": 1, "bump_bwd": 1, "logwts_lse_fwd": 1, "logwts_lse_bwd": 1}
+    for r, out in enumerate(outs):
+        got = out["vg"]["launches"]
+        if any(v != per_vg.get(k, 0) for k, v in got.items()):
+            raise AssertionError(f"phase 14a rank {r}: not one launch of A and B's lse each way in a value+grad: "
+                                 f"{got}")
+        launches[f"14a_sharded_vg_rank{r}"] = got
+    log(f"{tag} phase 14a {SCALE_RANKS} ranks on one card, backend {outs[0]['backend']} (CUDA tensors staged "
+        f"through the host; NCCL refuses two ranks on one device), mesh {outs[0]['mesh']}, "
+        f"{outs[0]['rows_a_rank']} rows a rank, {theta.shape[0]} chains; one value+grad on the shard, kernels A and "
+        f"B's lse once each way on each rank, make_sharded_pop_cosmo_loglike bit-identical to it; " + "; ".join(
+            f"rank {r}: against dense |dU|/(1+|U|) {o['vg']['du']:.3e}, |dgrad|/(1+|grad|) {o['vg']['dg']:.3e}, "
+            f"{o['vg']['ms']:.3f} ms sharded, {o['vg']['dense_ms']:.3f} ms dense (CUDA events, mean of 10)"
+            for r, o in enumerate(outs)))
+    for r, o in enumerate(outs):
+        log(f"{tag} phase 14a rank {r} against the plain versions: {o['vg']['checks']}")
+
+    for name in draws:
+        for r, d in enumerate(draws[name]):
+            for k, v in d.items():
+                if v.shape[:2] != (MESH_FIT_CHAINS, MESH_FIT_SAMPLES) or not np.isfinite(v).all():
+                    raise AssertionError(f"phase 14b fit(mesh=) {name}, rank {r}: site {k} of shape {v.shape} not "
+                                         f"finite at ({MESH_FIT_CHAINS}, {MESH_FIT_SAMPLES})")
+        for r, out in enumerate(outs):
+            got = out[name]["launches"]
+            if got["bump_bwd"] != got["logwts_lse_bwd"] or got["bump_bwd"] == 0:
+                raise AssertionError(f"phase 14b fit(mesh=) {name}, rank {r}: not one launch of A and B each way "
+                                     f"a value+grad: {got}")
+            launches[f"14b_fit_{name}_rank{r}"] = got
+    n = MESH_FIT_CHAINS // SCALE_RANKS
+    if np.array_equal(draws["rows"][0]["a"][:n], draws["rows"][0]["a"][n:]):
+        raise AssertionError("phase 14b fit(mesh=) on two chain rows: the rows drew the same")
+    for name in ("split", "split_warm"):  # each rank returns the draws it computed itself (a chain group of one)
+        for k in draws[name][0]:
+            if not all(np.array_equal(d[k], draws[name][0][k]) for d in draws[name][1:]):
+                raise AssertionError(f"phase 14b fit(mesh=) {name} over the data split: the ranks lost lockstep on "
+                                     f"site {k}")
+    gap = max(float((np.abs(draws["split_warm"][0][k] - dense[k]) / (1.0 + np.abs(dense[k]))).max()) for k in dense)
+    if not gap <= MESH_FIT_DENSE_TOL:
+        raise AssertionError(f"phase 14b fit(mesh=) over the data split from the committed state against the dense "
+                             f"fit: max |d|/(1+|ref|) {gap:.3e} beyond {MESH_FIT_DENSE_TOL}")
+    for name, what in (("rows", f"two chain rows, {MESH_FIT_WARMUP} warmup steps from prior draws, the rows drawing "
+                                "differently"),
+                       ("split", f"one row over the data split, {MESH_FIT_WARMUP} warmup steps from prior draws, "
+                                 "both ranks' draws identical"),
+                       ("split_warm", f"one row over the data split, no warmup from the committed adapted state, both "
+                                      f"ranks' draws identical, against the dense fit from the same state and seed "
+                                      f"max |d|/(1+|ref|) {gap:.3e} (limit {MESH_FIT_DENSE_TOL}; dense fit "
+                                      f"{outs[0]['dense_fit_s']:.2f} s)")):
+        o = outs[0][name]
+        log(f"{tag} phase 14b fit(mesh=) on mesh {o['mesh']} ({what}): {MESH_FIT_CHAINS} chains, "
+            f"{MESH_FIT_SAMPLES} draws, max_depth {MESH_FIT_DEPTH}: draws finite at ({MESH_FIT_CHAINS}, "
+            f"{MESH_FIT_SAMPLES}); {o['wall_s']:.2f} s on rank 0 "
+            f"({json.dumps({k: round(v, 3) for k, v in o['timings'].items()})}); rank 0's launches {o['launches']}")
+        for r, out in enumerate(outs):
+            if "checks" in out[name]:
+                log(f"{tag} phase 14b {name} rank {r} at the fit's last state against the plain versions: "
+                    f"{out[name]['checks']}")
+    log(f"{tag} phase 14 both ranks' processes {ranks_wall:.2f} s wall from start to exit")
+
+    # (c) the native library's SNR against kernel C
+    rng = np.random.default_rng(SEED)
+    m1, q, z = rng.uniform(10, 60, NATIVE_ROWS), rng.uniform(0.4, 1.0, NATIVE_ROWS), rng.uniform(0.05, 1.0, NATIVE_ROWS)
+    args = (m1 * (1 + z), m1 * q * (1 + z), planck18_dl_np(z), np.arccos(rng.uniform(-1, 1, NATIVE_ROWS)),
+            rng.uniform(0, 2 * np.pi, NATIVE_ROWS), np.arcsin(rng.uniform(-1, 1, NATIVE_ROWS)),
+            rng.uniform(0, np.pi, NATIVE_ROWS), rng.uniform(0, 2 * np.pi, NATIVE_ROWS))
+    t0 = time.perf_counter()
+    got = native.network_snr_native(*args)
+    native_s = time.perf_counter() - t0
+    _zero_counters()
+    card = network_snr_batched(*args)
+    launches["14c_native_snr"] = _read_counters()
+    if launches["14c_native_snr"]["snr_integral"] == 0:
+        raise AssertionError("phase 14c: kernel C did not launch")
+    worst = 0.0
+    for det in ("H1", "L1", "V1", "net"):
+        err = np.abs(got[det] - card[det])
+        lim = 1e-3 + 5e-3 * np.abs(card[det])
+        if not (np.isfinite(got[det]).all() and (err <= lim).all()):
+            raise AssertionError(f"phase 14c native SNR {det} against kernel C: |d| {err.max():.3e} beyond "
+                                 "rtol 5e-3 / atol 1e-3")
+        worst = max(worst, float((err / lim).max()))
+    log(f"{tag} phase 14c native SNR ({NATIVE_ROWS} rows, H1/L1/V1/net) against kernel C: within rtol 5e-3 / atol "
+        f"1e-3 (largest share of the limit {worst:.3f}); built by make -C native: make "
+        f"{'found' if shutil.which('make') else 'not found'}, g++ {'found' if shutil.which('g++') else 'not found'}; "
+        f"first call with the build {native_s:.2f} s")
+
+    # (d) the bump curves of dNdm_PISN_effects, card against CPU
+    _zero_counters()
+    m, on_card = plots._pisn_curves(dev)
+    launches["14d_pisn_curves"] = _read_counters()
+    if launches["14d_pisn_curves"]["bump_fwd"] != 1:
+        raise AssertionError(f"phase 14d: the five curves are not one launch of kernel A: {launches['14d_pisn_curves']}")
+    _, on_cpu = plots._pisn_curves("cpu")
+    err_d = max(check_close(f"phase 14d {label}", torch.as_tensor(on_card[label]), torch.as_tensor(on_cpu[label]),
+                            rtol=1e-4, atol=5e-5) for label in on_cpu)
+    log(f"{tag} phase 14d dNdm_PISN_effects: {len(on_card)} curves of {m.size} masses, one launch of kernel A, "
+        f"card against CPU max|d| {err_d:.3e} (rtol 1e-4 / atol 5e-5)")
+
+    # (e) the profiler's trace around one value+grad
+    pot = make_potential(spec)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        with trace(tmp):
+            value_and_grad(pot, theta)
+            torch.cuda.synchronize()
+        files = list(Path(tmp).glob("trace-*.json"))
+        sizes = [f.stat().st_size for f in files]
+        n_cuda = sum('"cat": "kernel"' in f.read_text() for f in files)
+    if len(files) != 1 or sizes[0] == 0:
+        raise AssertionError(f"phase 14e: profiling.trace wrote {len(files)} file(s) of {sizes} bytes")
+    log(f"{tag} phase 14e utils.profiling.trace around one joint value+grad: {sizes[0]} bytes of Chrome trace, "
+        f"device kernels {'recorded' if n_cuda else 'not recorded'}")
+
+    # (f) the plotting libraries of this host
+    found = {}
+    for name in plots.PLOTTING_LIBRARIES:
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    if all(found.values()):
+        from bumpcosmology_torch.pipeline.config import PipelineConfig
+
+        cfg = PipelineConfig()
+        cfg.paths.data_dir = str(data_dir)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_figures_") as tmp:
+            t0 = time.perf_counter()
+            made = plots.render_all(cfg, out_dir=tmp, fmt="png", device=dev)
+            drawn = f"drew {len(made)} figures from phases 7-12's artifacts in {time.perf_counter() - t0:.2f} s"
+    else:
+        drawn = "figures not drawn here (they are drawn on a host with all three)"
+    log(f"{tag} phase 14f plotting libraries on this host: {json.dumps(found)}; {drawn}")
     return launches
 
 if __name__ == "__main__":

@@ -88,16 +88,15 @@ def test_dag_errors(tmp_path):
 
 
 def test_build_pipeline_mirrors_jax(tmp_path):
-    """Every JAX stage but ``figures`` and ``report`` (not ported yet), with
-    the same dependencies and the JAX artifacts' names as ``.npz``."""
+    """Every JAX stage, ``figures`` and ``report`` included, with the same
+    dependencies and the JAX artifacts' names as ``.npz``."""
     from bumpcosmology_tpu.pipeline.config import PipelineConfig as JaxConfig
     from bumpcosmology_tpu.pipeline.stages import build_pipeline as jax_build
 
     jcfg, tcfg = JaxConfig(), PipelineConfig()
     jcfg.paths.data_dir = tcfg.paths.data_dir = str(tmp_path)
     jax_pipe, pipe = jax_build(jcfg), tstages.build_pipeline(tcfg, device="cpu")
-    assert set(jax_pipe.stages) - set(pipe.stages) == {"figures", "report"}
-    assert set(pipe.stages) <= set(jax_pipe.stages)
+    assert set(pipe.stages) == set(jax_pipe.stages)
     as_npz = lambda paths: [str(p)[:-3] + ".npz" if str(p).endswith(".h5") else str(p) for p in paths]  # noqa: E731
     for name, stage in pipe.stages.items():
         ref = jax_pipe.stages[name]
@@ -151,7 +150,7 @@ def test_the_dropped_flags_are_refused_and_named_in_help(capsys):
     out = capsys.readouterr().out
     for flag in ("--device", "--platform", "--host-devices", "--no-compile-cache", "--rehearsal"):
         assert flag in out
-    assert cli.GROUPS["all"] == ["sample", "sample_cosmo"]
+    assert cli.GROUPS["all"] == ["sample", "sample_cosmo", "figures", "report"]  # the JAX package's group
 
 
 @pytest.mark.parametrize("stage", ["fetch", "draw_pe_samples", "draw_selection_samples"])
