@@ -112,11 +112,30 @@
 // (3.5e-8 at N = 38,912), below the float32 rounding of a cotangent of order one and far inside
 // the limits against the twin (rtol 5e-4, atol 5e-4 x max|ref|) unless every cotangent of the
 // table is below 7e-5.
-// Shared memory: 16 bytes a bin where the float atomics took 4, so a detector row (two bins and
-// its float2) takes 40 bytes where it took 16: at G = 256 and 32 warps the backward fits K up to
-// 4,347 on an H100 (227 KB a block), where it fitted 11,062; the forward fits about 28,900.  Beyond it
-// the launch is refused and the wrapper names the most K that fits (logwts_max_k).  Two designs
-// set aside: per-warp partial bins combined in warp order
+// Shared memory, and the backward's two routes.  A bin takes 16 bytes where the float atomics
+// took 4, so with the detector's bins in shared memory a detector row (two bins and its float2)
+// takes 40 bytes where it took 16: at G = 256 and 32 warps that route (ROUTE_SHARED) fits K up to
+// 4,347 on an H100 (227 KB a block), where the float atomics fitted 11,062; the forward fits about
+// 28,900.  A larger table takes the second route (ROUTE_GLOBAL), chosen from the shape before the
+// launch (bwd_route: the arithmetic of bwd_smem and fwd_smem against the device's limit), never by
+// trying a launch.  There the detector's 2K bins are the same fixed-point words in a (C, 2, 2K)
+// scratch in device memory, which the launch zeroes (cudaMemsetAsync on the stream) and the rows
+// reach with 64-bit integer atomics in L2; the detector table is read through L1 instead of being
+// copied; the bump's G bins, the scalar partials and the combine of the eight blocks stay in shared
+// memory.  After its rows each block fences its atomics, the cluster synchronises, and each block
+// converts its eighth of the chain's detector bins, read from L2 (__ldcg), to float as the shared
+// route does.  Integer addition is order-free, so this route gives the same bits on every launch
+// too.  Its shared memory does not grow with K (4 KB of bump bins, 52 KB of scalar partials at 992
+// threads), so the backward takes every K the forward takes; beyond the forward's limit both are
+// refused and the wrapper names the most K that fits (logwts_max_k).  Below the shared route's limit
+// nothing changes: the same source path and arithmetic, the same bits.
+// Why this design: the Pallas backward writes one partial table per grid step and sums them
+// afterwards (pallas_logwts.py:217-250), which keeps its order fixed because the grid runs in
+// sequence.  Per-block partials here would still need a fixed order inside the block, that is the
+// fixed-point bins, which at these K no longer fit in shared memory; and a second launch and a
+// (8 C, 2K) float tensor buy nothing that the cluster barrier does not give: the eight blocks that
+// add to a chain's bins are the cluster that converts them.  Designs set aside for the shared
+// route: per-warp partial bins combined in warp order
 // fit the bump table (G = 256 floats x 32 warps = 32 KB) but not the detector's 2K = 2,048 floats
 // x 32 warps, and the lanes of one warp would still need an order; rows sorted by detector bin
 // when the query table is built would still leave the bump bins, which move with theta.
@@ -140,8 +159,10 @@
 //   with qry_cs the rows between two chains' tables (0 or N);
 //   out, gout (C,N); lse_ev (C,nobs); lse_sel (C,); g_ev (C,nobs) with element strides
 //   (g_ev_s0, g_ev_s1); g_sel (C,) with element stride g_sel_s0;
-//   d_det (C,K,2), d_bump (C,G), d_scal (C,15) are written in full.
-//   Each function returns the CUDA error of its launch (0 on success).
+//   d_det (C,K,2), d_bump (C,G), d_scal (C,15) are written in full;
+//   det_bins: the backward's (C, 2, 2K) 64-bit scratch on ROUTE_GLOBAL (logwts_bwd_route says which
+//   route a shape takes), unused and may be null on ROUTE_SHARED.
+//   Each function returns the CUDA error of its launch (0 on success), or ERR_SMEM (-1).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -558,20 +579,21 @@ __device__ __forceinline__ void add_bins(const BinAdd& a, const Bins& b, int bas
   }
 }
 
-// Adds one row's table cotangents to the block's bins: the detector's 2K interleaved
-// [d z, d log_jac] first, then the bump table's G.
-__device__ __forceinline__ void add_row(const RowAdd& a, const Bins& b, int K) {
+// Adds one row's table cotangents: the detector's 2K interleaved [d z, d log_jac] to det, the bump
+// table's G to bump from bump_base on (on ROUTE_SHARED both are the block's bins, the bump's after
+// the detector's; on ROUTE_GLOBAL det is the chain's scratch in device memory).
+__device__ __forceinline__ void add_row(const RowAdd& a, const Bins& det, const Bins& bump, int bump_base) {
   if (a.lo >= 0) {
-    fx_add(b, 2 * a.lo, a.gz * (1.0f - a.t));
-    fx_add(b, 2 * a.lo + 2, a.gz * a.t);
-    fx_add(b, 2 * a.lo + 1, a.g * (1.0f - a.t));
-    fx_add(b, 2 * a.lo + 3, a.g * a.t);
+    fx_add(det, 2 * a.lo, a.gz * (1.0f - a.t));
+    fx_add(det, 2 * a.lo + 2, a.gz * a.t);
+    fx_add(det, 2 * a.lo + 1, a.g * (1.0f - a.t));
+    fx_add(det, 2 * a.lo + 3, a.g * a.t);
   }
-  add_bins(a.b1, b, 2 * K);
-  add_bins(a.b2, b, 2 * K);
+  add_bins(a.b1, bump, bump_base);
+  add_bins(a.b2, bump, bump_base);
 }
 
-template <bool LSE, bool PER_CHAIN>
+template <bool LSE, bool PER_CHAIN, bool GLOBAL_BINS>
 __global__ void __launch_bounds__(32 * WARPS_BWD)
 logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
                   const float* __restrict__ scal, const float4* __restrict__ qry,
@@ -579,14 +601,18 @@ logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
                   const float* __restrict__ lse_sel, const float* __restrict__ g_ev, int g_ev_s0,
                   int g_ev_s1, const float* __restrict__ g_sel, int g_sel_s0,
                   float* __restrict__ d_det, float* __restrict__ d_bump,
-                  float* __restrict__ d_scal, int K, int G, Work w) {
+                  float* __restrict__ d_scal, unsigned long long* __restrict__ det_bins, int K, int G,
+                  Work w) {
   extern __shared__ __align__(16) float smem[];
-  const int nb = 2 * K + G;  // table-cotangent bins
+  const int nb = 2 * K + G;                   // table-cotangent bins
+  const int k_sh = GLOBAL_BINS ? 0 : K;       // detector rows (table and bins) in shared memory
+  const int nb_sh = 2 * k_sh + G;             // bins in shared memory
+  const int bump_base = 2 * k_sh;             // the bump's first bin there
   Bins bins;
-  bins.hi = reinterpret_cast<unsigned long long*>(smem);          // (nb,)
-  bins.lo = bins.hi + nb;                                         // (nb,)
-  float2* s_det = reinterpret_cast<float2*>(bins.lo + nb);        // (K,)
-  float* s_bump = reinterpret_cast<float*>(s_det + K);            // (G,)
+  bins.hi = reinterpret_cast<unsigned long long*>(smem);          // (nb_sh,)
+  bins.lo = bins.hi + nb_sh;                                      // (nb_sh,)
+  float2* s_det = reinterpret_cast<float2*>(bins.lo + nb_sh);     // (k_sh,)
+  float* s_bump = reinterpret_cast<float*>(s_det + k_sh);         // (G,)
   float* s_scal = s_bump + G;                                     // (NSX_PAD,)
   float* s_dscal = s_scal + NSX_PAD;                              // (NS_PAD,)
   float* s_red = s_dscal + NS_PAD;                                // (NACC, blockDim.x)
@@ -595,9 +621,15 @@ logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
   const int rank = (int)cluster.block_rank();
   const int c = blockIdx.y;
   const float4* __restrict__ qc = PER_CHAIN ? qry + (size_t)c * w.N : qry;  // this chain's rows
+  const float2* tab = GLOBAL_BINS ? reinterpret_cast<const float2*>(det) + (size_t)c * K : s_det;
+  Bins dbins = bins;  // the detector's bins
+  if (GLOBAL_BINS) {
+    dbins.hi = det_bins + (size_t)c * 4 * K;
+    dbins.lo = dbins.hi + 2 * K;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  load_tables(det, bump, scal, K, G, c, s_det, s_bump, s_scal);
-  for (int k = threadIdx.x; k < nb; k += blockDim.x) {
+  load_tables(det, bump, scal, k_sh, G, c, s_det, s_bump, s_scal);
+  for (int k = threadIdx.x; k < nb_sh; k += blockDim.x) {
     bins.hi[k] = 0ull;
     bins.lo[k] = 0ull;
   }
@@ -633,7 +665,7 @@ logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
       if (n < row1) {
         if (LSE) {
           if (g_seg != 0.0f) {
-            const Query r = evaluate(qc[n], s_scal, s_det, K, s_bump, G);
+            const Query r = evaluate(qc[n], s_scal, tab, K, s_bump, G);
             // a -inf row has cotangent exactly 0 (and every row of an all-dead segment is one)
             const float g = r.out == -INFINITY ? 0.0f : g_seg * exp_neg(r.out - l_seg);
             if (g != 0.0f) row_bwd(r, g, s_scal, acc, adds[j]);
@@ -641,14 +673,14 @@ logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
         } else {
           const float g = gout[(size_t)c * w.N + n];
           if (g != 0.0f) {
-            const Query r = evaluate(qc[n], s_scal, s_det, K, s_bump, G);
+            const Query r = evaluate(qc[n], s_scal, tab, K, s_bump, G);
             row_bwd(r, g, s_scal, acc, adds[j]);
           }
         }
       }
     }
 #pragma unroll
-    for (int j = 0; j < R_BWD; ++j) add_row(adds[j], bins, K);
+    for (int j = 0; j < R_BWD; ++j) add_row(adds[j], dbins, bins, bump_base);
   }
 
   // the block's scalar cotangents: once through shared memory, one warp per slot
@@ -663,17 +695,28 @@ logwts_bwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
   }
 
   // the chain's cotangents: each block sums an eighth of the values over the cluster, in rank order
+  // (on ROUTE_GLOBAL the detector's bins are already summed, in L2: the fence orders this thread's
+  // atomics before the cluster's barrier, after which every block of the chain has added its rows)
+  if (GLOBAL_BINS) __threadfence();
   cluster.sync();
   const float nan = __int_as_float(0x7fc00000);
   for (int i = rank * blockDim.x + threadIdx.x; i < nb + NS; i += CLUSTER * blockDim.x) {
     if (i < nb) {
       unsigned long long hi = 0ull, lo = 0ull, bad = 0ull;
+      if (GLOBAL_BINS && i < 2 * K) {
+        const unsigned long long l = __ldcg(&dbins.lo[i]);
+        hi = __ldcg(&dbins.hi[i]);
+        lo = l & ~FX_MARK;
+        bad = l & FX_MARK;
+      } else {
+        const int j = i - 2 * K + bump_base;  // i on ROUTE_SHARED
 #pragma unroll
-      for (int r = 0; r < CLUSTER; ++r) {
-        const unsigned long long l = cluster.map_shared_rank(bins.lo, r)[i];
-        hi += cluster.map_shared_rank(bins.hi, r)[i];
-        lo += l & ~FX_MARK;
-        bad |= l & FX_MARK;
+        for (int r = 0; r < CLUSTER; ++r) {
+          const unsigned long long l = cluster.map_shared_rank(bins.lo, r)[j];
+          hi += cluster.map_shared_rank(bins.hi, r)[j];
+          lo += l & ~FX_MARK;
+          bad |= l & FX_MARK;
+        }
       }
       const float v = bad ? nan : (float)((double)(long long)hi * FX_HI_UNIT + (double)lo * FX_LO_UNIT);
       if (i < 2 * K) d_det[(size_t)c * 2 * K + i] = v;
@@ -692,10 +735,12 @@ size_t fwd_smem(int K, int G, const Work& w, bool lse) {
   return (2 * (size_t)K + G + NSX_PAD + (lse ? 2 * (size_t)w.per_block + 2 : 0)) * sizeof(float);
 }
 
-size_t bwd_smem(int K, int G, int threads) {
-  const size_t nb = 2 * (size_t)K + G;
+// global_bins: ROUTE_GLOBAL, whose shared memory holds no detector row
+size_t bwd_smem(int K, int G, int threads, bool global_bins) {
+  const size_t k_sh = global_bins ? 0 : (size_t)K;
+  const size_t nb = 2 * k_sh + G;
   return nb * 2 * sizeof(unsigned long long)
-         + (2 * (size_t)K + G + NSX_PAD + NS_PAD + (size_t)NACC * threads) * sizeof(float);
+         + (2 * k_sh + G + NSX_PAD + NS_PAD + (size_t)NACC * threads) * sizeof(float);
 }
 
 bool bad_shape(int C, int K, int G, int N, int qry_cs, int nobs, int nsamp) {  // qry_cs: 0 or N
@@ -705,6 +750,41 @@ bool bad_shape(int C, int K, int G, int N, int qry_cs, int nobs, int nsamp) {  /
 
 constexpr int MAX_DEVICES = 64;
 constexpr int ERR_SMEM = -1;  // a launch that needs more shared memory than a block of the device has
+enum Route { ROUTE_SHARED = 0, ROUTE_GLOBAL = 1 };  // where the backward keeps its detector bins
+
+// The most dynamic shared memory a block of the current device may use (read once per device).
+cudaError_t smem_optin(size_t& most) {
+  static int cached[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int v = dev < MAX_DEVICES ? cached[dev] : 0;
+  if (v == 0) {
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) cached[dev] = v;
+  }
+  most = (size_t)v;
+  return cudaSuccess;
+}
+
+// The backward's route at this shape on the current device, from the shape alone: ROUTE_SHARED
+// while its bins and tables fit in a block's shared memory, else ROUTE_GLOBAL while the forward at
+// the same shape fits; else ERR_SMEM.  Returns 0, a CUDA error or ERR_SMEM.
+int bwd_route(bool lse, int K, int G, int N, int nobs, int nsamp, int& route) {
+  const Work wb = make_work(N, nobs, nsamp, R_BWD);
+  const int threads = pick_threads(wb, WARPS_BWD);
+  const size_t shared = bwd_smem(K, G, threads, false);
+  route = ROUTE_SHARED;
+  if (shared <= 48 * 1024) return 0;
+  size_t most = 0;
+  const cudaError_t err = smem_optin(most);
+  if (err != cudaSuccess) return (int)err;
+  if (shared <= most) return 0;
+  route = ROUTE_GLOBAL;
+  const Work wf = make_work(N, nobs, nsamp, R_FWD);
+  return fwd_smem(K, G, wf, lse) <= most && bwd_smem(K, G, threads, true) <= most ? 0 : ERR_SMEM;
+}
 
 // The most dynamic shared memory a kernel has been allowed so far on each device, so that the
 // attribute is set when a launch first needs more than the default 48 KB, not on every launch.
@@ -747,6 +827,33 @@ int launch(Kernel kernel, SmemAllowed& allowed, int C, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
+// The backward of either epilogue on the route its shape takes; on ROUTE_GLOBAL the scratch
+// det_bins is zeroed on the stream first.
+template <bool LSE>
+int launch_bwd(int C, int K, int G, int qry_cs, int nobs, int nsamp, unsigned long long* det_bins,
+               void* stream, const float* det, const float* bump, const float* scal, const float* qry,
+               const float* gout, const float* lse_ev, const float* lse_sel, const float* g_ev,
+               int g_ev_s0, int g_ev_s1, const float* g_sel, int g_sel_s0, float* d_det,
+               float* d_bump, float* d_scal, const Work& w) {
+  static SmemAllowed allowed[2][2];  // [route][query layout]
+  int route = ROUTE_SHARED;
+  const int rc = bwd_route(LSE, K, G, w.N, nobs, nsamp, route);
+  if (rc != 0) return rc;
+  const bool global = route == ROUTE_GLOBAL;
+  if (global) {
+    if (det_bins == nullptr) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaMemsetAsync(det_bins, 0, (size_t)C * 4 * K * sizeof(unsigned long long),
+                                            (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const auto kernel = global ? (qry_cs ? &logwts_bwd_kernel<LSE, true, true> : &logwts_bwd_kernel<LSE, false, true>)
+                             : (qry_cs ? &logwts_bwd_kernel<LSE, true, false> : &logwts_bwd_kernel<LSE, false, false>);
+  const int threads = pick_threads(w, WARPS_BWD);
+  return launch(kernel, allowed[global][qry_cs != 0], C, threads, bwd_smem(K, G, threads, global), stream,
+                det, bump, scal, reinterpret_cast<const float4*>(qry), gout, lse_ev, lse_sel, g_ev, g_ev_s0,
+                g_ev_s1, g_sel, g_sel_s0, d_det, d_bump, d_scal, det_bins, K, G, w);
+}
+
 }  // namespace
 
 extern "C" int logwts_fwd(const float* det, const float* bump, const float* scal, const float* qry,
@@ -763,17 +870,13 @@ extern "C" int logwts_fwd(const float* det, const float* bump, const float* scal
 
 extern "C" int logwts_bwd(const float* det, const float* bump, const float* scal, const float* qry,
                           const float* gout, float* d_det, float* d_bump, float* d_scal,
-                          int C, int K, int G, int N, int qry_cs, void* stream) {
+                          unsigned long long* det_bins, int C, int K, int G, int N, int qry_cs,
+                          void* stream) {
   if (bad_shape(C, K, G, N, qry_cs, 0, 1) || N >= FX_MAX_N) return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
-  const Work w = make_work(N, 0, 1, R_BWD);
-  const int threads = pick_threads(w, WARPS_BWD);
-  static SmemAllowed allowed[2];
-  return launch(qry_cs ? &logwts_bwd_kernel<false, true> : &logwts_bwd_kernel<false, false>,
-                allowed[qry_cs != 0], C, threads, bwd_smem(K, G, threads), stream,
-                det, bump, scal, reinterpret_cast<const float4*>(qry), gout, (const float*)nullptr,
-                (const float*)nullptr, (const float*)nullptr, 0, 0, (const float*)nullptr, 0,
-                d_det, d_bump, d_scal, K, G, w);
+  return launch_bwd<false>(C, K, G, qry_cs, 0, 1, det_bins, stream, det, bump, scal, qry, gout,
+                           (const float*)nullptr, (const float*)nullptr, (const float*)nullptr, 0, 0,
+                           (const float*)nullptr, 0, d_det, d_bump, d_scal, make_work(N, 0, 1, R_BWD));
 }
 
 extern "C" int logwts_lse_fwd(const float* det, const float* bump, const float* scal,
@@ -792,33 +895,42 @@ extern "C" int logwts_lse_fwd(const float* det, const float* bump, const float* 
 extern "C" int logwts_lse_bwd(const float* det, const float* bump, const float* scal,
                               const float* qry, const float* lse_ev, const float* lse_sel,
                               const float* g_ev, int g_ev_s0, int g_ev_s1, const float* g_sel,
-                              int g_sel_s0, float* d_det, float* d_bump, float* d_scal, int C,
-                              int K, int G, int N, int qry_cs, int nobs, int nsamp, void* stream) {
+                              int g_sel_s0, float* d_det, float* d_bump, float* d_scal,
+                              unsigned long long* det_bins, int C, int K, int G, int N, int qry_cs,
+                              int nobs, int nsamp, void* stream) {
   if (bad_shape(C, K, G, N, qry_cs, nobs, nsamp) || N >= FX_MAX_N) return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
-  const Work w = make_work(N, nobs, nsamp, R_BWD);
-  const int threads = pick_threads(w, WARPS_BWD);
-  static SmemAllowed allowed[2];
-  return launch(qry_cs ? &logwts_bwd_kernel<true, true> : &logwts_bwd_kernel<true, false>,
-                allowed[qry_cs != 0], C, threads, bwd_smem(K, G, threads), stream,
-                det, bump, scal, reinterpret_cast<const float4*>(qry), (const float*)nullptr,
-                lse_ev, lse_sel, g_ev, g_ev_s0, g_ev_s1, g_sel, g_sel_s0, d_det, d_bump, d_scal,
-                K, G, w);
+  return launch_bwd<true>(C, K, G, qry_cs, nobs, nsamp, det_bins, stream, det, bump, scal, qry,
+                          (const float*)nullptr, lse_ev, lse_sel, g_ev, g_ev_s0, g_ev_s1, g_sel, g_sel_s0,
+                          d_det, d_bump, d_scal, make_work(N, nobs, nsamp, R_BWD));
+}
+
+// The route the backward of an epilogue (lse: 1 for lse, 0 for rows, with nobs = 0, nsamp = 1) takes
+// at this shape on the current device, into *route (ROUTE_SHARED 0, ROUTE_GLOBAL 1, which needs a
+// (C, 2, 2K) int64 det_bins).  Returns 0, a CUDA error, or ERR_SMEM beyond the forward's limit.
+extern "C" int logwts_bwd_route(int lse, int K, int G, int N, int nobs, int nsamp, int* route) {
+  if (bad_shape(1, K, G, N, 0, nobs, nsamp) || N >= FX_MAX_N) return (int)cudaErrorInvalidValue;
+  return bwd_route(lse != 0, K, G, N, nobs, nsamp, *route);
 }
 
 // The most detector-table rows K that a launch at (G, N, nobs, nsamp) fits in the shared memory of
-// a block of the current device (nobs = 0: the rows epilogue), or a negative CUDA error.  The
-// wrappers call it to name the limit when a launch was refused with ERR_SMEM.
+// a block of the current device (nobs = 0: the rows epilogue), or a negative CUDA error: the
+// forward's limit, and the backward's, which is the forward's wherever ROUTE_GLOBAL fits (its shared
+// memory does not grow with K).  The wrappers call it to name the limit when a shape is refused.
 extern "C" int logwts_max_k(int backward, int G, int N, int nobs, int nsamp) {
-  int dev = 0, most = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  size_t most = 0;
+  const cudaError_t err = smem_optin(most);
   if (err != cudaSuccess) return -(int)err;
   const bool lse = nobs > 0;
-  const Work w = make_work(N, lse ? nobs : 0, lse ? nsamp : 1, backward ? R_BWD : R_FWD);
-  auto smem = [&](int K) {
-    return backward ? bwd_smem(K, G, pick_threads(w, WARPS_BWD)) : fwd_smem(K, G, w, lse);
+  const Work wf = make_work(N, lse ? nobs : 0, lse ? nsamp : 1, R_FWD);
+  const Work wb = make_work(N, lse ? nobs : 0, lse ? nsamp : 1, R_BWD);
+  const int threads = pick_threads(wb, WARPS_BWD);
+  auto largest = [&](auto smem) {
+    const size_t at0 = smem(0), per_k = smem(1) - at0;
+    return most < at0 ? 0 : (int)((most - at0) / per_k);
   };
-  const size_t at0 = smem(0), per_k = smem(1) - at0;
-  return (size_t)most < at0 ? 0 : (int)(((size_t)most - at0) / per_k);
+  const int fwd = largest([&](int K) { return fwd_smem(K, G, wf, lse); });
+  if (!backward) return fwd;
+  const int shared = largest([&](int K) { return bwd_smem(K, G, threads, false); });
+  return bwd_smem(0, G, threads, true) <= most && fwd > shared ? fwd : shared;
 }

@@ -23,7 +23,12 @@ tables (0 or N) as an argument.
 The CUDA kernel is ``csrc/logwts.cu``.  The backward is hand-derived (the
 Pallas kernel recomputed under a JAX vjp); its plain PyTorch twin below
 writes the same formulas in tensor code, and the CPU tests hold it against
-JAX autodiff of the JAX package's fused path.
+JAX autodiff of the JAX package's fused path.  The backward has two routes,
+chosen from the shape before the launch (``logwts_bwd_route``): the
+detector table's cotangent bins in shared memory while they fit (K up to
+4,347 at G = 256 on an H100), else in a zeroed ``(C, 2, 2K)`` int64 scratch
+in device memory (``_global`` in :data:`LAUNCHES`), up to the forward's own
+limit (about 28,900); both are deterministic.
 
 Two epilogues share the kernel body.  :func:`logwts` (``rows``) returns the
 ``(C, N)`` log-weights, the Pallas kernel's own function.  :func:`logwts_lse`
@@ -50,8 +55,10 @@ __all__ = ["SLOTS", "LAUNCHES", "query_rows", "logwts", "logwts_plain", "logwts_
 
 SLOTS = ("v0", "dv", "mbh_lo", "dmbh", "mbh_hi", "c", "mbhmax", "log_pl_norm", "log_norm",
          "beta", "lam", "kappa", "zp", "k_det", "k_bump")
-# launches by entry point; "_per_chain": with a (C, N, 4) query table, one a chain
-LAUNCHES = {name + layout: 0 for name in ("logwts_fwd", "logwts_bwd", "logwts_lse_fwd", "logwts_lse_bwd")
+# launches by entry point; "_global": the backward's route for a detector table too large for its bins in
+# shared memory; "_per_chain": with a (C, N, 4) query table, one a chain
+LAUNCHES = {name + layout: 0 for name in ("logwts_fwd", "logwts_bwd", "logwts_lse_fwd", "logwts_lse_bwd",
+                                          "logwts_bwd_global", "logwts_lse_bwd_global")
             for layout in ("", "_per_chain")}
 
 _LOG2 = math.log(2.0)
@@ -240,27 +247,37 @@ class _LogwtsLsePlain(torch.autograd.Function):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "logwts_fwd": ([_P] * 5 + [_I] * 5 + [_P], _I),
-    "logwts_bwd": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "logwts_bwd": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "logwts_lse_fwd": ([_P] * 6 + [_I] * 7 + [_P], _I),
-    "logwts_lse_bwd": ([_P] * 7 + [_I, _I, _P, _I] + [_P] * 3 + [_I] * 7 + [_P], _I),
+    "logwts_lse_bwd": ([_P] * 7 + [_I, _I, _P, _I] + [_P] * 4 + [_I] * 7 + [_P], _I),
+    "logwts_bwd_route": ([_I] * 6 + [_P], _I),
     "logwts_max_k": ([_I] * 5, _I),
 }
 _ERR_SMEM = -1  # csrc/logwts.cu's ERR_SMEM: the launch needs more shared memory than a block has
+_ROUTE_GLOBAL = 1  # csrc/logwts.cu's ROUTE_GLOBAL: the backward's detector bins in device memory
+_ROUTES = {}  # (device, lse, K, G, N, nobs, nsamp) -> the backward's route
 
 
 def _raise_on(rc: int, what: str, k: int, g_len: int, n: int, nobs: int = 0, nsamp: int = 1) -> None:
-    """:func:`raise_on`, but a launch refused for its shared memory raises a
+    """:func:`raise_on`, but a shape refused for its shared memory raises a
     ``ValueError`` that names the most detector-table rows K (``fit.n_z``)
-    that fit at this shape.  The backward keeps its table cotangents in
-    64-bit fixed point (16 bytes a bin), so it reaches a smaller K than the
-    forward: 4,347 at G = 256 on an H100."""
+    that fit at this shape: the forward's limit, which the backward shares
+    (about 28,900 at G = 256 on an H100 at the flagship's shape)."""
     if rc == _ERR_SMEM:
-        most = kernel_function("logwts", "logwts_max_k", _SIGNATURES)(int(what.endswith("_bwd")), g_len, n, nobs,
-                                                                        nsamp)
+        most = _max_k(what.endswith("_bwd"), g_len, n, nobs, nsamp)
         raise ValueError(f"{what}: a detector table of K = {k} rows (fit.n_z) with G = {g_len} bump bins needs "
                          f"more shared memory than a block of this device has; at most K = {most} fit at "
                          f"{n} query rows")
     raise_on(rc, what)
+
+
+def _max_k(backward: bool, g_len: int, n: int, nobs: int = 0, nsamp: int = 1) -> int:
+    """The most detector-table rows K that a launch of the ``rows`` (``nobs``
+    = 0) or ``lse`` epilogue at this shape fits on the current device."""
+    most = kernel_function("logwts", "logwts_max_k", _SIGNATURES)(int(backward), g_len, n, nobs, nsamp)
+    if most < 0:
+        raise_on(-most, "logwts_max_k")
+    return most
 
 
 def _require_cuda_f32(t, name: str) -> None:
@@ -306,18 +323,46 @@ def _logwts_fwd_cuda(det, bump, scal, qry):
     return out
 
 
+def _bwd_scratch(what: str, det, c: int, k: int, g_len: int, n: int, nobs: int = 0, nsamp: int = 1):
+    """The scratch of the backward ``what`` at this shape: None on the route
+    with the detector's bins in shared memory, a ``(C, 2, 2K)`` int64 tensor
+    (the launch zeroes it) on the route with them in device memory
+    (:data:`_ROUTE_GLOBAL`).  The route is ``csrc/logwts.cu``'s, from the
+    shape alone, read once per shape and device.  Raises beyond the
+    forward's limit."""
+    lse = int(what == "logwts_lse_bwd")
+    key = (det.device, lse, k, g_len, n, nobs, nsamp)
+    route = _ROUTES.get(key)
+    if route is None:
+        out = ctypes.c_int(-1)
+        rc = kernel_function("logwts", "logwts_bwd_route", _SIGNATURES)(lse, k, g_len, n, nobs, nsamp,
+                                                                         ctypes.byref(out))
+        _raise_on(rc, what, k, g_len, n, nobs, nsamp)
+        route = _ROUTES[key] = out.value
+    if route != _ROUTE_GLOBAL:
+        return None
+    return torch.empty((c, 2, 2 * k), dtype=torch.int64, device=det.device)
+
+
+def _counter(what: str, scratch, qry_cs: int) -> str:
+    """The :data:`LAUNCHES` key of a backward launch."""
+    return what + ("" if scratch is None else "_global") + ("_per_chain" if qry_cs else "")
+
+
 def _logwts_bwd_cuda(det, bump, scal, qry, g):
     c, k, g_len, n, qry_cs, stream = _launch_args(det, bump, scal, qry)
     _require_cuda_f32(g, "g")
     if g.shape != (c, n) or not g.is_contiguous():
         raise ValueError(f"g: expected a contiguous tensor of shape {(c, n)}, got {tuple(g.shape)} "
                          f"with strides {g.stride()}")
+    bins = _bwd_scratch("logwts_bwd", det, c, k, g_len, n)
     d_det, d_bump, d_scal = _cotangent_outputs(det, bump, scal)
     rc = kernel_function("logwts", "logwts_bwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), g.data_ptr(),
-        d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), c, k, g_len, n, qry_cs, stream)
+        d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), None if bins is None else bins.data_ptr(),
+        c, k, g_len, n, qry_cs, stream)
     _raise_on(rc, "logwts_bwd", k, g_len, n)
-    LAUNCHES["logwts_bwd" + ("_per_chain" if qry_cs else "")] += 1
+    LAUNCHES[_counter("logwts_bwd", bins, qry_cs)] += 1
     return d_det, d_bump, d_scal
 
 
@@ -346,14 +391,15 @@ def _logwts_lse_bwd_cuda(det, bump, scal, qry, lse_ev, lse_sel, g_ev, g_sel, nob
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not (lse_ev.is_contiguous() and lse_sel.is_contiguous()):
         raise ValueError("lse_ev, lse_sel: expected contiguous tensors")
+    bins = _bwd_scratch("logwts_lse_bwd", det, c, k, g_len, n, nobs, nsamp)
     d_det, d_bump, d_scal = _cotangent_outputs(det, bump, scal)
     rc = kernel_function("logwts", "logwts_lse_bwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), lse_ev.data_ptr(),
         lse_sel.data_ptr(), g_ev.data_ptr(), g_ev.stride(0), g_ev.stride(1), g_sel.data_ptr(),
-        g_sel.stride(0), d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), c, k, g_len, n,
-        qry_cs, nobs, nsamp, stream)
+        g_sel.stride(0), d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(),
+        None if bins is None else bins.data_ptr(), c, k, g_len, n, qry_cs, nobs, nsamp, stream)
     _raise_on(rc, "logwts_lse_bwd", k, g_len, n, nobs, nsamp)
-    LAUNCHES["logwts_lse_bwd" + ("_per_chain" if qry_cs else "")] += 1
+    LAUNCHES[_counter("logwts_lse_bwd", bins, qry_cs)] += 1
     return d_det, d_bump, d_scal
 
 

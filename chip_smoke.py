@@ -42,10 +42,21 @@ PyTorch twin:
    flagship without one event each, 34.6 MB).  At the shared C = 16 shape
    and both per-chain shapes, two backward launches on the same inputs must
    agree bit for bit, both epilogues (the table cotangents are summed in
-   fixed point);
+   fixed point).  Last, detector tables whose backward bins do not fit in
+   shared memory, where the backward takes its second route (the bins in
+   device memory): K = 8,192 and the largest K the forward takes (about
+   28,900) on the shared C = 16 table, and K = 8,192 on 20 per-chain tables
+   of 2,816 rows: both epilogues both ways against the twin, the backward
+   twice bit for bit, every backward launch on the second route; the
+   route's backwards at K = 8,192 are timed and bounded;
 4. the 16-chain potential value+grad (through the ``lse`` epilogue), kernels
    against twins: |dU|/(1+|U|) < 2e-4 and |dgrad|/(1+|grad|) < 5e-3, timed with
    CUDA events; two value+grads at the same thetas must agree bit for bit;
+   (4b) the same potential at ``n_z`` = 8,192: with every launch count set to
+   0 just before one value+grad and read just after, one launch of kernel A
+   and of B's ``lse`` epilogue each way (the backward on its second route)
+   and nothing else; against the plain twins at the same limits, twice bit
+   for bit, and |U(8,192) - U(1,024)| printed;
 5. ``run_sampling`` for a few NUTS draws, then the effective-sample-size
    diagnostics (``pop_cosmo_event_sel_logwts`` and ``selection_neff_terms``, the
    ``rows`` epilogue) on the last draw of every chain, with every launch count
@@ -190,7 +201,7 @@ PyTorch twin:
 
 The ``kernels`` line's ``launches`` are phase 7's (the joint fit, C: phase
 6's stages, B's per-chain rows: phase 11b's, and at the LOO fleet's shape
-phase 12d's); ``launches_by_path`` gives every path, phases 6-14 (phase
+phase 12d's); ``launches_by_path`` gives every path, phases 4b and 6-14 (phase
 14's on each rank: the sharded value+grad and the three mesh fits; and
 the launches of 14c and 14d).  Every kernel is
 timed twice: ``ms`` is its device time (20 launches captured
@@ -221,6 +232,8 @@ CATALOG = ROOT / "benchmarks" / "flagship_catalog.npz"
 WARMUP16 = ROOT / "benchmarks" / "flagship_warmup16.npz"
 SEED = 20261016
 N_GRID, N_Z = 256, 1024
+# a detector table beyond the 4,347 rows whose backward bins fit in shared memory: kernel B's second backward route
+LARGE_N_Z = 8192
 N_DRAWS = 3
 MAX_DEPTH = 10
 # phases 7 and 8: the fits from prior draws, cut in depth (warmup_schedule(30): 15, 5 with a mass update, 10)
@@ -385,9 +398,9 @@ def check_close(name: str, got, ref, rtol: float, atol: float) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def b_tables(sites, data):
+def b_tables(sites, data, n_z: int = N_Z):
     """Kernel B's per-chain inputs (detector table, bump table, 15 scalars) of
-    the constrained ``sites`` (C,) on ``data``'s dL range, at ``N_GRID``, ``N_Z``."""
+    the constrained ``sites`` (C,) on ``data``'s dL range, at ``N_GRID``, ``n_z``."""
     import torch
 
     from bumpcosmology_torch.inference.likelihoods import cosmo_from_sites, dl_bounds_of, population_from_sites
@@ -397,7 +410,7 @@ def b_tables(sites, data):
 
     with torch.no_grad():
         pop = build_population(population_from_sites(sites), N_GRID)
-        det = build_detector_table(build_cosmology(cosmo_from_sites(sites), n=N_Z), *dl_bounds_of(data), n=N_Z)
+        det = build_detector_table(build_cosmology(cosmo_from_sites(sites), n=n_z), *dl_bounds_of(data), n=n_z)
         return (det.cols.contiguous(), pop.mass_table.log_bump.contiguous(),
                 cuda_logwts.pack_scalars(pop, det).contiguous())
 
@@ -673,6 +686,7 @@ def run(mock_dir: Path) -> int:
     rows.update(kernel_b_layouts(tag, data, sites, tables, qry, gen))
     rows.update(kernel_b_comparison_shapes(tag, data, sites, qry, gen))
     kernel_b_repeats(tag, data, sites, tables, qry, gen)
+    rows.update(kernel_b_large_tables(tag, data, sites, qry, gen))
     phase_done("3_kernel_b")
 
     # ---- phase 4: potential value+grad ----------------------------------
@@ -697,6 +711,8 @@ def run(mock_dir: Path) -> int:
         f"{vg_ms:.3f} ms with the kernels, "
         f"{vg_plain_ms:.3f} ms with the plain twins (CUDA events, mean of 10)")
     phase_done("4_potential")
+    large_table_launches = potential_large_table_phase(tag, data, theta, u_k)
+    phase_done("4b_potential_n_z_8192")
 
     # ---- phase 5: NUTS sampling through the kernels ----------------------
     counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES)
@@ -821,6 +837,8 @@ def run(mock_dir: Path) -> int:
         "logwts_lse_bwd_per_chain": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
         "logwts_lse_fwd_per_chain_loo": "bumpcosmology_tpu/ops/pallas_logwts.py:184",
         "logwts_lse_bwd_per_chain_loo": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
+        "logwts_bwd_global": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
+        "logwts_lse_bwd_global": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
         "snr_integral": "bumpcosmology_tpu/mock/pallas_snr.py:116",
     }
     kernels = []
@@ -839,12 +857,21 @@ def run(mock_dir: Path) -> int:
         elif name.endswith("_per_chain"):
             status = ("ok: built, matches its plain twin; a query table per chain (phase 3: 20 x 2,816 rows); "
                       "launched on the SBC fleet of the joint model (phase 11b) and the LOO fleet (12d)")
+        elif name == "logwts_bwd_global":
+            status = (f"ok: built, matches its plain twin; the backward's route for a detector table beyond its "
+                      f"bins' shared memory (phase 3: K = {LARGE_N_Z} and the forward's largest K), launched in the "
+                      "phase-3 comparison only")
+        elif name == "logwts_lse_bwd_global":
+            status = (f"ok: built, matches its plain twin; the backward's route for a detector table beyond its "
+                      f"bins' shared memory (phase 3: K = {LARGE_N_Z} and the forward's largest K); launched on "
+                      f"the joint potential at n_z = {LARGE_N_Z} (phase 4b)")
         elif name.endswith("_per_chain_loo"):
             status = ("ok: built, matches its plain twin; a query table per chain at the LOO fleet's shape (phase 3: "
                       "56 x 38,656 rows); launched on the LOO fleet of the joint model (phase 12d)")
         counter = name[: -len("_loo")] if name.endswith("_loo") else name
         by_path = {path: counts[counter] for path, counts in (
-            ("6_mock_stages", mock_launches), ("7_joint_fit", joint_launches), ("8_pop_fit", pop_launches),
+            ("4b_potential_n_z_8192", large_table_launches), ("6_mock_stages", mock_launches),
+            ("7_joint_fit", joint_launches), ("8_pop_fit", pop_launches),
             ("9a_nuts_chees", hybrid_launches), ("9b_chees_pop", chees_launches),
             ("10a_brokenpl_pop_fit", brokenpl_launches), ("10b_plpeak_joint_fit", plpeak_launches),
             ("11a_sbc_pop", sbc_pop_launches), ("11b_sbc_pop_cosmo", sbc_cosmo_launches),
@@ -1919,6 +1946,120 @@ def kernel_b_repeats(tag: str, data, sites, tables, qry, gen) -> None:
                                      nobs - 1, nsamp, gen))
     log(f"{tag} phase 3 kernel B: two backward launches bit-identical (d_det, d_bump, d_scal; rows and lse "
         f"epilogues) at {', '.join(shapes)}")
+
+
+def kernel_b_large_tables(tag: str, data, sites, qry, gen):
+    """Phase 3, fifth part: kernel B on detector tables whose backward bins do
+    not fit in a block's shared memory, where the backward takes its second
+    route (the detector's bins in device memory): at K = ``LARGE_N_Z`` and at
+    the largest K the forward takes, on the flagship's shared table (C = 16,
+    38,912 rows), and at K = ``LARGE_N_Z`` on 20 per-chain tables of the SBC
+    fleet's shape (20 x 2,816): both epilogues both ways against the twin at
+    phase 3's limits (:func:`b_against_twin`) and the backward twice bit for
+    bit (:func:`b_backward_repeats`).  Every backward launch here must take
+    the second route.  Returns the kernels-line rows of that route at
+    K = ``LARGE_N_Z`` on the shared table, both epilogues, timed and bounded."""
+    from bumpcosmology_torch.ops import cuda_logwts as kb
+
+    nobs, nsamp = data.events.a.shape
+    c, n = next(iter(sites.values())).shape[0], qry.shape[0]
+    k_max = min(kb._max_k(False, N_GRID, n), kb._max_k(False, N_GRID, n, nobs, nsamp))
+    if k_max <= LARGE_N_Z or kb._max_k(True, N_GRID, n, nobs, nsamp) < k_max:
+        raise AssertionError(f"B: the forward's largest K {k_max} is not beyond {LARGE_N_Z}, or the backward "
+                             f"does not take it")
+    before = _read_counters()
+    fmt = lambda d: json.dumps({k: float(f"{v:.3e}") for k, v in d.items()})  # noqa: E731
+    t8 = b_tables(sites, data, LARGE_N_Z)
+    errs8, _, (lse_ev, lse_sel), (g_rows, g_ev, g_sel) = b_against_twin(f"B K={LARGE_N_Z}", t8, qry, nobs, nsamp, gen)
+    shapes = [f"K={LARGE_N_Z} " + b_backward_repeats(f"B K={LARGE_N_Z}", t8, qry, nobs, nsamp, gen)]
+    tmax = b_tables(sites, data, k_max)
+    errs_max = b_against_twin(f"B K={k_max}", tmax, qry, nobs, nsamp, gen)[0]
+    shapes.append(f"K={k_max} " + b_backward_repeats(f"B K={k_max}", tmax, qry, nobs, nsamp, gen))
+    t20 = b_tables(tiled_sites(sites, SBC_SIMS), data, LARGE_N_Z)
+    fq = fleet_queries(data, SBC_SIMS, gen)
+    errs20 = b_against_twin(f"B per-chain K={LARGE_N_Z}", t20, fq, SBC_NOBS, SBC_NSAMP, gen)[0]
+    shapes.append(f"K={LARGE_N_Z} " + b_backward_repeats(f"B per-chain K={LARGE_N_Z}", t20, fq, SBC_NOBS, SBC_NSAMP,
+                                                         gen))
+    launched = {k: v for k, v in _delta(_read_counters(), before).items() if v}
+    second = [f"logwts{e}_bwd_global{layout}" for e in ("", "_lse") for layout in ("", "_per_chain")]
+    if any(k.startswith(("logwts_bwd", "logwts_lse_bwd")) and k not in second for k in launched) or not all(
+            launched.get(k, 0) for k in second):
+        raise AssertionError(f"B: the backward beyond its bins' shared memory did not take its second route: "
+                             f"{launched}")
+
+    bwd = lambda: kb._logwts_lse_bwd_cuda(*t8, qry, lse_ev, lse_sel, g_ev, g_sel, nobs, nsamp)  # noqa: E731
+    rows_bwd = lambda: kb._logwts_bwd_cuda(*t8, qry, g_rows)  # noqa: E731
+
+    def lse_bwd_plain():
+        r = kb._evaluate(*t8, qry)
+        return kb._bwd_of_rows(r, *t8, kb._lse_row_cotangent(r["out"], lse_ev, lse_sel, g_ev, g_sel, nobs, nsamp))
+
+    (l_ms, l_call), (r_ms, r_call) = both_ms(bwd), both_ms(rows_bwd)
+    l_plain, r_plain = cuda_ms(lse_bwd_plain), cuda_ms(lambda: kb._logwts_bwd_plain(*t8, qry, g_rows))
+    table_bytes = c * (LARGE_N_Z * 8 + N_GRID * 4 + 15 * 4)
+    seg_bytes = c * (nobs + 1) * 4
+    rows = {
+        "logwts_bwd_global": dict(ms=r_ms, call_ms=r_call, plain_ms=r_plain, max_abs_err=errs8["rows_bwd"],
+                                  bound=bound_ms(n * 16 + 2 * table_bytes + c * n * 4, c * n * OPS_B_BWD_PER_QUERY)),
+        "logwts_lse_bwd_global": dict(ms=l_ms, call_ms=l_call, plain_ms=l_plain, max_abs_err=errs8["lse_bwd"],
+                                      bound=bound_ms(n * 16 + 2 * table_bytes + 2 * seg_bytes,
+                                                     c * n * (OPS_B_BWD_PER_QUERY + OPS_B_LSE_BWD_EXTRA))),
+    }
+    log(f"{tag} phase 3 kernel B beyond the backward bins' shared memory (second route, bins in device memory): "
+        f"max|err| against the twin at K={LARGE_N_Z} (C={c}, N={n}) {fmt(errs8)}, at the forward's largest K={k_max} "
+        f"{fmt(errs_max)}, per chain at K={LARGE_N_Z} ({SBC_SIMS} x {fq.shape[1]}) {fmt(errs20)}; two backward "
+        f"launches bit-identical at {', '.join(shapes)}; launches {launched}; at K={LARGE_N_Z}: lse bwd device "
+        f"{l_ms:.5f} ms, call {l_call:.4f} ms (plain {l_plain:.4f}), bound "
+        f"{rows['logwts_lse_bwd_global']['bound'][0]:.6f} ms; rows bwd device {r_ms:.5f} ms, call {r_call:.4f} ms (plain {r_plain:.4f}), bound "
+        f"{rows['logwts_bwd_global']['bound'][0]:.6f} ms")
+    return rows
+
+
+def potential_large_table_phase(tag: str, data, theta, u_1024):
+    """Phase 4b: the joint potential of the flagship at ``n_z`` = ``LARGE_N_Z``
+    from the committed state (16 chains), a table on kernel B's second
+    backward route.  With every launch count set to 0 just before one
+    value+grad and read just after: kernel A and B's ``lse`` epilogue once
+    each way (the backward on its second route), nothing else.  Against the
+    plain twins at phase 4's limits, and twice bit for bit.  Prints
+    |U(``LARGE_N_Z``) - U(``N_Z``)| beside the JAX package's note (about 0.10
+    nats between n_z = 1,024 and an 8,192-point oracle, its
+    ``likelihoods.py:716-721``).  Returns the launch counts."""
+    import torch
+
+    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_model_spec
+    from bumpcosmology_torch.inference.model import make_potential, value_and_grad
+
+    pot = make_potential(pop_cosmo_model_spec(data, N_GRID, LARGE_N_Z))
+    pot_plain = make_potential(pop_cosmo_model_spec(data, N_GRID, LARGE_N_Z, plain=True))
+    value_and_grad(pot, theta)  # the backward's route is read once per shape
+    _zero_counters()
+    u, g = value_and_grad(pot, theta)
+    torch.cuda.synchronize()
+    launches = _read_counters()
+    expected = {"bump_fwd": 1, "bump_bwd": 1, "logwts_lse_fwd": 1, "logwts_lse_bwd_global": 1}
+    if {k: v for k, v in launches.items() if v} != expected:
+        raise AssertionError(f"potential at n_z={LARGE_N_Z}: launches {launches}, expected {expected}")
+    u2, g2 = value_and_grad(pot, theta)
+    u_p, g_p = value_and_grad(pot_plain, theta)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(u).all() and torch.isfinite(g).all()):
+        raise AssertionError(f"potential at n_z={LARGE_N_Z}: non-finite value or gradient at the warm thetas")
+    if not (torch.equal(u, u2) and torch.equal(g, g2)):
+        raise AssertionError(f"potential at n_z={LARGE_N_Z}: two value+grads at the same thetas differ")
+    du = float(((u - u_p).abs() / (1.0 + u_p.abs())).max())
+    dg = float(((g - g_p).abs() / (1.0 + g_p.abs())).max())
+    if du >= 2e-4 or dg >= 5e-3:
+        raise AssertionError(f"potential at n_z={LARGE_N_Z}: kernels vs plain |dU|/(1+|U|) {du:.3e}, "
+                             f"|dgrad|/(1+|grad|) {dg:.3e}")
+    vg_ms = cuda_ms(lambda: value_and_grad(pot, theta), reps=5)
+    shift = (u - u_1024).abs()
+    log(f"{tag} phase 4b potential at n_z={LARGE_N_Z} (C={theta.shape[0]}): launches "
+        f"{ {k: v for k, v in launches.items() if v} }; |dU|/(1+|U|) {du:.3e}, |dgrad|/(1+|grad|) {dg:.3e} against "
+        f"the plain twins; two value+grads bit-identical; batched value+grad {vg_ms:.3f} ms (CUDA events, mean of 5); "
+        f"|U({LARGE_N_Z}) - U({N_Z})| max {float(shift.max()):.4f}, median {float(shift.median()):.4f} nats "
+        f"(the JAX package's note: about 0.10 nats between n_z = 1,024 and an 8,192-point oracle)")
+    return launches
 
 
 def kernel_b_layouts(tag: str, data, sites, tables, qry, gen):

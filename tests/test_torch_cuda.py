@@ -172,24 +172,73 @@ def test_logwts_backward_is_bit_identical_between_launches(dev, layout):
 
 
 def test_logwts_backward_names_the_largest_detector_table_that_fits(dev):
-    """The backward's fixed-point bins take 16 bytes each, so it fits fewer
-    detector-table rows K than the forward: at K = 8,192 the forward runs and
-    the backward is refused with a ValueError naming the most K that fits,
-    and at that K it runs."""
+    """Both directions take every detector-table K the forward fits in shared
+    memory, the backward on its second route beyond its own bins' limit;
+    beyond the forward's limit both are refused with a ValueError naming the
+    most K that fits, and at that K both run."""
     rng = np.random.default_rng(12)
     c, n = 2, 4096
-    tables, qry = _logwts_inputs(rng, dev, c, 8192, 256, n)
-    out = cuda_logwts._logwts_fwd_cuda(*tables, qry)
-    g = torch.as_tensor(rng.normal(size=(c, n)).astype(np.float32), device=dev) * torch.isfinite(out)
-    with pytest.raises(ValueError, match=r"K = 8192 rows \(fit.n_z\).*at most K = \d+ fit") as err:
-        cuda_logwts._logwts_bwd_cuda(*tables, qry, g)
+    tables, qry = _logwts_inputs(rng, dev, c, 40000, 256, n)
+    g = torch.as_tensor(rng.normal(size=(c, n)).astype(np.float32), device=dev)
+    with pytest.raises(ValueError, match=r"K = 40000 rows \(fit.n_z\).*at most K = \d+ fit") as err:
+        cuda_logwts._logwts_fwd_cuda(*tables, qry)
     most = int(str(err.value).split("at most K = ")[1].split()[0])
-    assert 1024 < most < 8192
+    assert 8192 < most < 40000
+    with pytest.raises(ValueError, match=rf"K = 40000 rows \(fit.n_z\).*at most K = {most} fit"):
+        cuda_logwts._logwts_bwd_cuda(*tables, qry, g)
     tables, qry = _logwts_inputs(rng, dev, c, most, 256, n)
     out = cuda_logwts._logwts_fwd_cuda(*tables, qry)
+    before = cuda_logwts.LAUNCHES["logwts_bwd_global"]
     d = cuda_logwts._logwts_bwd_cuda(*tables, qry, torch.ones_like(out) * torch.isfinite(out))
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(x).all()) for x in d)
+    assert cuda_logwts.LAUNCHES["logwts_bwd_global"] == before + 1
+
+
+@pytest.mark.parametrize("layout", ["shared", "per_chain"])
+def test_logwts_backward_at_a_detector_table_beyond_shared_memory(dev, layout):
+    """At K = 8,192 detector rows (beyond the 4,347 whose bins fit in shared
+    memory) the backward takes the route with its bins in device memory: both
+    epilogues, both ways, against the twin at B's limits, and two backward
+    launches on the same inputs agree bit for bit."""
+    rng = np.random.default_rng(13)
+    c, nobs, nsamp, nsel = 4, 24, 256, 6000
+    n = nobs * nsamp + nsel
+    tables, qry = _logwts_inputs(rng, dev, c, 8192, 256, n)
+    suffix = "_per_chain" if layout == "per_chain" else ""
+    if layout == "per_chain":
+        qry = torch.stack([qry[torch.as_tensor(rng.permutation(n), device=dev)] for _ in range(c)])
+    g = torch.as_tensor(rng.normal(size=(c, n)).astype(np.float32), device=dev)
+    g_ev = torch.as_tensor(rng.normal(size=(c, nobs)).astype(np.float32), device=dev)
+    g_sel = torch.as_tensor(rng.normal(size=c).astype(np.float32), device=dev)
+    before = dict(cuda_logwts.LAUNCHES)
+    res = []
+    for rows_fn, lse_fn in ((cuda_logwts.logwts, cuda_logwts.logwts_lse),
+                            (cuda_logwts.logwts_plain, cuda_logwts.logwts_lse_plain)):
+        leaves = [x.clone().requires_grad_(True) for x in tables]
+        out = rows_fn(*leaves, qry)
+        (out.nan_to_num(neginf=0.0) * g).sum().backward()
+        leaves_l = [x.clone().requires_grad_(True) for x in tables]
+        lse_ev, lse_sel = lse_fn(*leaves_l, qry, nobs, nsamp)
+        torch.autograd.backward([lse_ev, lse_sel], [g_ev, g_sel])
+        res.append((out.detach(), lse_ev.detach(), lse_sel.detach(), [x.grad for x in leaves],
+                    [x.grad for x in leaves_l]))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in cuda_logwts.LAUNCHES.items() if v != before[k]}
+    assert launched == {f"logwts_fwd{suffix}": 1, f"logwts_bwd_global{suffix}": 1,
+                        f"logwts_lse_fwd{suffix}": 1, f"logwts_lse_bwd_global{suffix}": 1}
+    for i in range(3):
+        torch.testing.assert_close(res[0][i], res[1][i], rtol=2e-5, atol=2e-5)
+    _assert_cotangents_close(res[0][3], res[1][3])
+    _assert_cotangents_close(res[0][4], res[1][4])
+    g_live = g * torch.isfinite(res[0][0])
+    for fn in (lambda: cuda_logwts._logwts_bwd_cuda(*tables, qry, g_live),
+               lambda: cuda_logwts._logwts_lse_bwd_cuda(*tables, qry, res[0][1], res[0][2], g_ev, g_sel, nobs,
+                                                        nsamp)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(x).all()) for x in first)
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 @pytest.mark.parametrize("layout,c,nobs,nsamp,nsel", [("shared", 64, 56, 256, 24576), ("per_chain", 56, 55, 256, 24576)])

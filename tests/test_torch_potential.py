@@ -53,6 +53,22 @@ def test_potential_value_and_grad_match_jax(pair):
     assert np.all(np.abs(g.numpy() - jg) / (1.0 + np.abs(jg)) < 5e-3)
 
 
+def test_potential_at_a_large_detector_table_matches_jax():
+    """At ``n_z`` = 8,192 detector-table rows, a table whose cotangent bins no
+    longer fit in a block's shared memory on the card (kernel B's backward
+    takes its second route there), the plain path's value+grad against the
+    JAX package's fused route, at the same limits."""
+    jd = jsynthetic(nobs=8, nsamp=32, nsel=128, seed=0)
+    js = jspec(jd, n_grid=N_GRID, n_z=8192)
+    spec = pop_cosmo_model_spec(convert.pop_cosmo_data(jd, "cpu"), n_grid=N_GRID, n_z=8192, device="cpu")
+    theta = jprior(js, jax.random.PRNGKey(5), (4,))
+    ju, jg = (np.asarray(x) for x in jax.vmap(jax.value_and_grad(jpotential(js)))(theta))
+    u, g = value_and_grad(make_potential(spec), convert.theta_batch(theta, "cpu"))
+    assert np.isfinite(ju).all() and np.isfinite(jg).all()
+    assert np.all(np.abs(u.numpy() - ju) / (1.0 + np.abs(ju)) < 2e-4)
+    assert np.all(np.abs(g.numpy() - jg) / (1.0 + np.abs(jg)) < 5e-3)
+
+
 def test_constrain_round_trip_matches_jax(pair):
     js, spec = pair
     theta = jprior(js, jax.random.PRNGKey(2), (4,))
