@@ -32,7 +32,8 @@ the (thinned) posterior draws; ranks must be uniform.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Sequence
+import time
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -239,7 +240,11 @@ def run_sbc_fleet(
     cfg=None,
     chunk_size: int = 25,
     device=None,
-) -> Dict[str, np.ndarray]:
+    stats: Optional[dict] = None,
+    probe: int = 0,
+    checkpoint_path: Optional[str] = None,
+    warmup_only: bool = False,
+) -> Optional[Dict[str, np.ndarray]]:
     """SBC with all simulations fit as one fleet.
 
     ``proto_spec``: a ModelSpec whose priors are the generating distribution
@@ -253,13 +258,30 @@ def run_sbc_fleet(
     fleet), the truth where none is.  Draws come from ``generator`` (a
     ``torch.Generator`` or an int seed) on ``device``; the simulator from
     ``numpy.random.default_rng(seed)``.
+
+    ``stats``, a dict, receives the host-clock seconds of the simulations
+    (``simulate_s``), the initial candidates (``init_s``), the warmup and
+    the sampling, the fleet's batched value+grads in each, its transitions
+    and the divergent draws.  ``probe`` T > 0 (below 20, the first T steps
+    of the warmup's opening buffer) draws the catalogs, runs T warmup
+    transitions, fills ``stats`` and returns None.  ``checkpoint_path``
+    splits the fleet fit at the end of its warmup (``fleet_fit``'s); with
+    ``warmup_only`` the run stops there, writes it and returns None, and a
+    later run with the same arguments samples from it (the same ranks as
+    one run).
     """
     from bumpcosmology_torch.inference.fleet import fleet_fit
     from bumpcosmology_torch.inference.nuts import NutsConfig
 
+    if not 0 <= probe < 20:
+        raise ValueError(f"probe must lie in [0, 20) transitions (the opening buffer's), got {probe}")
+    if warmup_only and checkpoint_path is None:
+        raise ValueError("warmup_only needs a checkpoint_path to write the adapted state to")
+    stats = {} if stats is None else stats
     dev = resolve_device(device)
     gen = _generator(generator, dev)
     rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
     theta_trues, sites_trues, datas_list = [], [], []
     for _ in range(n_sims):
         theta_true, sites_true = _draw_truth(proto_spec, gen)
@@ -268,6 +290,7 @@ def run_sbc_fleet(
         datas_list.append(simulate(rng, sites_true))
     datas = stack_fleet(datas_list)
     theta_true_arr = torch.stack(theta_trues)
+    t1 = time.perf_counter()
     if verbose:
         print(f"[sbc] {n_sims} simulations drawn; launching fleet fit", flush=True)
 
@@ -290,18 +313,67 @@ def run_sbc_fleet(
     picked = cands[torch.arange(n_sims, device=cands.device), idx]
     theta0 = torch.where(finite.any(dim=1)[:, None], picked, theta_true_arr)
 
-    progress = None
+    progress, evals = None, [0]
     if verbose:
         def progress(phase, done, total):
             if done % 100 == 0 or done == total:
-                print(f"[sbc/fleet] {phase} {done}/{total}", flush=True)
+                print(f"[sbc/fleet] {phase} {done}/{total} ({time.perf_counter() - t2:.0f} s, {evals[0]} batched "
+                      "value+grads)", flush=True)
 
-    res = fleet_fit(make_pot, datas, theta0, gen, num_warmup=num_warmup, num_samples=num_samples,
-                    cfg=cfg or NutsConfig(), progress=progress, chunk_size=chunk_size, device=dev)
+    def counted_make_pot(data):
+        pot = make_pot(data)
+
+        def counted(theta):
+            evals[0] += 1
+            return pot(theta)
+
+        return counted
+
+    t2 = time.perf_counter()
+    if probe:
+        num_warmup, num_samples, checkpoint_path = probe, 0, None
+    elif warmup_only:
+        num_samples = 0
+    res = fleet_fit(counted_make_pot, datas, theta0, gen, num_warmup=num_warmup, num_samples=num_samples,
+                    cfg=cfg or NutsConfig(), progress=progress, chunk_size=chunk_size, device=dev,
+                    checkpoint_path=checkpoint_path)
+    stats.update(simulate_s=t1 - t0, init_s=t2 - t1, warmup_s=res.warmup_s, sampling_s=res.sampling_s,
+                 warmup_evals=res.warmup_evals, sampling_evals=res.sampling_evals,
+                 warmup_transitions=num_warmup if res.warmup_evals else 0, sampling_transitions=num_samples,
+                 divergences=res.divergences)
+    if probe:
+        stats["probe_ms_by_chains"] = _ms_by_active_chains(make_pot, datas, theta0)
+    if probe or warmup_only:
+        return None
     if not bool(torch.isfinite(res.thetas).all()):
         raise AssertionError("non-finite fleet draws")
     post = {k: v.cpu().numpy() for k, v in constrain(proto_spec, res.thetas).items()}
     return _ranks(post, sites_trues, thin, skip_sites)
+
+
+def _ms_by_active_chains(make_pot, datas, theta0, reps: int = 3) -> Dict[int, float]:
+    """Host-clock ms of one batched value+grad of the fleet's potential with
+    all S chains active and with S/2, S/8 and 1 of them (NUTS evaluates the
+    chains still integrating through ``on_chains``), each the mean of
+    ``reps`` after one untimed call."""
+    from bumpcosmology_torch.inference.fleet import FleetPotential
+    from bumpcosmology_torch.inference.model import value_and_grad
+
+    fleet = FleetPotential(make_pot, datas)
+    s = theta0.shape[0]
+    sync = torch.cuda.synchronize if theta0.device.type == "cuda" else (lambda: None)
+    out = {}
+    for k in sorted({s, max(s // 2, 1), max(s // 8, 1), 1}, reverse=True):
+        idx = torch.arange(k, device=theta0.device)
+        for i in range(reps + 1):
+            if i == 1:
+                sync()
+                t0 = time.perf_counter()
+            pot = fleet if k == s else fleet.on_chains(idx)
+            value_and_grad(pot, theta0[:k])
+        sync()
+        out[k] = 1e3 * (time.perf_counter() - t0) / reps
+    return out
 
 
 def _detector_frame_rows(campaign, mask):

@@ -22,6 +22,7 @@ chunks of at most ``chunk_size`` steps.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -31,6 +32,7 @@ from bumpcosmology_torch.device import resolve_device
 from bumpcosmology_torch.inference import nuts as N
 from bumpcosmology_torch.inference.likelihoods import take_fleet
 from bumpcosmology_torch.inference.model import value_and_grad
+from bumpcosmology_torch.utils.checkpoint import checkpoint_file, load_generator_state, load_warmup, save_warmup
 
 __all__ = ["fleet_fit", "FleetResult", "FleetPotential"]
 
@@ -43,22 +45,34 @@ class FleetResult(NamedTuple):
     eps: torch.Tensor  # (S,) adapted step sizes
     warmup_s: float = 0.0  # host clock, the step-size search included
     sampling_s: float = 0.0
+    warmup_evals: int = 0  # batched value+grads of the fleet (or of its chains still integrating)
+    sampling_evals: int = 0
+    divergences: int = 0  # divergent transitions among the draws, over every fit
 
 
 class FleetPotential:
     """U(θ) ``(S, dim) → (S,)`` of a fleet: ``make_pot(datas)``, and for a
     subset of the chains (``on_chains``, which NUTS calls while only some
-    chains still integrate) ``make_pot`` of those chains' catalogs."""
+    chains still integrate) ``make_pot`` of those chains' catalogs.
+    ``calls`` counts the evaluations of either."""
 
     def __init__(self, make_pot: Callable, datas):
         self.make_pot, self.datas = make_pot, datas
         self._pot = make_pot(datas)
+        self.calls = 0
 
     def __call__(self, theta: torch.Tensor) -> torch.Tensor:
+        self.calls += 1
         return self._pot(theta)
 
     def on_chains(self, idx: torch.Tensor) -> Callable:
-        return self.make_pot(take_fleet(self.datas, idx))
+        pot = self.make_pot(take_fleet(self.datas, idx))
+
+        def counted(theta):
+            self.calls += 1
+            return pot(theta)
+
+        return counted
 
 
 def fleet_fit(
@@ -73,6 +87,7 @@ def fleet_fit(
     chunk_size: int = _CHUNK,
     seed: int = 0,
     device=None,
+    checkpoint_path: Optional[str] = None,
 ) -> FleetResult:
     """Run ``S`` independent single-chain NUTS fits in lockstep.
 
@@ -83,6 +98,13 @@ def fleet_fit(
     transitions, ``phase`` "warmup" or "sampling".  Draws come from
     ``generator`` (or a generator seeded with ``seed``) on ``device``
     (``None`` means CUDA; it raises without it).
+
+    ``checkpoint_path`` splits a fit into two runs (the JAX package's fleet
+    has no such option; a suite longer than one job needs it): the adapted
+    state and the generator's state are written there after the warmup,
+    and a fit that finds them there skips its warmup and samples from them,
+    giving the draws of the unsplit fit bit for bit.  ``None`` (the
+    default) changes nothing.
     """
     dev = resolve_device(device)
     gen = N._generator(generator, seed, dev)
@@ -91,6 +113,14 @@ def fleet_fit(
     pot = FleetPotential(make_pot, datas)
 
     t0 = time.perf_counter()
+    if checkpoint_path is not None and os.path.exists(checkpoint_file(checkpoint_path)):
+        warm = load_warmup(checkpoint_path, device=dev, dtype=theta0.dtype)
+        if warm.state.theta.shape != theta0.shape:
+            raise ValueError(f"fleet_fit: the checkpoint holds {tuple(warm.state.theta.shape)} positions, "
+                             f"this fleet {tuple(theta0.shape)}")
+        gen.set_state(load_generator_state(checkpoint_path))
+        return _sample(pot, warm.state, warm.eps, warm.cov, warm.chol_cov, gen, num_samples, cfg, progress,
+                       chunk_size, dev, 0.0, 0, time.perf_counter())
     u, grad = value_and_grad(pot, theta0)
     state = N.ChainState(theta0, u, grad)
     eye = torch.eye(dim, dtype=theta0.dtype, device=dev).expand(n_sims, dim, dim).contiguous()
@@ -117,16 +147,28 @@ def fleet_fit(
         else:  # a fast buffer's statistics are dropped; the step size carries on
             wf = N._welford_init(n_sims, dim, theta0)
     eps_final = torch.exp(da.log_eps_bar)
+    if checkpoint_path is not None:
+        save_warmup(checkpoint_path, N.WarmupResult(state, eps_final, cov, chol), generator=gen)
     t1 = time.perf_counter()
+    return _sample(pot, state, eps_final, cov, chol, gen, num_samples, cfg, progress, chunk_size, dev, t1 - t0,
+                   pot.calls, t1)
 
+
+def _sample(pot, state, eps, cov, chol, gen, num_samples, cfg, progress, chunk_size, dev, warmup_s,
+            warmup_evals, t1) -> FleetResult:
+    """The sampling phase of :func:`fleet_fit` from an adapted state."""
+    n_sims, dim = state.theta.shape
     thetas, accept = [], []
+    divergences = torch.zeros((), dtype=torch.int64, device=dev)
     while len(thetas) < num_samples:
         for _ in range(min(chunk_size, num_samples - len(thetas))):
-            state, st = N.nuts_transition(pot, state, eps_final, cov, chol, gen, cfg.max_depth)
+            state, st = N.nuts_transition(pot, state, eps, cov, chol, gen, cfg.max_depth)
             thetas.append(state.theta)
             accept.append(st.accept_prob)
+            divergences += st.diverging.sum()
         if progress is not None:
             progress("sampling", len(thetas), num_samples)
-    draws = torch.stack(thetas, dim=1) if thetas else theta0.new_zeros((n_sims, 0, dim))
-    acc = torch.stack(accept, dim=1) if accept else theta0.new_zeros((n_sims, 0))
-    return FleetResult(draws, acc, eps_final, t1 - t0, time.perf_counter() - t1)
+    draws = torch.stack(thetas, dim=1) if thetas else state.theta.new_zeros((n_sims, 0, dim))
+    acc = torch.stack(accept, dim=1) if accept else state.theta.new_zeros((n_sims, 0))
+    return FleetResult(draws, acc, eps, warmup_s, time.perf_counter() - t1, warmup_evals, pot.calls - warmup_evals,
+                       int(divergences))

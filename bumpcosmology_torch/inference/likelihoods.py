@@ -90,7 +90,7 @@ from bumpcosmology_torch.models.redshift import ZREF
 from bumpcosmology_torch.ops.collectives import all_gather_cat, copy_to_group
 from bumpcosmology_torch.ops.cuda_logwts import cosmo_frame_logwts, cosmo_frame_logwts_lse, query_rows
 from bumpcosmology_torch.ops.logsumexp import sharded_logsumexp
-from bumpcosmology_torch.ops.interp import interp_unit_spaced, unit_bracket
+from bumpcosmology_torch.ops.interp import interp_unit_spaced, interp_unit_spaced_columns
 
 __all__ = [
     "EventData",
@@ -358,18 +358,13 @@ def _cosmo_frame_logwts_fused(pop, det, qry) -> torch.Tensor:
     """``(C, N)`` detector-frame weights of the query rows through the
     log(dL)-keyed detector table: the XLA branch of the JAX package's
     ``_cosmo_frame_logwts_fused`` (``likelihoods.py:358-361``), for the
-    families kernel B does not take.  The bracket on the table's uniform
-    grid depends on the row alone, so the ``(N,)`` bracket of a shared
-    ``(N, 4)`` table serves every chain; a ``(C, N, 4)`` table (a fleet) has
-    one bracket per chain and row."""
-    c, k = det.cols.shape[:2]
-    lo, t = unit_bracket(qry[..., 2], det.v0, det.dv, k)
-    if qry.dim() == 3:
-        idx = lo.unsqueeze(-1).expand(*lo.shape, 2)
-        f_lo, f_hi = torch.gather(det.cols, 1, idx), torch.gather(det.cols, 1, idx + 1)
-    else:
-        f_lo, f_hi = det.cols[:, lo], det.cols[:, lo + 1]  # (C, N, 2)
-    zj = f_lo + t[..., None] * (f_hi - f_lo)
+    families kernel B does not take.  A shared ``(N, 4)`` table's positions
+    are expanded to the chains; a ``(C, N, 4)`` table (a fleet) has one per
+    chain and row.  Both read the ``(C, K, 2)`` table through
+    :func:`interp_unit_spaced_columns`, whose backward on the card sums in a
+    fixed order, so the value+grad repeats bit for bit there."""
+    c = det.cols.shape[0]
+    zj = interp_unit_spaced_columns(qry[..., 2].expand(c, -1), det.v0, det.dv, det.cols)  # (C, N, 2)
     z, log_jac = zj[..., 0], zj[..., 1]
     m1 = qry[..., 0] / (1.0 + z)
     return (log_dndmdqdv(pop, m1, qry[..., 1].expand(c, -1), z) - 2.0 * torch.log1p(z) + log_jac

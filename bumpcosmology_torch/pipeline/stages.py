@@ -37,6 +37,7 @@ Every stage runs on ``device`` (``None`` means CUDA; it raises without it).
 from __future__ import annotations
 
 import re
+import time
 from glob import glob
 from pathlib import Path
 
@@ -392,7 +393,8 @@ def _stage_mock_fit_inputs(cfg: PipelineConfig, device=None):
 _JOINT_FAMILY = {"pop_cosmo": "bump", "plpeak_cosmo": "plpeak", "brokenpl_cosmo": "brokenpl"}
 
 
-def _stage_sbc(cfg: PipelineConfig, device=None):
+def _stage_sbc(cfg: PipelineConfig, device=None, probe: int = 0, checkpoint_path=None,
+               warmup_only: bool = False) -> dict:
     """Simulation-based calibration suite → ``sbc_ranks.npz`` (ranks and
     p-values; ``_stage_sbc``, the JAX package's ``stages.py:360-517``).
 
@@ -404,6 +406,16 @@ def _stage_sbc(cfg: PipelineConfig, device=None):
     bump's joint model) on ``device`` (``None`` means CUDA; it raises
     without it).  The joint models also check the rate reconstruction's
     coverage over prior draws of μ(θ) on this campaign.
+
+    Returns a report: the host-clock seconds of the campaign, then of
+    :func:`~bumpcosmology_torch.inference.calibration.run_sbc_fleet`'s parts
+    (its ``stats``), of the rate check and of the artifact; the p-values,
+    the failing sites, the rate check's p (``None`` where it did not run)
+    and the artifact's path.  ``probe`` T > 0 stops after the campaign, the
+    catalogs and T fleet transitions (``run_sbc_fleet``'s ``probe``) and
+    returns the report so far, writing nothing; ``checkpoint_path`` and
+    ``warmup_only`` split the fleet fit at the end of its warmup
+    (``run_sbc_fleet``'s), and a warmup-only run also returns there.
     """
     from bumpcosmology_torch.device import resolve_device
     from bumpcosmology_torch.inference import calibration as cal
@@ -414,6 +426,7 @@ def _stage_sbc(cfg: PipelineConfig, device=None):
     dev = resolve_device(device)
     c = cfg.sbc
     n_grid, n_z = cfg.fit.n_grid, cfg.fit.n_z
+    t0 = time.perf_counter()
     inj = draw_injection_campaign(ndraw=c.campaign_ndraw, seed=c.seed, snr_chunk=cfg.mock.snr_chunk, device=dev)
     obs = add_observation_noise(inj, seed=c.seed + 1, threshold=c.threshold)
     n_total = float(len(inj["m1"]))
@@ -467,12 +480,16 @@ def _stage_sbc(cfg: PipelineConfig, device=None):
             "'plpeak_cosmo' or 'brokenpl_cosmo'"
         )
 
+    report = {"campaign_s": time.perf_counter() - t0}
     ranks = cal.run_sbc_fleet(
         proto, make_loglike, simulate, n_sims=c.n_sims, generator=c.seed + 3, num_warmup=c.num_warmup,
         num_samples=c.num_samples, thin=c.thin, cfg=NutsConfig(max_depth=c.max_depth), chunk_size=c.fleet_chunk,
-        device=dev,
+        device=dev, stats=report, probe=probe, checkpoint_path=checkpoint_path, warmup_only=warmup_only,
     )
+    if probe or warmup_only:
+        return report
     pvals = cal.sbc_uniformity_pvalues(ranks)
+    t0 = time.perf_counter()
 
     # rate-reconstruction calibration: R is not a fitted site, so the fleet
     # gives it no rank; check the post-hoc reconstruction's frequentist
@@ -490,14 +507,18 @@ def _stage_sbc(cfg: PipelineConfig, device=None):
             print(f"[sbc] rate-reconstruction rank uniformity: p={rate_p:.3f} ({len(rate_ranks)} trials)")
         except Exception as err:  # the fleet certificate must not die on this
             print(f"[sbc] WARNING: rate-reconstruction check failed: {err!r}")
+    report["rate_check_s"] = time.perf_counter() - t0
 
-    bad = write_sbc_artifact(cfg.paths.path("sbc_ranks.npz"), c.model, c.n_sims, ranks, pvals,
-                             rate_ranks=rate_ranks, rate_p=rate_p)
+    t0 = time.perf_counter()
+    path = cfg.paths.path("sbc_ranks.npz")
+    bad = write_sbc_artifact(path, c.model, c.n_sims, ranks, pvals, rate_ranks=rate_ranks, rate_p=rate_p)
+    report.update(write_s=time.perf_counter() - t0, pvalues=pvals, bad=bad, rate_p=rate_p, artifact=path)
     print("[sbc] uniformity p-values:", {k: round(v, 3) for k, v in pvals.items()})
     if bad:
         print(f"[sbc] WARNING: sites failing uniformity at p<0.01: {bad}")
     else:
         print(f"[sbc] all {len(pvals)} sites pass uniformity at p>=0.01")
+    return report
 
 
 def write_sbc_artifact(out, model: str, n_sims: int, ranks: dict, pvals: dict, rate_ranks=None,

@@ -1,16 +1,24 @@
 """Repeat a flagship potential's value+grad: count the bit-identical results, and time it.
 
-    python3 bumpcosmology_torch/tools/potential_repeats.py [--root DIR] [--models joint,pop] [--repeats N]
+    python3 bumpcosmology_torch/tools/potential_repeats.py [--root DIR]
+        [--models joint,pop,plpeak_joint,brokenpl_joint] [--fleet S] [--repeats N]
 
 (run by path, not with ``-m``: the package it measures is the one under
 ``--root``, default this checkout).  It builds the kernels of that checkout
-and, on ``benchmarks/flagship_catalog.npz`` and the 16 warm thetas of
-``benchmarks/flagship_warmup16.npz`` under ``--root``, evaluates the batched
-value+grad of each model's potential once, then ``N`` times more (default
-20): ``joint``, ``make_potential(pop_cosmo_model_spec(data, 256, 1024))``;
+and, on ``benchmarks/flagship_catalog.npz`` under ``--root``, evaluates the
+batched value+grad of each model's potential once, then ``N`` times more
+(default 20): ``joint``, ``make_potential(pop_cosmo_model_spec(data, 256,
+1024))`` at the 16 warm thetas of ``benchmarks/flagship_warmup16.npz``;
 ``pop``, ``make_potential(pop_model_spec(...))`` on the same catalog taken
 back to the source frame (``chip_smoke.flagship_source_tables``), at the
-warm thetas' 12 population sites.  It prints one JSON line a model: how
+warm thetas' 12 population sites; ``plpeak_joint`` and ``brokenpl_joint``,
+the family's joint model (``MASS_FAMILIES[family].cosmo_spec``, the fused
+detector-table route in plain PyTorch) at the first 16 of 64 prior draws
+(seed 0) whose value and gradient are finite on the flagship.  ``--fleet S``
+evaluates the joint models on a fleet instead, chain ``s`` reading its own
+catalog: the flagship without event ``s`` (``influence.make_loo_datas``), S
+of them, through a query table per chain (the SBC and LOO fleets' layout),
+at the same thetas (the first S).  It prints one JSON line a model: how
 many repeats give the first value and the first gradient bit for bit, the
 largest absolute gradient difference, ``ms`` (CUDA events around the
 repeats, divided by ``N``: what a sampler waits for a value+grad), and from a
@@ -34,21 +42,52 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[2]
 
 
-def potential(root: Path, model: str):
-    """(potential, thetas) of ``model`` on the flagship under ``root``."""
+def family_thetas(spec, n: int = 16, candidates: int = 64, seed: int = 0):
+    """The first ``n`` of ``candidates`` prior draws of ``spec`` whose value
+    and gradient are finite."""
+    import torch
+
+    from bumpcosmology_torch.inference.model import make_potential, prior_sample, value_and_grad
+
+    gen = torch.Generator(device=spec.device).manual_seed(seed)
+    cands = prior_sample(spec, gen, shape=(candidates,))
+    u, g = value_and_grad(make_potential(spec), cands)
+    keep = (torch.isfinite(u) & torch.isfinite(g).all(-1)).nonzero().squeeze(1)[:n]
+    if keep.numel() < n:
+        raise RuntimeError(f"only {keep.numel()} of {candidates} prior draws have a finite value+grad")
+    return cands[keep]
+
+
+def potential(root: Path, model: str, fleet: int = 0, device=None):
+    """(potential, thetas) of ``model`` on the flagship under ``root`` (on a
+    fleet of ``fleet`` leave-one-out catalogs, for a joint model), on
+    ``device`` (``None``: the card)."""
     from bumpcosmology_torch.benchdata import load_pop_cosmo_data
-    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_model_spec, pop_model_spec
+    from bumpcosmology_torch.inference.influence import make_loo_datas
+    from bumpcosmology_torch.inference.likelihoods import MASS_FAMILIES, pop_model_spec, take_fleet
     from bumpcosmology_torch.inference.model import make_potential
     from bumpcosmology_torch.pipeline.stages import pop_data_from_tables
     from bumpcosmology_torch.utils.checkpoint import load_warmup
     from chip_smoke import flagship_source_tables
 
-    theta = load_warmup(root / "benchmarks" / "flagship_warmup16.npz").state.theta
-    if model == "joint":
-        data = load_pop_cosmo_data(root / "benchmarks" / "flagship_catalog.npz")
-        return make_potential(pop_cosmo_model_spec(data, 256, 1024)), theta
-    # the joint model's sites are the cosmology's 3 and then the population's 12, in the pop model's order
-    return make_potential(pop_model_spec(pop_data_from_tables(*flagship_source_tables()), 256)), theta[:, 3:]
+    theta = load_warmup(root / "benchmarks" / "flagship_warmup16.npz", device=device).state.theta
+    if model == "pop":
+        if fleet:
+            raise ValueError("--fleet takes the joint models only")
+        # the joint model's sites are the cosmology's 3 and then the population's 12, in the pop model's order
+        spec = pop_model_spec(pop_data_from_tables(*flagship_source_tables()), 256, device=device)
+        return make_potential(spec), theta[:, 3:]
+    family = "bump" if model == "joint" else model[: -len("_joint")]
+    cosmo_spec = MASS_FAMILIES[family].cosmo_spec
+    data = load_pop_cosmo_data(root / "benchmarks" / "flagship_catalog.npz", device=device)
+    if family != "bump":
+        theta = family_thetas(cosmo_spec(data, 256, 1024, device=device))
+    if fleet:
+        import torch
+
+        data = take_fleet(make_loo_datas(data), torch.arange(fleet, device=theta.device))
+        theta = theta[:fleet]
+    return make_potential(cosmo_spec(data, 256, 1024, device=device)), theta
 
 
 def device_profile(fn, calls: int = 3):
@@ -71,6 +110,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--models", default="joint")
+    ap.add_argument("--fleet", type=int, default=0, help="evaluate the joint models on this many catalogs, "
+                    "one a chain (0: the flagship, shared by the chains)")
     ap.add_argument("--repeats", type=int, default=20)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -89,7 +130,7 @@ def main(argv=None) -> int:
 
     _build.build_kernels()
     for model in args.models.split(","):
-        pot, theta = potential(root, model)
+        pot, theta = potential(root, model, args.fleet)
         u0, g0 = value_and_grad(pot, theta)
         same_u = same_g = 0
         max_dg = 0.0
@@ -99,12 +140,12 @@ def main(argv=None) -> int:
         results = [value_and_grad(pot, theta) for _ in range(args.repeats)]
         end.record()
         torch.cuda.synchronize()
-        for u, g in results:
-            same_u += bool(torch.equal(u, u0))
-            same_g += bool(torch.equal(g, g0))
+        for u, g in results:  # bit patterns: a NaN equals itself
+            same_u += bool(torch.equal(u.view(torch.int32), u0.view(torch.int32)))
+            same_g += bool(torch.equal(g.view(torch.int32), g0.view(torch.int32)))
             max_dg = max(max_dg, float((g - g0).abs().max()))
         kernels, busy = device_profile(lambda: value_and_grad(pot, theta))
-        print(json.dumps(dict(root=str(root), model=model, card=card_line(), repeats=args.repeats,
+        print(json.dumps(dict(root=str(root), model=model, fleet=args.fleet, card=card_line(), repeats=args.repeats,
                               value_bit_identical=same_u, grad_bit_identical=same_g, max_abs_grad_diff=max_dg,
                               ms=start.elapsed_time(end) / args.repeats, device_kernels=kernels,
                               device_busy_ms=busy)), flush=True)

@@ -3,7 +3,9 @@ package's ``utils/checkpoint.py``.
 
 The ``.npz`` holds ``theta u grad eps cov chol_cov`` with a leading chain
 axis, the layout the JAX package writes and reads: a file written by either
-package loads in the other.
+package loads in the other.  A fleet fit split at the end of its warmup
+(``fleet_fit(checkpoint_path=)``) also keeps its ``torch.Generator``'s
+state under ``generator_state``, which the JAX package's loader ignores.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 from bumpcosmology_torch.device import resolve_device
 from bumpcosmology_torch.inference.nuts import ChainState, WarmupResult
 
-__all__ = ["checkpoint_file", "save_warmup", "load_warmup"]
+__all__ = ["checkpoint_file", "save_warmup", "load_warmup", "load_generator_state"]
 
 
 def checkpoint_file(path) -> str:
@@ -22,10 +24,19 @@ def checkpoint_file(path) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def save_warmup(path, warm: WarmupResult) -> None:
+def save_warmup(path, warm: WarmupResult, generator=None) -> None:
+    """Write ``warm`` (and ``generator``'s state, when given) to ``path``."""
     arrays = dict(zip(("theta", "u", "grad"), warm.state))
     arrays.update(eps=warm.eps, cov=warm.cov, chol_cov=warm.chol_cov)
+    if generator is not None:
+        arrays["generator_state"] = generator.get_state()
     np.savez(checkpoint_file(path), **{k: v.detach().cpu().numpy() for k, v in arrays.items()})
+
+
+def load_generator_state(path):
+    """The ``torch.Generator`` state kept in ``path`` (``None`` if there is none)."""
+    with np.load(checkpoint_file(path)) as d:
+        return torch.as_tensor(d["generator_state"]) if "generator_state" in d.files else None
 
 
 def load_warmup(path, device=None, dtype=torch.float32) -> WarmupResult:

@@ -13,9 +13,9 @@ fit on ``benchmarks/flagship_catalog.npz`` (56 events x 256 PE samples plus
 beside it: the mock stages (phase 6), the population-only fit (phase 8), the
 ChEES samplers (phase 9), the other two mass families in both fits (phase
 10), the calibration suite (phase 11), model comparison (phase 12), the
-pipeline's command line (phase 13) and the scale-out layer with the host
-utilities (phase 14); and it holds every CUDA kernel against its plain
-PyTorch twin:
+pipeline's command line (phase 13), the scale-out layer with the host
+utilities (phase 14) and the SBC certificates' paths (phase 15); and it
+holds every CUDA kernel against its plain PyTorch twin:
 
 1. build every kernel from ``bumpcosmology_torch/csrc`` (one nvcc per source),
    and time the card's launch floor: an empty kernel through the same ctypes
@@ -24,7 +24,8 @@ PyTorch twin:
    forward rtol 1e-4 / atol 5e-5, VJP to the 5 scalars rtol 2e-4 / atol 1e-5;
    the same limits, against the twin run in float64, at C=1 (the mock campaign's
    launch), at G=48 and G=100 (not multiples of a warp), at G=2100 (nine passes
-   of 256 columns, more than 32 rows a warp) and at C=64; two backward launches on the same inputs
+   of 256 columns, more than 32 rows a warp), at C=128 G=128 (the SBC certificate's fleet, phase 15b)
+   and at C=64; two backward launches on the same inputs
    must agree bit for bit (the reduction runs in a fixed order);
 3. kernel B (detector-frame log-weights) at full size, N=38,912, K=1024,
    G=256, C=16, both epilogues, forward and backward.  ``rows``: values rtol
@@ -39,7 +40,8 @@ PyTorch twin:
    against the twin at the same limits, both epilogues, both ways; and so
    are phase 12's shapes: the shared table at C = 64 (compare's batch) and
    the leave-one-out fleet's 56 per-chain tables of 38,656 rows (the
-   flagship without one event each, 34.6 MB).  At the shared C = 16 shape
+   flagship without one event each, 34.6 MB), and the SBC certificate's
+   (phase 15b): 128 per-chain tables of 7,680 rows at K = 256, G = 128.  At the shared C = 16 shape
    and both per-chain shapes, two backward launches on the same inputs must
    agree bit for bit, both epilogues (the table cotangents are summed in
    fixed point).  Last, detector tables whose backward bins do not fit in
@@ -197,11 +199,25 @@ PyTorch twin:
    at A's forward limits; (e) ``utils.profiling.trace`` around one joint
    value+grad writes a non-empty trace; (f) which of matplotlib, seaborn
    and pandas import here, and with all three the figures of phases 7-12's
-   artifacts are drawn.
+   artifacts are drawn;
+15. the SBC certificates' paths: (a) the PLPEAK and BROKENPL joint
+   potentials (plain PyTorch: the fused detector-table route through
+   ``ops/interp.py``'s lookup) at 16 prior draws, on the flagship shared by
+   the chains and on 16 leave-one-out catalogs one a chain: two value+grads
+   bit-identical, the first 4 chains card against CPU at phase 4's limits,
+   no launch; (b) the certificate's kernel shapes, run in phases 2 and 3:
+   kernel A at C = 128, G = 128 and kernel B's both epilogues on 128
+   per-chain tables of 7,680 rows at K = 256, G = 128, against their twins;
+   (c) ``tools/sbc_certificate.py --family plpeak`` at the reference
+   configuration cut to 8 simulations and 5 + 4 transitions at ``max_depth``
+   4, every launch count set to 0 before and read after (the campaign's
+   only: kernel C, and A's forward at most once):
+   the artifact's keys and ranks, the rate check; the verdict is printed,
+   not held.
 
 The ``kernels`` line's ``launches`` are phase 7's (the joint fit, C: phase
 6's stages, B's per-chain rows: phase 11b's, and at the LOO fleet's shape
-phase 12d's); ``launches_by_path`` gives every path, phases 4b and 6-14 (phase
+phase 12d's); ``launches_by_path`` gives every path, phases 4b and 6-15 (phase
 14's on each rank: the sharded value+grad and the three mesh fits; and
 the launches of 14c and 14d).  Every kernel is
 timed twice: ``ms`` is its device time (20 launches captured
@@ -295,6 +311,11 @@ SBC_WARMUP, SBC_SAMPLES, SBC_DEPTH = 30, 32, 5
 SBC_COSMO_CAMPAIGN = 4_000_000
 SCORE_CATALOGS = 50
 FLEET_CPU_SIMS = 3
+# phase 15: the SBC certificates' fleet (the reference drivers' configuration: 128 simulations of 16 events x 256
+# samples + 3,584 injections, n_grid 128, n_z 256), and the certificate tool at a cut size
+CERT_SIMS, CERT_NOBS, CERT_NSAMP, CERT_NSEL, CERT_GRID, CERT_N_Z = 128, 16, 256, 3584, 128, 256
+CERT_SMOKE_SIMS, CERT_SMOKE_WARMUP, CERT_SMOKE_SAMPLES, CERT_SMOKE_DEPTH = 8, 5, 4, 4
+FAMILY_CHAINS, FAMILY_CPU_CHAINS = 16, 4
 # phase 12: model comparison at CompareConfig's and PpcConfig's defaults over the traces of phases 7, 8 and 10b;
 # the leave-one-out fleet (56 chains, each the flagship without one event) cut as phase 11 cuts the SBC fleet
 COMPARE_BATCH = 64
@@ -398,9 +419,9 @@ def check_close(name: str, got, ref, rtol: float, atol: float) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def b_tables(sites, data, n_z: int = N_Z):
+def b_tables(sites, data, n_z: int = N_Z, n_grid: int = N_GRID):
     """Kernel B's per-chain inputs (detector table, bump table, 15 scalars) of
-    the constrained ``sites`` (C,) on ``data``'s dL range, at ``N_GRID``, ``n_z``."""
+    the constrained ``sites`` (C,) on ``data``'s dL range, at ``n_grid``, ``n_z``."""
     import torch
 
     from bumpcosmology_torch.inference.likelihoods import cosmo_from_sites, dl_bounds_of, population_from_sites
@@ -409,7 +430,7 @@ def b_tables(sites, data, n_z: int = N_Z):
     from bumpcosmology_torch.ops import cuda_logwts
 
     with torch.no_grad():
-        pop = build_population(population_from_sites(sites), N_GRID)
+        pop = build_population(population_from_sites(sites), n_grid)
         det = build_detector_table(build_cosmology(cosmo_from_sites(sites), n=n_z), *dl_bounds_of(data), n=n_z)
         return (det.cols.contiguous(), pop.mass_table.log_bump.contiguous(),
                 cuda_logwts.pack_scalars(pop, det).contiguous())
@@ -551,8 +572,11 @@ def run(mock_dir: Path) -> int:
     p64 = p5.repeat(4, 1)
     p64[:, [0, 1, 4]] *= 1.0 + 0.04 * (torch.rand((4 * c, 3), generator=gen, device=dev) - 0.5)
     p64[:, 3] += torch.rand((4 * c,), generator=gen, device=dev)
+    # the SBC certificate's fleet (phase 15b): 128 chains at G = 128
+    p128 = p64.repeat(2, 1)
+    p128[:, [0, 1, 4]] *= 1.0 + 0.04 * (torch.rand((2 * p64.shape[0], 3), generator=gen, device=dev) - 0.5)
     shape_errs = {}
-    for p, n_grid in ((p5[:1], N_GRID), (p5, 48), (p5, 100), (p5[:2], 2100), (p64, N_GRID)):
+    for p, n_grid in ((p5[:1], N_GRID), (p5, 48), (p5, 100), (p5[:2], 2100), (p128, CERT_GRID), (p64, N_GRID)):
         label = f"C={p.shape[0]} G={n_grid}"
         g_s = torch.randn((p.shape[0], n_grid), generator=gen, device=dev)
         e_f, e_b, _, grad_k = kernel_a_errors(label, p, n_grid, g_s, torch.float64)
@@ -684,6 +708,7 @@ def run(mock_dir: Path) -> int:
         f"{float(distinct[:n_ev_warps].mean()):.2f} (min {int(distinct[:n_ev_warps].min())}), injections mean "
         f"{float(distinct[n_ev_warps:].mean()):.2f} (min {int(distinct[n_ev_warps:].min())})")
     rows.update(kernel_b_layouts(tag, data, sites, tables, qry, gen))
+    kernel_b_certificate_shape(tag, data, sites, gen)
     rows.update(kernel_b_comparison_shapes(tag, data, sites, qry, gen))
     kernel_b_repeats(tag, data, sites, tables, qry, gen)
     rows.update(kernel_b_large_tables(tag, data, sites, qry, gen))
@@ -822,6 +847,12 @@ def run(mock_dir: Path) -> int:
     # ---- phase 14: the scale-out layer and the host utilities ---------------
     scale_launches = scale_out_phase(dev, tag, spec, theta, compare_dir)
     phase_done("14_scale_out")
+
+    # ---- phase 15: the SBC certificates' paths ------------------------------
+    family_launches = family_repeats_phase(dev, tag)
+    phase_done("15a_family_repeats")
+    certificate_launches = certificate_tool_phase(dev, tag)
+    phase_done("15c_certificate_tool")
     log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
 
     sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
@@ -876,7 +907,8 @@ def run(mock_dir: Path) -> int:
             ("10a_brokenpl_pop_fit", brokenpl_launches), ("10b_plpeak_joint_fit", plpeak_launches),
             ("11a_sbc_pop", sbc_pop_launches), ("11b_sbc_pop_cosmo", sbc_cosmo_launches),
             ("11c_score_check", score_launches), *comparison_launches.items(), ("13_cli_sample_cosmo", cli_launches),
-            *scale_launches.items())}
+            *scale_launches.items(), ("15a_family_repeats", family_launches),
+            ("15c_certificate_tool", certificate_launches))}
         kernels.append(dict(name=name, route="cuda", source=sources[name.split("_")[0]],
                             replaces=replaces[name], launches=launches[name], launches_by_path=by_path,
                             max_abs_err=row["max_abs_err"], ms=row["ms"], call_ms=row["call_ms"],
@@ -2106,6 +2138,20 @@ def kernel_b_layouts(tag: str, data, sites, tables, qry, gen):
     return out
 
 
+def kernel_b_certificate_shape(tag: str, data, sites, gen) -> None:
+    """Phase 3, the SBC certificate's shape (phase 15b): 128 distinct
+    per-chain tables of 7,680 rows (16 events x 256 samples + 3,584
+    injections a chain, :func:`fleet_queries`) under 128 chains' tables at
+    ``n_grid`` 128 and ``n_z`` 256: both epilogues, one launch each way,
+    against the twin at phase 3's limits (:func:`b_against_twin`)."""
+    tables = b_tables(tiled_sites(sites, CERT_SIMS), data, n_z=CERT_N_Z, n_grid=CERT_GRID)
+    fq = fleet_queries(data, CERT_SIMS, gen, nobs=CERT_NOBS, nsamp=CERT_NSAMP, nsel=CERT_NSEL)
+    errs = b_against_twin("B per-chain certificate", tables, fq, CERT_NOBS, CERT_NSAMP, gen)[0]
+    log(f"{tag} phase 3 kernel B at the SBC certificate's shape (phase 15b): {fq.shape[0]} per-chain tables of "
+        f"{fq.shape[1]} rows, K={tables[0].shape[1]}, G={tables[1].shape[1]}: max|err| against the twin "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}))
+
+
 def tiled_sites(sites, n: int):
     """The constrained ``sites`` (C,) repeated to ``n`` chains."""
     return {k: v.repeat(-(-n // v.shape[0]))[:n] for k, v in sites.items()}
@@ -2188,6 +2234,123 @@ def kernel_b_comparison_shapes(tag: str, data, sites, qry, gen):
         f"{nsamp} samples + {data.selection.a.shape[0]} injections a chain, {lq.numel() * 4 / 1e6:.1f} MB): max|err| "
         f"against the twin {fmt(errs)}; {times}")
     return rows
+
+
+def family_repeats_phase(dev, tag: str) -> dict:
+    """Phase 15a: the PLPEAK and BROKENPL joint potentials (the fused
+    detector-table route in plain PyTorch, no kernel) at the first 16 of 64
+    prior draws whose value+grad is finite (seed 0), on the flagship shared
+    by the chains and on a fleet of 16 catalogs (the flagship without event
+    ``s`` for chain ``s``: a query table per chain, as the SBC fleet reads
+    it).  Two value+grads must give the same bits; the first 4 chains are
+    held against the same potential on the CPU at phase 4's limits
+    (|dU|/(1+|U|) < 2e-4, |dgrad|/(1+|grad|) < 5e-3); each value+grad is
+    timed (CUDA events, mean of 5).  Every launch count is set to 0 before
+    and read after: none may move.  Returns the launches."""
+    import torch
+
+    from bumpcosmology_torch.benchdata import load_pop_cosmo_data
+    from bumpcosmology_torch.inference.influence import make_loo_datas
+    from bumpcosmology_torch.inference.likelihoods import (
+        MASS_FAMILIES,
+        ModelSpec,
+        dl_bounds_of,
+        pop_cosmo_loglike,
+        take_fleet,
+    )
+    from bumpcosmology_torch.inference.model import make_potential, value_and_grad
+    from bumpcosmology_torch.tools.potential_repeats import family_thetas
+
+    cpu = torch.device("cpu")
+    data = load_pop_cosmo_data(CATALOG, device=dev)
+    with torch.no_grad():
+        fleet = take_fleet(make_loo_datas(data), torch.arange(FAMILY_CHAINS, device=dev))
+    bits = lambda x: x.view(torch.int32)  # noqa: E731  (a NaN equals itself)
+    results = {}
+    _zero_counters()
+    for family in ("plpeak", "brokenpl"):
+        fam = MASS_FAMILIES[family]
+        theta = family_thetas(fam.cosmo_spec(data, N_GRID, N_Z, device=dev), FAMILY_CHAINS)
+        for layout, d in (("shared", data), ("fleet", fleet)):
+            bounds = dl_bounds_of(d)
+            pot = make_potential(fam.cosmo_spec(d, N_GRID, N_Z, device=dev))
+            (u1, g1), (u2, g2) = value_and_grad(pot, theta), value_and_grad(pot, theta)
+            torch.cuda.synchronize()
+            if not (torch.equal(bits(u1), bits(u2)) and torch.equal(bits(g1), bits(g2))):
+                raise AssertionError(f"{family} joint, {layout} table: two value+grads at the same thetas differ")
+            sub = d if layout == "shared" else take_fleet(d, torch.arange(FAMILY_CPU_CHAINS, device=dev))
+            sub = sub.to(cpu)
+            spec_cpu = ModelSpec(priors=dict(fam.cosmo_priors), device=cpu, loglike=lambda sites, sub=sub, b=bounds:
+                                 pop_cosmo_loglike(sites, sub, N_GRID, N_Z, b, build=fam.build))
+            u_c, g_c = value_and_grad(make_potential(spec_cpu), theta[:FAMILY_CPU_CHAINS].cpu())
+            u_k, g_k = u1[:FAMILY_CPU_CHAINS].cpu(), g1[:FAMILY_CPU_CHAINS].cpu()
+            du = float(((u_k - u_c).abs() / (1.0 + u_c.abs())).max())
+            dg = float(((g_k - g_c).abs() / (1.0 + g_c.abs())).max())
+            if not (du < 2e-4 and dg < 5e-3):
+                raise AssertionError(f"{family} joint, {layout} table: card vs CPU |dU|/(1+|U|) {du:.3e}, "
+                                     f"|dgrad|/(1+|grad|) {dg:.3e}")
+            ms = cuda_ms(lambda: value_and_grad(pot, theta), reps=5, warmup=1)
+            results[f"{family} {layout}"] = dict(du=float(f"{du:.3e}"), dg=float(f"{dg:.3e}"), ms=round(ms, 3))
+    launches = _read_counters()
+    if any(launches.values()):
+        raise AssertionError(f"phase 15a: the families' potentials launched kernels: {launches}")
+    log(f"{tag} phase 15a the families' joint value+grads ({FAMILY_CHAINS} chains; the flagship shared, and "
+        f"{FAMILY_CHAINS} leave-one-out catalogs one a chain): two bit-identical at each; the first "
+        f"{FAMILY_CPU_CHAINS} chains card vs CPU and ms a value+grad (CUDA events, mean of 5): {json.dumps(results)}")
+    return launches
+
+
+def certificate_tool_phase(dev, tag: str) -> dict:
+    """Phase 15c: ``tools/sbc_certificate.py`` end to end for ``plpeak`` at
+    the reference driver's configuration cut to ``CERT_SMOKE_SIMS``
+    simulations, ``CERT_SMOKE_WARMUP`` + ``CERT_SMOKE_SAMPLES`` transitions
+    at ``max_depth`` ``CERT_SMOKE_DEPTH`` (the campaign stays the
+    certificate's 6.5·10⁶ draws: at SNR 20 a 10⁶-draw campaign detects about
+    600 injections, fewer than the 3,584 the fresh-noise simulator draws its
+    selection set from).  Every launch count is set to 0 just before and read
+    just after: the campaign's launches only, kernel C (its SNRs) and kernel
+    A's forward at most once (the fiducial population of its draws, which
+    ``data/weights.py`` builds once a process: phase 6 has built it), no
+    backward and no kernel B (the family's fit is plain PyTorch).  The artifact must carry the
+    JAX layout's keys with every rank in [0, n_bins), the rate check must
+    have run; the verdict is printed, not held, at this depth.  Returns the
+    launches."""
+    import numpy as np
+
+    from bumpcosmology_torch.inference import calibration as cal
+    from bumpcosmology_torch.tools import sbc_certificate
+
+    overrides = [f"sbc.n_sims={CERT_SMOKE_SIMS}", f"sbc.num_warmup={CERT_SMOKE_WARMUP}",
+                 f"sbc.num_samples={CERT_SMOKE_SAMPLES}", f"sbc.max_depth={CERT_SMOKE_DEPTH}"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cert_") as tmp:
+        _zero_counters()
+        r = sbc_certificate.run_certificate("plpeak", out=tmp, device=dev, overrides=overrides)
+        launches = _read_counters()
+        with np.load(Path(tmp) / "sbc_ranks.npz") as d:
+            art = {k: d[k] for k in d.files}
+    proto = cal.COSMO_SBC_SPEC_BUILDERS["plpeak"](device=dev)(None)
+    sites = [k for k in proto.priors if k != "R_unit"]
+    expected = ({"attrs/model", "attrs/n_sims", "attrs/all_pass", "ranks/n_bins", "pvalues/site", "pvalues/p",
+                 "pvalues/passed", "rate_check/ranks", "rate_check/attrs/p", "rate_check/attrs/passed",
+                 "rate_check/attrs/method"} | {f"ranks/{k}" for k in sites} | {f"pvalues/attrs/{k}" for k in sites})
+    _stage_artifact_keys("phase 15c sbc_ranks.npz", art, expected)
+    n_bins = int(art["ranks/n_bins"])
+    if any(not np.all((art[f"ranks/{k}"] >= 0) & (art[f"ranks/{k}"] < n_bins)) for k in sites):
+        raise AssertionError("phase 15c: a rank outside [0, n_bins)")
+    if r["rate_p"] is None or not np.isfinite(r["rate_p"]):
+        raise AssertionError("phase 15c: the rate check did not run")
+    if (launches["snr_integral"] == 0 or launches["bump_fwd"] > 1
+            or any(v for k, v in launches.items() if k not in ("snr_integral", "bump_fwd"))):
+        raise AssertionError(f"phase 15c: launches {launches} (the campaign's only: kernel C, A's forward at most "
+                             "once)")
+    log(f"{tag} phase 15c sbc_certificate --family plpeak cut to {CERT_SMOKE_SIMS} simulations, "
+        f"{CERT_SMOKE_WARMUP} + {CERT_SMOKE_SAMPLES} transitions at max_depth {CERT_SMOKE_DEPTH}: wall "
+        f"{r['wall_s']:.2f} s (campaign {r['campaign_s']:.2f}, simulations {r['simulate_s']:.2f}, candidates "
+        f"{r['init_s']:.2f}, warmup {r['warmup_s']:.2f}, sampling {r['sampling_s']:.2f}, rate check "
+        f"{r['rate_check_s']:.2f}); {r['value_grads']} batched value+grads at {r['ms_per_value_grad']:.2f} ms; "
+        f"verdict {'PASS' if r['passed'] else 'FAIL'} (printed, not held: min p {r['min_p']:.3f}), rate check p "
+        f"{r['rate_p']:.3f}; launches {launches}")
+    return launches
 
 
 def _now() -> float:

@@ -378,24 +378,30 @@ def _tiny_sbc_config(tmp_path, model, **kw):
     return cfg
 
 
-@pytest.mark.parametrize("model,ndraw", [("pop", 30_000), ("pop_cosmo", 400_000)])
+@pytest.mark.parametrize("model,ndraw", [("pop", 30_000), ("pop_cosmo", 400_000), ("plpeak_cosmo", 400_000),
+                                         ("brokenpl_cosmo", 400_000)])
 def test_stage_sbc_tiny(tmp_path, capsys, model, ndraw):
-    """``_stage_sbc`` end to end at a tiny size (``pop_cosmo``: the fresh-noise
-    simulator's 2,048-row pool needs the larger campaign): ``sbc_ranks.npz``
-    with the JAX layout's keys, ranks in [0, n_bins), its lines printed."""
-    from bumpcosmology_torch.pipeline.stages import _stage_sbc
+    """``_stage_sbc`` end to end at a tiny size (the joint models: the
+    fresh-noise simulator's 2,048-row pool needs the larger campaign):
+    ``sbc_ranks.npz`` with the JAX layout's keys, the family's sites
+    (``COSMO_SBC_SPEC_BUILDERS`` without ``R_unit``), ranks in [0, n_bins),
+    the rate check on every joint model, its lines printed."""
+    from bumpcosmology_torch.pipeline.stages import _JOINT_FAMILY, _stage_sbc
 
-    _stage_sbc(_tiny_sbc_config(tmp_path, model, campaign_ndraw=ndraw), device=CPU)
+    report = _stage_sbc(_tiny_sbc_config(tmp_path, model, campaign_ndraw=ndraw), device=CPU)
     out = capsys.readouterr().out
     assert "[sbc] 3 simulations drawn; launching fleet fit" in out and "[sbc] uniformity p-values:" in out
     with np.load(tmp_path / "sbc_ranks.npz") as d:
         art = {k: d[k] for k in d.files}
-    proto = (cal.make_pop_cosmo_sbc_spec_builder if model == "pop_cosmo" else cal.make_pop_sbc_spec_builder)(
-        device=CPU)(None)
+    family = _JOINT_FAMILY.get(model)
+    proto = (cal.COSMO_SBC_SPEC_BUILDERS[family] if family else cal.make_pop_sbc_spec_builder)(device=CPU)(None)
     sites = [k for k in proto.priors if k != "R_unit"]
     expected = {"attrs/model", "attrs/n_sims", "attrs/all_pass", "ranks/n_bins", "pvalues/site", "pvalues/p",
                 "pvalues/passed"} | {f"ranks/{k}" for k in sites} | {f"pvalues/attrs/{k}" for k in sites}
-    if model == "pop_cosmo":
+    assert report["pvalues"] == dict(zip((str(x) for x in art["pvalues/site"]), art["pvalues/p"].tolist()))
+    assert report["sampling_transitions"] == 12 and report["sampling_evals"] >= 12
+    if family:
+        assert report["rate_p"] == float(art["rate_check/attrs/p"])
         expected |= {"rate_check/ranks", "rate_check/attrs/p", "rate_check/attrs/passed", "rate_check/attrs/method"}
         assert "[sbc] rate-reconstruction rank uniformity: p=" in out and "WARNING: rate" not in out
         assert art["rate_check/ranks"].shape == (512,) and np.isfinite(art["rate_check/ranks"]).all()

@@ -359,3 +359,40 @@ def test_snr_kernel_cases_match_plain(dev, case):
     torch.cuda.synchronize()
     assert got.shape == ref.shape and torch.equal(got == 0, ref == 0)
     torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("family", ["plpeak", "brokenpl"])
+@pytest.mark.parametrize("layout", ["shared", "fleet"])
+def test_family_joint_value_and_grad_repeats_on_the_card(dev, family, layout):
+    """The families' joint potential (the fused detector-table route in plain
+    PyTorch, no kernel): two value+grads on the card give the same bits, with
+    one catalog shared by the chains and with a catalog a chain (a fleet, a
+    query table per chain, as the SBC fleet reads it); both against the same
+    on the CPU within phase 4's limits, |dU|/(1+|U|) < 2e-4 and
+    |dgrad|/(1+|grad|) < 5e-3."""
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.model import make_potential, prior_sample, value_and_grad
+    from bumpcosmology_torch.testing import synthetic_pop_cosmo_data
+
+    build, priors = lk.MASS_FAMILIES[family].build, lk.MASS_FAMILIES[family].cosmo_priors
+    n = 8
+    cand = prior_sample(lk.ModelSpec(priors=dict(priors), loglike=None, device=torch.device("cpu")),
+                        torch.Generator().manual_seed(5), shape=(n,))
+    res = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        cats = [synthetic_pop_cosmo_data(12, 64, 2048, seed=3 + s, device=d) for s in range(n)]
+        data = lk.stack_fleet(cats) if layout == "fleet" else cats[0]
+        bounds = lk.dl_bounds_of(data, margin=0.1)
+        pot = make_potential(lk.ModelSpec(priors=dict(priors), device=d, loglike=lambda sites: lk.pop_cosmo_loglike(
+            sites, data, 128, 256, bounds, build=build)))
+        theta = cand.to(d)
+        res[where] = value_and_grad(pot, theta)
+        if where == "card":
+            u2, g2 = value_and_grad(pot, theta)
+            torch.cuda.synchronize()
+            assert torch.equal(res[where][0].view(torch.int32), u2.view(torch.int32))
+            assert torch.equal(res[where][1].view(torch.int32), g2.view(torch.int32))
+    (u, g), (u_ref, g_ref) = ((x.cpu() for x in res[k]) for k in ("card", "cpu"))
+    assert bool(torch.isfinite(u_ref).all() and torch.isfinite(g_ref).all())
+    assert float(((u - u_ref).abs() / (1 + u_ref.abs())).max()) < 2e-4
+    assert float(((g - g_ref).abs() / (1 + g_ref.abs())).max()) < 5e-3
