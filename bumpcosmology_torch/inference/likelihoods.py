@@ -91,6 +91,7 @@ from bumpcosmology_torch.ops.collectives import all_gather_cat, copy_to_group
 from bumpcosmology_torch.ops.cuda_logwts import cosmo_frame_logwts, cosmo_frame_logwts_lse, query_rows
 from bumpcosmology_torch.ops.logsumexp import sharded_logsumexp
 from bumpcosmology_torch.ops.interp import interp_unit_spaced, interp_unit_spaced_columns
+from bumpcosmology_torch.utils.profiling import span
 
 __all__ = [
     "EventData",
@@ -335,9 +336,13 @@ def selection_neff_terms(log_sel_wts: torch.Tensor, log_ndraw: torch.Tensor):
 
 
 def _frame_tables(sites, n_grid: int, n_z: int, dl_bounds, plain: bool):
-    pop = build_population(population_from_sites(sites), n_grid, plain)
-    cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
-    return pop, cosmo, build_detector_table(cosmo, dl_bounds[0], dl_bounds[1], n=n_z)
+    """The bump's population (kernel A's table), the cosmology table and the
+    detector table of the sites: the span ``loglike.tables`` while the torch
+    profiler records."""
+    with span("loglike.tables"):
+        pop = build_population(population_from_sites(sites), n_grid, plain)
+        cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
+        return pop, cosmo, build_detector_table(cosmo, dl_bounds[0], dl_bounds[1], n=n_z)
 
 
 def _cosmo_frame_logwts(pop, cosmo, rows) -> torch.Tensor:

@@ -7,6 +7,12 @@ over the flat unconstrained vector.  Here ``theta`` carries a leading chain
 axis ``(C, dim)`` and the potential returns ``(C,)``; the chains are
 independent, so one backward of ``U.sum()`` gives every chain's gradient
 (:func:`value_and_grad`).
+
+While the torch profiler records, a value+grad is the span
+``potential.value_and_grad``, the log-likelihood's forward
+``potential.loglike`` and its backward ``loglike.backward``
+(:mod:`~bumpcosmology_torch.utils.profiling`); :data:`COUNTS` counts the
+value+grads whatever the profiler's state.
 """
 from __future__ import annotations
 
@@ -14,8 +20,12 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from bumpcosmology_torch.utils.profiling import backward_span, span
+
 __all__ = ["ModelSpec", "make_potential", "value_and_grad", "prior_sample", "constrain",
            "unconstrain"]
+
+COUNTS = {"value_and_grads": 0}  # batched value+grads made by :func:`value_and_grad`
 
 
 class ModelSpec(NamedTuple):
@@ -57,14 +67,19 @@ def make_potential(spec: ModelSpec) -> Callable[[torch.Tensor], torch.Tensor]:
     """U(theta) = -log posterior density; ``(C, dim)`` → ``(C,)``."""
 
     def potential(theta: torch.Tensor) -> torch.Tensor:
-        return -(_log_prior_and_jac(spec, theta) + spec.loglike(constrain(spec, theta)))
+        log_prior = _log_prior_and_jac(spec, theta)
+        sites = constrain(spec, theta)
+        with span("potential.loglike"):
+            ll = backward_span("loglike.backward", "potential.value_and_grad", spec.loglike, sites)
+        return -(log_prior + ll)
 
     return potential
 
 
 def value_and_grad(potential: Callable, theta: torch.Tensor):
     """``(U, dU/dtheta)`` for every chain of ``theta`` ``(C, dim)``, detached."""
-    with torch.enable_grad():
+    COUNTS["value_and_grads"] += 1
+    with span("potential.value_and_grad"), torch.enable_grad():
         th = theta.detach().requires_grad_(True)
         u = potential(th)
         (grad,) = torch.autograd.grad(u.sum(), th)

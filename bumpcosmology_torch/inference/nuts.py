@@ -7,7 +7,10 @@ O(log n) checkpoint stack for the U-turn tests, ``nuts.py:197-424``) runs as
 one loop over the whole chain batch: every chain carries an active mask,
 updates are masked, and each leapfrog makes one batched value+grad for the
 chains still integrating.  While any chain is active the host must know it,
-so each leapfrog costs one host synchronisation.
+so each leapfrog reads the device twice (the active-chain check and the
+active chains' indices), and each subtree once more.  :data:`COUNTS` counts
+these reads; while the torch profiler records, each draw is the span
+``nuts.transition`` (:mod:`~bumpcosmology_torch.utils.profiling`).
 
 All chains that are still building a subtree share its leaf index, so the
 leaf index and the checkpoint pointer are plain integers; a chain that has
@@ -36,11 +39,14 @@ import torch
 
 from bumpcosmology_torch.device import resolve_device
 from bumpcosmology_torch.inference.model import value_and_grad
+from bumpcosmology_torch.utils.profiling import span
 
 __all__ = ["NutsConfig", "ChainState", "WarmupResult", "NutsStats", "SamplingResult",
            "nuts_transition", "warmup_schedule", "run_warmup", "run_sampling", "run_nuts"]
 
 _DIVERGENCE_THRESHOLD = 1000.0
+# reads of the device by the transitions and the step-size search
+COUNTS = {"host_syncs": 0}
 
 
 class NutsConfig(NamedTuple):
@@ -144,6 +150,7 @@ def _masked_vg(potential: Callable, active: torch.Tensor) -> Callable:
     evaluated on that."""
 
     def vg(theta):
+        COUNTS["host_syncs"] += 1
         idx = active.nonzero().squeeze(1)
         if idx.numel() == theta.shape[0]:
             return value_and_grad(potential, theta)
@@ -182,6 +189,7 @@ def _build_subtree(potential, gen, active0, n_leaf: int, theta, p, grad, eps_sig
     ptr = 0
     for k in range(n_leaf):
         act = active0 & ~turning & ~diverging
+        COUNTS["host_syncs"] += 1
         if not bool(act.any()):  # one host sync per leapfrog
             break
         th_n, p_n, u_n, g_n = _leapfrog(_masked_vg(potential, act), theta, p, grad, eps_signed, cov)
@@ -226,6 +234,11 @@ def _build_subtree(potential, gen, active0, n_leaf: int, theta, p, grad, eps_sig
 def nuts_transition(potential: Callable, state: ChainState, eps, cov, chol_cov,
                     gen: torch.Generator, max_depth: int = 10):
     """One NUTS draw for every chain of ``state`` (``nuts_transition``, nuts.py:286-424)."""
+    with span("nuts.transition"):
+        return _transition(potential, state, eps, cov, chol_cov, gen, max_depth)
+
+
+def _transition(potential, state: ChainState, eps, cov, chol_cov, gen: torch.Generator, max_depth: int):
     c, dim = state.theta.shape
     dev, dt = state.theta.device, state.theta.dtype
     xi = torch.randn((c, dim), generator=gen, device=dev, dtype=dt)
@@ -246,6 +259,7 @@ def nuts_transition(potential: Callable, state: ChainState, eps, cov, chol_cov,
 
     for d in range(max_depth):
         active = ~done
+        COUNTS["host_syncs"] += 1
         if not bool(active.any()):
             break
         go_right = torch.rand(c, generator=gen, device=dev, dtype=dt) < 0.5
@@ -303,6 +317,7 @@ def _find_reasonable_eps(potential: Callable, state: ChainState, p0, cov, max_st
     factor = torch.where(up, 2.0, 0.5).to(eps.dtype)
     for _ in range(max_steps):
         searching = torch.where(up, ap > 0.5, ap < 0.5)
+        COUNTS["host_syncs"] += 1
         if not bool(searching.any()):  # one host sync per step
             break
         eps = torch.where(searching, eps * factor, eps)

@@ -133,11 +133,10 @@ def card_line(dev) -> str:
 
 
 def _launches() -> dict:
-    """The kernel wrappers' launch counts (A, B and C), by name."""
-    from bumpcosmology_torch.mock import cuda_snr
-    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+    """The kernel wrappers' launch counts (A, B and C), by qualified name."""
+    from bumpcosmology_torch.utils.profiling import counters
 
-    return {**cuda_bump.LAUNCHES, **cuda_logwts.LAUNCHES, **cuda_snr.LAUNCHES}
+    return {k: v for k, v in counters().items() if k.startswith("cuda_")}
 
 
 def run_certificate(family: str, seed=None, out=".", probe: int = 0, device=None, overrides=(),

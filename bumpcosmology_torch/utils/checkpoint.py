@@ -9,11 +9,15 @@ state under ``generator_state``, which the JAX package's loader ignores.
 """
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 
 from bumpcosmology_torch.device import resolve_device
-from bumpcosmology_torch.inference.nuts import ChainState, WarmupResult
+
+if TYPE_CHECKING:
+    from bumpcosmology_torch.inference.nuts import WarmupResult
 
 __all__ = ["checkpoint_file", "save_warmup", "load_warmup", "load_generator_state"]
 
@@ -41,6 +45,8 @@ def load_generator_state(path):
 
 def load_warmup(path, device=None, dtype=torch.float32) -> WarmupResult:
     """The adapted state in ``path`` on ``device`` (``None`` means CUDA)."""
+    from bumpcosmology_torch.inference.nuts import ChainState, WarmupResult  # nuts imports utils.profiling
+
     dev = resolve_device(device)
     with np.load(checkpoint_file(path)) as d:
         t = {k: torch.as_tensor(d[k], dtype=dtype, device=dev)

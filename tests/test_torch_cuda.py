@@ -396,3 +396,42 @@ def test_family_joint_value_and_grad_repeats_on_the_card(dev, family, layout):
     assert bool(torch.isfinite(u_ref).all() and torch.isfinite(g_ref).all())
     assert float(((u - u_ref).abs() / (1 + u_ref.abs())).max()) < 2e-4
     assert float(((g - g_ref).abs() / (1 + g_ref.abs())).max()) < 5e-3
+
+
+def test_host_syncs_counts_every_synchronising_call_of_a_transition(dev):
+    """Over one NUTS transition of the flagship (4 chains of the committed
+    adapted state, depth 6, every chain first and then the subsets still
+    integrating), ``nuts.host_syncs`` rises by as many as the synchronising
+    calls that CUDA's sync debug mode reports."""
+    import warnings
+    from pathlib import Path
+
+    from bumpcosmology_torch.benchdata import load_pop_cosmo_data
+    from bumpcosmology_torch.inference import nuts
+    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_model_spec
+    from bumpcosmology_torch.inference.model import make_potential, value_and_grad
+    from bumpcosmology_torch.utils import load_warmup, profiling
+
+    bench = Path(__file__).resolve().parents[1] / "benchmarks"
+    spec = pop_cosmo_model_spec(load_pop_cosmo_data(bench / "flagship_catalog.npz", device=dev), 256, 1024,
+                                device=dev)
+    warm = load_warmup(bench / "flagship_warmup16.npz", device=dev)
+    potential, c = make_potential(spec), 4
+    theta = warm.state.theta[:c]
+    state = nuts.ChainState(theta, *value_and_grad(potential, theta))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    step = lambda s: nuts.nuts_transition(potential, s, warm.eps[:c], warm.cov[:c], warm.chol_cov[:c], gen, 6)  # noqa: E731
+    state, _ = step(state)  # the kernels' and the allocator's first use
+    torch.cuda.synchronize()
+    for _ in range(2):
+        before = profiling.counters()["nuts.host_syncs"]
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                state, stats = step(state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        reported = sum("synchroniz" in str(w.message) for w in caught)
+        counted = profiling.counters()["nuts.host_syncs"] - before
+        assert int(stats.n_leapfrog.max()) > 1 and reported == counted
