@@ -59,7 +59,7 @@ from bumpcosmology_torch.inference.likelihoods import (
     population_from_sites,
     stack_fleet,
 )
-from bumpcosmology_torch.inference.model import ModelSpec, _log_prior_and_jac, constrain, prior_sample
+from bumpcosmology_torch.inference.model import ModelSpec, constrain, data_potential, prior_sample
 from bumpcosmology_torch.models.brokenpl import build_brokenpl_population
 from bumpcosmology_torch.models.cosmology import build_cosmology
 from bumpcosmology_torch.models.plpeak import build_plpeak_population
@@ -297,10 +297,7 @@ def run_sbc_fleet(
     loglike = make_loglike(datas)
 
     def make_pot(data):
-        def pot(theta):
-            return -(_log_prior_and_jac(proto_spec, theta) + loglike(constrain(proto_spec, theta), data))
-
-        return pot
+        return data_potential(proto_spec, loglike, data)
 
     # finite inits: prior candidates, each on its own simulation's catalog; the truth as fallback
     n_cand = 16

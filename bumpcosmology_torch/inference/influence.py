@@ -31,7 +31,7 @@ import torch
 
 from bumpcosmology_torch.device import resolve_device
 from bumpcosmology_torch.inference.likelihoods import stack_fleet
-from bumpcosmology_torch.inference.model import ModelSpec, _log_prior_and_jac, constrain, prior_sample
+from bumpcosmology_torch.inference.model import ModelSpec, constrain, data_potential, prior_sample
 
 __all__ = ["LooResult", "make_loo_datas", "loo_fit", "influence_summary"]
 
@@ -96,10 +96,7 @@ def loo_fit(
     datas = make_loo_datas(data)
 
     def make_pot(d):
-        def pot(theta):
-            return -(_log_prior_and_jac(spec, theta) + loglike(constrain(spec, theta), d))
-
-        return pot
+        return data_potential(spec, loglike, d)
 
     # finite inits from prior candidates (the pattern of the SBC fleet)
     cands = prior_sample(spec, gen, shape=(nobs, _N_CAND))  # (nobs, n_cand, dim)

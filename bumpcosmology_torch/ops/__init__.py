@@ -7,7 +7,9 @@ has, except the two whose names are those of their modules (``interp`` and
 counterpart.  ``sharded_logsumexp`` takes a ``torch.distributed`` process
 group (``ops.collectives`` holds the collectives under it).  ``cuda_bump`` (kernel A)
 and ``cuda_logwts`` (kernel B) replace the Pallas kernels
-``ops/pallas_bump.py`` and ``ops/pallas_logwts.py`` of the JAX package.
+``ops/pallas_bump.py`` and ``ops/pallas_logwts.py`` of the JAX package;
+``cuda_priors`` (kernel P) computes the models' priors and transforms on the
+card, which the JAX package leaves to XLA.
 """
 from bumpcosmology_torch.ops.integrate import cumtrapz, log_cumtrapz, log_trapz, trapz
 from bumpcosmology_torch.ops.interp import interp_unit_spaced, inverse_interp

@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 DEFAULT_BUILD_DIR = _PKG / "_build"
 BUILD_DIR = DEFAULT_BUILD_DIR
-KERNEL_SOURCES = ("bump", "logwts", "snr", "floor")
+KERNEL_SOURCES = ("bump", "logwts", "snr", "floor", "priors")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

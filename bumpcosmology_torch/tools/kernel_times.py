@@ -1,6 +1,6 @@
-"""Time kernel A, B or C of another checkout on the same card, beside this one's.
+"""Time kernel A, B, C or P of another checkout on the same card, beside this one's.
 
-    python3 bumpcosmology_torch/tools/kernel_times.py --kernel a|b|c [--root DIR]
+    python3 bumpcosmology_torch/tools/kernel_times.py --kernel a|b|c|p [--root DIR]
 
 (run by path, not with ``-m``: the package it times is the one under ``--root``).
 
@@ -29,6 +29,12 @@ power limit.  Needs one NVIDIA GPU and nvcc.
   limits (rtol 2e-5 / atol 1e-6, the same exact zeros) and timers (5 calls in
   one replayed graph), and the device time of each launch of a call
   (``device_ms_by_launch``, from a ``torch.profiler`` trace of 5 eager calls).
+* ``--kernel p``: ``csrc/priors.cu`` on the joint model's 15 priors at C = 4 (the
+  benchmark's flagship cell) and C = 128 (an SBC fleet), at
+  ``testing.prior_thetas``; held to the per-site code on the CPU within
+  ``testing.priors_gaps``' limits; with each launch's bound from the bytes it
+  moves (``bound_ms``), its operations being a few hundred, and the per-site
+  code's eager call on the card (``plain_ms``).
 
 To compare a commit with its parent, from the root of the checkout (``_archive/``
 is git-ignored):
@@ -205,6 +211,51 @@ def kernel_c_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
     return {"snr_integral": timed}, dict(N=m1.shape[0], n_f=grid["n_f"])
 
 
+def kernel_p_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: int):
+    """({kernel: row}, shape) of ``csrc/priors.cu`` under ``root``; its
+    ``max_abs_err`` is the largest of ``testing.priors_gaps``' gaps over their
+    limits, which must not pass 1.  ``plain_ms`` is one eager call of the
+    per-site code on the card: the forward's ``_log_prior_and_jac`` and
+    ``constrain``, the backward's autograd pass through them alone."""
+    import torch
+
+    from bumpcosmology_torch.inference.likelihoods import POP_COSMO_PRIORS
+    from bumpcosmology_torch.inference.model import ModelSpec, _log_prior_and_jac, constrain
+    from bumpcosmology_torch.ops import cuda_priors as kp
+    from bumpcosmology_torch.testing import prior_thetas, priors_gaps, priors_twin
+    from chip_smoke import bound_ms, cuda_ms
+
+    spec = ModelSpec(priors=dict(POP_COSMO_PRIORS), loglike=None)
+    rows, dim = kp.table_rows(spec.priors), spec.dim
+    table = kp.device_table(spec.priors, torch.device("cuda"), torch.float32)
+    kernels = {}
+    for c in (4, 128):
+        theta = prior_thetas(c, dim, seed=seed)
+        gen = torch.Generator().manual_seed(seed)
+        g_lp, g_sites = torch.randn((c,), generator=gen), torch.randn((c, dim), generator=gen)
+        t, gl, gs = theta.cuda(), g_lp.cuda(), g_sites.t().contiguous().cuda()  # the sites' cotangents site-major
+        lp, sites = kp._priors_fwd_cuda(t, table)
+        got = (lp.cpu(), sites.t().cpu(), kp._priors_bwd_cuda(t, table, gs, gl).cpu())
+        gaps = priors_gaps(got, priors_twin(spec, theta, g_lp, g_sites), rows)
+        err = max(gaps["sites"], gaps["log_prior"], gaps["grad"])
+        if not gaps["same_finite"] or err > 1.0:
+            raise AssertionError(f"P C={c}: kernel against the per-site code {gaps}")
+        th = t.clone().requires_grad_(True)
+        outs = [_log_prior_and_jac(spec, th), *constrain(spec, th).values()]
+        cots = [gl, *gs.unbind(0)]
+        plain_fwd = lambda: (_log_prior_and_jac(spec, t), constrain(spec, t))  # noqa: E731
+        plain_bwd = lambda: torch.autograd.grad(outs, th, cots, retain_graph=True)  # noqa: E731
+        # each launch's bound: the bytes it must move (theta, sites or the two cotangents, dtheta, the table)
+        words = c * dim
+        kernels[f"priors_fwd_c{c}"] = row(lambda: kp._priors_fwd_cuda(t, table), err)
+        kernels[f"priors_fwd_c{c}"].update(bound_ms=bound_ms(4 * (2 * words + c + table.numel()), 0)[0],
+                                           plain_ms=cuda_ms(plain_fwd))
+        kernels[f"priors_bwd_c{c}"] = row(lambda: kp._priors_bwd_cuda(t, table, gs, gl), err)
+        kernels[f"priors_bwd_c{c}"].update(bound_ms=bound_ms(4 * (3 * words + c + table.numel()), 0)[0],
+                                           plain_ms=cuda_ms(plain_bwd))
+    return kernels, dict(C=[4, 128], dim=dim)
+
+
 def device_ms_by_launch(fn, calls: int = 5):
     """{kernel name: mean device ms a call} of the launches of ``fn()``, from a
     ``torch.profiler`` trace of ``calls`` eager calls."""
@@ -229,7 +280,7 @@ def device_ms_by_launch(fn, calls: int = 5):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("a", "b", "c"), required=True)
+    ap.add_argument("--kernel", choices=("a", "b", "c", "p"), required=True)
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--no-check", action="store_true",
                     help="report max_abs_err without holding it to the limits: for timing a copy with a part of "
@@ -255,7 +306,7 @@ def main(argv=None) -> int:
         def check_close(name, got, ref, rtol, atol):  # noqa: F811
             return float((got - ref).abs().max())
 
-    times = {"a": kernel_a_times, "b": kernel_b_times, "c": kernel_c_times}[args.kernel]
+    times = {"a": kernel_a_times, "b": kernel_b_times, "c": kernel_c_times, "p": kernel_p_times}[args.kernel]
     kernels, shape = times(root, row, check_close, N_GRID, N_Z, SEED)
     torch.cuda.synchronize()
     print(json.dumps(dict(root=str(root), kernel=args.kernel, card=card_line(), shape=shape, kernels=kernels,

@@ -40,7 +40,7 @@ The counters (:func:`counters`) are plain integers: ``model.value_and_grads``
 (batched value+grads), ``nuts.host_syncs`` (reads of the device by NUTS's
 transitions and its step-size search: a leapfrog's active-chain check and
 its ``nonzero``, one check a subtree) and the hand-written kernels'
-launches, ``cuda_bump.*``, ``cuda_logwts.*`` and ``cuda_snr.*``.
+launches, ``cuda_bump.*``, ``cuda_logwts.*``, ``cuda_priors.*`` and ``cuda_snr.*``.
 
 The JAX package's ``xla_cost`` (XLA's static flops and bytes of a jitted
 function) has no counterpart: the port compiles nothing with XLA.  The
@@ -208,11 +208,12 @@ def counters() -> Dict[str, int]:
     value+grads, NUTS's reads of the device and the kernels' launches."""
     from bumpcosmology_torch.inference import model, nuts
     from bumpcosmology_torch.mock import cuda_snr
-    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts, cuda_priors
 
     out = {}
     for prefix, counts in (("model", model.COUNTS), ("nuts", nuts.COUNTS), ("cuda_bump", cuda_bump.LAUNCHES),
-                           ("cuda_logwts", cuda_logwts.LAUNCHES), ("cuda_snr", cuda_snr.LAUNCHES)):
+                           ("cuda_logwts", cuda_logwts.LAUNCHES), ("cuda_priors", cuda_priors.LAUNCHES),
+                           ("cuda_snr", cuda_snr.LAUNCHES)):
         out.update((f"{prefix}.{k}", v) for k, v in counts.items())
     return out
 

@@ -51,13 +51,22 @@ holds every CUDA kernel against its plain PyTorch twin:
    of 2,816 rows: both epilogues both ways against the twin, the backward
    twice bit for bit, every backward launch on the second route; the
    route's backwards at K = 8,192 are timed and bounded;
+3p. kernel P (the priors and transforms, ``csrc/priors.cu``) on the joint
+   model's 15 priors at C = 4 (the flagship benchmark's chains) and C = 128
+   (an SBC fleet), forward and backward, against the per-site code within
+   ``testing.priors_gaps``' limits, timed beside the per-site code's eager
+   call on the card and bounded by the bytes it moves
+   (``tools/kernel_times.kernel_p_times``).  Kernel P runs under every
+   potential on the card, so every phase below that counts launches also
+   holds P's: once forward a potential on the card, once backward a
+   value+grad;
 4. the 16-chain potential value+grad (through the ``lse`` epilogue), kernels
    against twins: |dU|/(1+|U|) < 2e-4 and |dgrad|/(1+|grad|) < 5e-3, timed with
    CUDA events; two value+grads at the same thetas must agree bit for bit;
    (4b) the same potential at ``n_z`` = 8,192: with every launch count set to
-   0 just before one value+grad and read just after, one launch of kernel A
-   and of B's ``lse`` epilogue each way (the backward on its second route)
-   and nothing else; against the plain twins at the same limits, twice bit
+   0 just before one value+grad and read just after, one launch of kernel A,
+   of B's ``lse`` epilogue (the backward on its second route) and of P each
+   way, and nothing else; against the plain twins at the same limits, twice bit
    for bit, and |U(8,192) - U(1,024)| printed;
 5. ``run_sampling`` for a few NUTS draws, then the effective-sample-size
    diagnostics (``pop_cosmo_event_sel_logwts`` and ``selection_neff_terms``, the
@@ -205,13 +214,15 @@ holds every CUDA kernel against its plain PyTorch twin:
    ``ops/interp.py``'s lookup) at 16 prior draws, on the flagship shared by
    the chains and on 16 leave-one-out catalogs one a chain: two value+grads
    bit-identical, the first 4 chains card against CPU at phase 4's limits,
-   no launch; (b) the certificate's kernel shapes, run in phases 2 and 3:
-   kernel A at C = 128, G = 128 and kernel B's both epilogues on 128
+   no launch but P's, once each way a value+grad on the card; (b) the
+   certificate's kernel shapes, run in phases 2 and 3: kernel A at C = 128, G = 128 and kernel B's both epilogues on 128
    per-chain tables of 7,680 rows at K = 256, G = 128, against their twins;
    (c) ``tools/sbc_certificate.py --family plpeak`` at the reference
    configuration cut to 8 simulations and 5 + 4 transitions at ``max_depth``
-   4, every launch count set to 0 before and read after (the campaign's
-   only: kernel C, and A's forward at most once):
+   4, every launch count set to 0 before and read after (the campaign's:
+   kernel C, and A's forward at most once; and the fleet's priors: P once
+   backward a value+grad, once forward besides for each of the 16 start
+   candidates):
    the artifact's keys and ranks, the rate check; the verdict is printed,
    not held.
 
@@ -490,7 +501,7 @@ def run(mock_dir: Path) -> int:
     )
     from bumpcosmology_torch.inference.model import constrain, make_potential, value_and_grad
     from bumpcosmology_torch.inference.nuts import NutsConfig, run_sampling
-    from bumpcosmology_torch.ops import _build, cuda_bump, cuda_logwts, launch_floor
+    from bumpcosmology_torch.ops import _build, cuda_bump, cuda_logwts, cuda_priors, launch_floor
     from bumpcosmology_torch.utils.checkpoint import load_warmup
 
     card = card_line()
@@ -714,12 +725,18 @@ def run(mock_dir: Path) -> int:
     rows.update(kernel_b_large_tables(tag, data, sites, qry, gen))
     phase_done("3_kernel_b")
 
+    # ---- phase 3p: kernel P --------------------------------------------
+    rows.update(kernel_p_phase(tag))
+    phase_done("3p_kernel_p")
+
     # ---- phase 4: potential value+grad ----------------------------------
     pot, pot_plain = make_potential(spec), make_potential(spec_plain)
+    _zero_counters()
     u_k, g_k = value_and_grad(pot, theta)
-    u_p, g_p = value_and_grad(pot_plain, theta)
+    u_p, g_p = value_and_grad(pot_plain, theta)  # plain twins of A and B; the priors are kernel P's on the card
     u_k2, g_k2 = value_and_grad(pot, theta)
     torch.cuda.synchronize()
+    check_priors("potential", _read_counters(), 3)
     if not (torch.isfinite(u_k).all() and torch.isfinite(g_k).all()):
         raise AssertionError("potential: non-finite value or gradient at the warm thetas")
     if not (torch.equal(u_k, u_k2) and torch.equal(g_k, g_k2)):
@@ -740,7 +757,7 @@ def run(mock_dir: Path) -> int:
     phase_done("4b_potential_n_z_8192")
 
     # ---- phase 5: NUTS sampling through the kernels ----------------------
-    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES)
+    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_priors.LAUNCHES)
     for cnt in counters:
         for k in cnt:
             cnt[k] = 0
@@ -760,13 +777,14 @@ def run(mock_dir: Path) -> int:
     launches = {k: v for cnt in counters for k, v in cnt.items()}
     if out.thetas.shape != (c, N_DRAWS, theta.shape[1]) or not bool(torch.isfinite(out.thetas).all()):
         raise AssertionError(f"sampling: draws of shape {tuple(out.thetas.shape)} are not all finite")
-    on_path = ("bump_fwd", "bump_bwd", "logwts_lse_fwd", "logwts_lse_bwd", "logwts_fwd")
+    on_path = ("bump_fwd", "bump_bwd", "logwts_lse_fwd", "logwts_lse_bwd", "logwts_fwd", "priors_fwd", "priors_bwd")
     missing = [k for k in on_path if launches[k] == 0]
     if missing:
         raise AssertionError(f"sampling: kernels never launched on the main path: {missing}")
     n_vg = sampled["logwts_lse_fwd"]
     if not (sampled["logwts_lse_bwd"] == sampled["bump_fwd"] == sampled["bump_bwd"] == n_vg) or sampled["logwts_fwd"]:
         raise AssertionError(f"sampling: not one kernel-B forward and backward per value+grad: {sampled}")
+    check_priors("sampling", sampled, n_vg)
     if out.max_abs_du >= 0.05:
         raise AssertionError(f"sampling: recomputed u differs from the stored state by "
                              f"{out.max_abs_du:.4f} nats (limit 0.05)")
@@ -856,7 +874,7 @@ def run(mock_dir: Path) -> int:
     log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
 
     sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
-               "snr": "bumpcosmology_torch/csrc/snr.cu"}
+               "snr": "bumpcosmology_torch/csrc/snr.cu", "priors": "bumpcosmology_torch/csrc/priors.cu"}
     replaces = {
         "bump_fwd": "bumpcosmology_tpu/ops/pallas_bump.py:177",
         "bump_bwd": "bumpcosmology_tpu/ops/pallas_bump.py:199",
@@ -871,6 +889,8 @@ def run(mock_dir: Path) -> int:
         "logwts_bwd_global": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
         "logwts_lse_bwd_global": "bumpcosmology_tpu/ops/pallas_logwts.py:217",
         "snr_integral": "bumpcosmology_tpu/mock/pallas_snr.py:116",
+        "priors_fwd": "none: the priors of bumpcosmology_tpu/inference/model.py, which XLA fuses",
+        "priors_bwd": "none: the priors of bumpcosmology_tpu/inference/model.py, which XLA fuses",
     }
     kernels = []
     for name, row in rows.items():
@@ -896,6 +916,9 @@ def run(mock_dir: Path) -> int:
             status = (f"ok: built, matches its plain twin; the backward's route for a detector table beyond its "
                       f"bins' shared memory (phase 3: K = {LARGE_N_Z} and the forward's largest K); launched on "
                       f"the joint potential at n_z = {LARGE_N_Z} (phase 4b)")
+        elif name in PRIORS:
+            status = ("ok: built, matches the per-site code; launched on every potential on the card (phase 3p: "
+                      "C = 4 and C = 128; the kernels line's row C = 4)")
         elif name.endswith("_per_chain_loo"):
             status = ("ok: built, matches its plain twin; a query table per chain at the LOO fleet's shape (phase 3: "
                       "56 x 38,656 rows); launched on the LOO fleet of the joint model (phase 12d)")
@@ -1006,6 +1029,7 @@ def cli_phase(tag: str, inputs_dir: Path) -> dict:
     if not ok:
         raise AssertionError(f"cli sample_cosmo: not one launch of A and B each way per value+grad ({n_vg}), "
                              f"{n_chunks} forwards for the deterministics: {launches}")
+    check_priors("cli sample_cosmo", launches, n_vg, n_vg + n_prior)
     if "[pipeline] sample_cosmo: running..." not in first or "[pipeline] sample_cosmo: up to date" not in second:
         raise AssertionError(f"cli sample_cosmo: the first run did not run the fit or the second did not report "
                              f"it up to date:\n{first[-2000:]}\n{second[-2000:]}")
@@ -1183,18 +1207,40 @@ def _counting_hmc_steps(steps: list):
 
 def _counters():
     from bumpcosmology_torch.mock import cuda_snr
-    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts
+    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts, cuda_priors
 
-    return cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_snr.LAUNCHES
+    return cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_snr.LAUNCHES, cuda_priors.LAUNCHES
 
 
 def _zero_counters():
+    """Every kernel's launch count, and the batched value+grads
+    (``model.COUNTS``), set to 0."""
     import torch
 
-    for cnt in _counters():
+    from bumpcosmology_torch.inference import model
+
+    for cnt in (*_counters(), model.COUNTS):
         for k in cnt:
             cnt[k] = 0
     torch.cuda.synchronize()
+
+
+PRIORS = ("priors_fwd", "priors_bwd")
+
+
+def _but_priors(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if k not in PRIORS}
+
+
+def check_priors(label: str, launches: dict, n_vg: int, n_pot=None) -> None:
+    """Kernel P launched once forward for each of ``n_pot`` potentials on the
+    card (by default the ``n_vg`` value+grads alone) and once backward for
+    each of the ``n_vg`` value+grads."""
+    n_pot = n_vg if n_pot is None else n_pot
+    if (launches["priors_fwd"], launches["priors_bwd"]) != (n_pot, n_vg):
+        raise AssertionError(f"{label}: kernel P launched {launches['priors_fwd']} forward and "
+                             f"{launches['priors_bwd']} backward, not {n_pot} (one a potential) and {n_vg} (one a "
+                             f"value+grad)")
 
 
 def _read_counters():
@@ -1250,6 +1296,7 @@ def chees_hybrid_phase(dev, tag: str, spec, warm, det_fn, vg_per_s_nuts: float):
             and launches["logwts_bwd"] == 0):
         raise AssertionError(f"nuts+chees: launches are not one of each kernel per value+grad ({n_vg}) and one "
                              f"rows forward per chunk ({n_chunks}): {launches}")
+    check_priors("nuts+chees", launches, n_vg)
     if len(steps) != CHEES_ADAPT + CHEES_SAMPLES:
         raise AssertionError(f"nuts+chees: {len(steps)} trajectories, not {CHEES_ADAPT} + {CHEES_SAMPLES}")
     for group, arrays in (("posterior", res.posterior), ("sample_stats", res.sample_stats)):
@@ -1341,6 +1388,7 @@ def chees_pop_phase(dev, tag: str, spec, theta0):
     if not (launches["bump_fwd"] == launches["bump_bwd"] == n_vg
             and not any(v for k, v in launches.items() if k.startswith("logwts"))):
         raise AssertionError(f"chees: kernel A not once per value+grad ({n_vg}), or kernel B launched: {launches}")
+    check_priors("chees", launches, n_vg)
     c, dim = theta0.shape
     if (res.thetas.shape != (c, CHEES_SAMPLES, dim) or not bool(torch.isfinite(res.thetas).all())
             or not math.isfinite(res.trajectory_length) or not res.eps > 0):
@@ -1728,7 +1776,7 @@ def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None, tr
     n_chunks = -(-n_draws // 128)
     n_prior = calls["value"]
     if not bump:
-        ok = not any(launches.values())
+        ok = not any(_but_priors(launches).values())
     elif joint:
         ok = (launches["bump_bwd"] == launches["logwts_lse_bwd"] == n_vg() and launches["logwts_fwd"] == n_chunks
               and launches["bump_fwd"] == launches["logwts_lse_fwd"] + n_chunks == n_vg() + n_prior + n_chunks
@@ -1738,8 +1786,9 @@ def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None, tr
               and not any(v for k, v in launches.items() if k.startswith("logwts")))
     if not (ok and n_vg() > 0 and 1 <= n_prior <= 50):
         raise AssertionError(f"fit ({family}, {model}): launches are not " + (
-            "zero on every kernel" if not bump else f"one of each kernel per value+grad ({n_vg()}), {n_chunks} "
+            "zero on every kernel but P" if not bump else f"one of each kernel per value+grad ({n_vg()}), {n_chunks} "
             "forwards for the deterministics") + f": {launches}")
+    check_priors(f"fit ({family}, {model})", launches, n_vg(), n_vg() + n_prior)
     warm = res.warmup_state
     if warm.eps.shape != (c,) or not bool(torch.isfinite(warm.eps).all()) or not bool((warm.eps > 0).all()):
         raise AssertionError(f"fit ({family}, {model}): adapted step sizes {warm.eps.tolist()}")
@@ -2047,6 +2096,27 @@ def kernel_b_large_tables(tag: str, data, sites, qry, gen):
     return rows
 
 
+def kernel_p_phase(tag: str) -> dict:
+    """Phase 3p: kernel P on the joint model's 15 priors at C = 4 and C = 128
+    (``tools/kernel_times.kernel_p_times``: held to the per-site code within
+    ``testing.priors_gaps``' limits, each launch timed, bounded and beside
+    the per-site code's eager call on the card).  Returns the kernels-line
+    rows of the forward and the backward at C = 4, the flagship benchmark's."""
+    from bumpcosmology_torch.tools.kernel_times import kernel_p_times
+
+    def row(fn, err, **graph_kwargs):
+        ms, call_ms = both_ms(fn, **graph_kwargs)
+        return dict(ms=ms, call_ms=call_ms, max_abs_err=err)
+
+    kernels, shape = kernel_p_times(ROOT, row, check_close, N_GRID, N_Z, SEED)
+    log(f"{tag} phase 3p kernel P ({shape['dim']} sites, C = {shape['C']}; max_abs_err is the largest gap over "
+        f"testing.priors_gaps' limit, at most 1; ms device time in one replayed graph, call_ms one eager call, "
+        f"plain_ms the per-site code's eager call on the card, bound_ms the bytes at {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s): " + json.dumps({k: {f: float(f"{v:.4g}") for f, v in r.items()} for k, r in kernels.items()}))
+    return {name: dict(kernels[f"{name}_c4"], bound=(kernels[f"{name}_c4"]["bound_ms"], "bytes"))
+            for name in PRIORS}
+
+
 def potential_large_table_phase(tag: str, data, theta, u_1024):
     """Phase 4b: the joint potential of the flagship at ``n_z`` = ``LARGE_N_Z``
     from the committed state (16 chains), a table on kernel B's second
@@ -2069,7 +2139,8 @@ def potential_large_table_phase(tag: str, data, theta, u_1024):
     u, g = value_and_grad(pot, theta)
     torch.cuda.synchronize()
     launches = _read_counters()
-    expected = {"bump_fwd": 1, "bump_bwd": 1, "logwts_lse_fwd": 1, "logwts_lse_bwd_global": 1}
+    expected = {"bump_fwd": 1, "bump_bwd": 1, "logwts_lse_fwd": 1, "logwts_lse_bwd_global": 1, "priors_fwd": 1,
+                "priors_bwd": 1}
     if {k: v for k, v in launches.items() if v} != expected:
         raise AssertionError(f"potential at n_z={LARGE_N_Z}: launches {launches}, expected {expected}")
     u2, g2 = value_and_grad(pot, theta)
@@ -2266,15 +2337,21 @@ def family_repeats_phase(dev, tag: str) -> dict:
     with torch.no_grad():
         fleet = take_fleet(make_loo_datas(data), torch.arange(FAMILY_CHAINS, device=dev))
     bits = lambda x: x.view(torch.int32)  # noqa: E731  (a NaN equals itself)
-    results = {}
+    results, n_card = {}, [0]
+
+    def card_vg(pot, theta):
+        n_card[0] += 1
+        return value_and_grad(pot, theta)
+
     _zero_counters()
     for family in ("plpeak", "brokenpl"):
         fam = MASS_FAMILIES[family]
         theta = family_thetas(fam.cosmo_spec(data, N_GRID, N_Z, device=dev), FAMILY_CHAINS)
+        n_card[0] += 1  # family_thetas: one value+grad of its candidates on the card
         for layout, d in (("shared", data), ("fleet", fleet)):
             bounds = dl_bounds_of(d)
             pot = make_potential(fam.cosmo_spec(d, N_GRID, N_Z, device=dev))
-            (u1, g1), (u2, g2) = value_and_grad(pot, theta), value_and_grad(pot, theta)
+            (u1, g1), (u2, g2) = card_vg(pot, theta), card_vg(pot, theta)
             torch.cuda.synchronize()
             if not (torch.equal(bits(u1), bits(u2)) and torch.equal(bits(g1), bits(g2))):
                 raise AssertionError(f"{family} joint, {layout} table: two value+grads at the same thetas differ")
@@ -2289,13 +2366,15 @@ def family_repeats_phase(dev, tag: str) -> dict:
             if not (du < 2e-4 and dg < 5e-3):
                 raise AssertionError(f"{family} joint, {layout} table: card vs CPU |dU|/(1+|U|) {du:.3e}, "
                                      f"|dgrad|/(1+|grad|) {dg:.3e}")
-            ms = cuda_ms(lambda: value_and_grad(pot, theta), reps=5, warmup=1)
+            ms = cuda_ms(lambda: card_vg(pot, theta), reps=5, warmup=1)
             results[f"{family} {layout}"] = dict(du=float(f"{du:.3e}"), dg=float(f"{dg:.3e}"), ms=round(ms, 3))
     launches = _read_counters()
-    if any(launches.values()):
-        raise AssertionError(f"phase 15a: the families' potentials launched kernels: {launches}")
+    if any(_but_priors(launches).values()):
+        raise AssertionError(f"phase 15a: the families' potentials launched kernels other than P: {launches}")
+    check_priors("phase 15a", launches, n_card[0])
     log(f"{tag} phase 15a the families' joint value+grads ({FAMILY_CHAINS} chains; the flagship shared, and "
-        f"{FAMILY_CHAINS} leave-one-out catalogs one a chain): two bit-identical at each; the first "
+        f"{FAMILY_CHAINS} leave-one-out catalogs one a chain; kernel P once each way in each of the {n_card[0]} on "
+        f"the card): two bit-identical at each; the first "
         f"{FAMILY_CPU_CHAINS} chains card vs CPU and ms a value+grad (CUDA events, mean of 5): {json.dumps(results)}")
     return launches
 
@@ -2322,10 +2401,12 @@ def certificate_tool_phase(dev, tag: str) -> dict:
 
     overrides = [f"sbc.n_sims={CERT_SMOKE_SIMS}", f"sbc.num_warmup={CERT_SMOKE_WARMUP}",
                  f"sbc.num_samples={CERT_SMOKE_SAMPLES}", f"sbc.max_depth={CERT_SMOKE_DEPTH}"]
+    from bumpcosmology_torch.inference import model
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cert_") as tmp:
         _zero_counters()
         r = sbc_certificate.run_certificate("plpeak", out=tmp, device=dev, overrides=overrides)
-        launches = _read_counters()
+        launches, n_vg = _read_counters(), model.COUNTS["value_and_grads"]
         with np.load(Path(tmp) / "sbc_ranks.npz") as d:
             art = {k: d[k] for k in d.files}
     proto = cal.COSMO_SBC_SPEC_BUILDERS["plpeak"](device=dev)(None)
@@ -2340,9 +2421,10 @@ def certificate_tool_phase(dev, tag: str) -> dict:
     if r["rate_p"] is None or not np.isfinite(r["rate_p"]):
         raise AssertionError("phase 15c: the rate check did not run")
     if (launches["snr_integral"] == 0 or launches["bump_fwd"] > 1
-            or any(v for k, v in launches.items() if k not in ("snr_integral", "bump_fwd"))):
-        raise AssertionError(f"phase 15c: launches {launches} (the campaign's only: kernel C, A's forward at most "
-                             "once)")
+            or any(v for k, v in launches.items() if k not in ("snr_integral", "bump_fwd") + PRIORS)):
+        raise AssertionError(f"phase 15c: launches {launches} (the campaign's: kernel C, A's forward at most "
+                             "once; the fleet's priors: P)")
+    check_priors("phase 15c", launches, n_vg, n_vg + 16)  # the 16 start candidates' potentials
     log(f"{tag} phase 15c sbc_certificate --family plpeak cut to {CERT_SMOKE_SIMS} simulations, "
         f"{CERT_SMOKE_WARMUP} + {CERT_SMOKE_SAMPLES} transitions at max_depth {CERT_SMOKE_DEPTH}: wall "
         f"{r['wall_s']:.2f} s (campaign {r['campaign_s']:.2f}, simulations {r['simulate_s']:.2f}, candidates "
@@ -2473,14 +2555,16 @@ def sbc_phase(dev, tag: str, model: str):
     b = "logwts_lse_fwd_per_chain", "logwts_lse_bwd_per_chain"
     others = lambda d, keep: [k for k, v in d.items() if v and k not in keep]  # noqa: E731
     ok_init = init["bump_fwd"] == 16 and (init[b[0]] == 16 if joint else True)
-    ok_init &= not others(init, ("bump_fwd",) + ((b[0],) if joint else ()))
+    ok_init &= not others(init, ("bump_fwd",) + ((b[0],) if joint else ()) + PRIORS)
     ok_fleet = fleet["bump_fwd"] == fleet["bump_bwd"] == n_vg > 0
     if joint:
         ok_fleet &= fleet[b[0]] == fleet[b[1]] == n_vg
-    ok_fleet &= not others(fleet, ("bump_fwd", "bump_bwd") + (b if joint else ()))
+    ok_fleet &= not others(fleet, ("bump_fwd", "bump_bwd") + (b if joint else ()) + PRIORS)
     if not (ok_init and ok_fleet):
         raise AssertionError(f"sbc {model}: launches not once per potential: candidates {init}, fleet {fleet} "
                              f"({n_vg} batched value+grads)")
+    check_priors(f"sbc {model} candidates", init, 0, 16)
+    check_priors(f"sbc {model} fleet", fleet, n_vg)
 
     # the artifact
     sites = [k[len("ranks/"):] for k in art if k.startswith("ranks/") and k != "ranks/n_bins"]
@@ -2625,12 +2709,13 @@ def _site_label(names) -> str:
 
 # launches of one device batch of phase 12, by model: the joint bump's pointwise and evidence batches run kernel
 # A's forward and kernel B's lse forward (shared table); its PPC batches kernel B's rows forward; the pop bump
-# kernel A's forward alone; PLPeak no kernel
+# kernel A's forward alone; PLPeak no kernel; every evidence batch (a potential) kernel P's forward besides
 _BATCH_LAUNCHES = {
     ("pointwise", "pop"): {"bump_fwd": 1}, ("pointwise", "pop_cosmo"): {"bump_fwd": 1, "logwts_lse_fwd": 1},
     ("pointwise", "pop_cosmo_plpeak"): {},
-    ("evidence", "pop"): {"bump_fwd": 1}, ("evidence", "pop_cosmo"): {"bump_fwd": 1, "logwts_lse_fwd": 1},
-    ("evidence", "pop_cosmo_plpeak"): {},
+    ("evidence", "pop"): {"bump_fwd": 1, "priors_fwd": 1},
+    ("evidence", "pop_cosmo"): {"bump_fwd": 1, "logwts_lse_fwd": 1, "priors_fwd": 1},
+    ("evidence", "pop_cosmo_plpeak"): {"priors_fwd": 1},
     ("ppc", "pop"): {"bump_fwd": 1}, ("ppc", "pop_cosmo"): {"bump_fwd": 1, "logwts_fwd": 1},
     ("ppc", "pop_cosmo_plpeak"): {},
 }
@@ -2800,7 +2885,7 @@ def model_comparison_phase(dev, tag: str, data_dir):
         f"{json.dumps(stats)}")
     log("phase 12a table:\n" + table + ("\n" + str(art["attrs/bf_table"]) if str(art["attrs/bf_table"]) else ""))
     for k in ("bump_bwd", "logwts_bwd", "logwts_lse_bwd", "logwts_fwd", "logwts_lse_fwd_per_chain",
-              "logwts_lse_bwd_per_chain", "snr_integral"):
+              "logwts_lse_bwd_per_chain", "snr_integral", "priors_bwd"):
         if launches["12a_compare"][k]:
             raise AssertionError(f"compare: {k} launched {launches['12a_compare'][k]} times")
 
@@ -2909,12 +2994,14 @@ def model_comparison_phase(dev, tag: str, data_dir):
     init, fleet = _delta(seen["at_fleet"], seen["at_datas"]), _delta(seen["after_fleet"], seen["at_fleet"])
     b = "logwts_lse_fwd_per_chain", "logwts_lse_bwd_per_chain"
     others = lambda d, keep: [k for k, v in d.items() if v and k not in keep]  # noqa: E731
-    ok = (init["bump_fwd"] == init[b[0]] == 32 and not others(init, ("bump_fwd", b[0]))
+    ok = (init["bump_fwd"] == init[b[0]] == 32 and not others(init, ("bump_fwd", b[0]) + PRIORS)
           and fleet["bump_fwd"] == fleet["bump_bwd"] == fleet[b[0]] == fleet[b[1]] == n_vg > 0
-          and not others(fleet, ("bump_fwd", "bump_bwd") + b) and s == len(np.unique(pe["evt"])))
+          and not others(fleet, ("bump_fwd", "bump_bwd") + b + PRIORS) and s == len(np.unique(pe["evt"])))
     if not ok:
         raise AssertionError(f"loo: launches not once per potential: candidates {init}, fleet {fleet} ({n_vg} "
                              f"batched value+grads, {s} chains)")
+    check_priors("loo candidates", init, 0, 32)
+    check_priors("loo fleet", fleet, n_vg)
     with np.load(cfg.paths.path("influence.npz")) as d:
         art = {k: d[k] for k in d.files}
     sites = sorted({k.split("/")[0] for k in art} - {"attrs", "event"})
@@ -3117,17 +3204,17 @@ def scale_out_phase(dev, tag: str, spec, theta, data_dir: Path) -> dict:
         draws = {name: [dict(np.load(store / f"rank{r}_{name}.npz")) for r in range(SCALE_RANKS)]
                  for name in ("rows", "split", "split_warm")}
         dense = dict(np.load(store / "dense.npz"))
-    per_vg = {"bump_fwd": 1, "bump_bwd": 1, "logwts_lse_fwd": 1, "logwts_lse_bwd": 1}
+    per_vg = {"bump_fwd": 1, "bump_bwd": 1, "logwts_lse_fwd": 1, "logwts_lse_bwd": 1, "priors_fwd": 1, "priors_bwd": 1}
     for r, out in enumerate(outs):
         got = out["vg"]["launches"]
         if any(v != per_vg.get(k, 0) for k, v in got.items()):
-            raise AssertionError(f"phase 14a rank {r}: not one launch of A and B's lse each way in a value+grad: "
+            raise AssertionError(f"phase 14a rank {r}: not one launch of A, B's lse and P each way in a value+grad: "
                                  f"{got}")
         launches[f"14a_sharded_vg_rank{r}"] = got
     log(f"{tag} phase 14a {SCALE_RANKS} ranks on one card, backend {outs[0]['backend']} (CUDA tensors staged "
         f"through the host; NCCL refuses two ranks on one device), mesh {outs[0]['mesh']}, "
-        f"{outs[0]['rows_a_rank']} rows a rank, {theta.shape[0]} chains; one value+grad on the shard, kernels A and "
-        f"B's lse once each way on each rank, make_sharded_pop_cosmo_loglike bit-identical to it; " + "; ".join(
+        f"{outs[0]['rows_a_rank']} rows a rank, {theta.shape[0]} chains; one value+grad on the shard, kernels A, "
+        f"B's lse and P once each way on each rank, make_sharded_pop_cosmo_loglike bit-identical to it; " + "; ".join(
             f"rank {r}: against dense |dU|/(1+|U|) {o['vg']['du']:.3e}, |dgrad|/(1+|grad|) {o['vg']['dg']:.3e}, "
             f"{o['vg']['ms']:.3f} ms sharded, {o['vg']['dense_ms']:.3f} ms dense (CUDA events, mean of 10)"
             for r, o in enumerate(outs)))
@@ -3145,6 +3232,7 @@ def scale_out_phase(dev, tag: str, spec, theta, data_dir: Path) -> dict:
             if got["bump_bwd"] != got["logwts_lse_bwd"] or got["bump_bwd"] == 0:
                 raise AssertionError(f"phase 14b fit(mesh=) {name}, rank {r}: not one launch of A and B each way "
                                      f"a value+grad: {got}")
+            check_priors(f"phase 14b fit(mesh=) {name}, rank {r}", got, got["logwts_lse_bwd"], got["logwts_lse_fwd"])
             launches[f"14b_fit_{name}_rank{r}"] = got
     n = MESH_FIT_CHAINS // SCALE_RANKS
     if np.array_equal(draws["rows"][0]["a"][:n], draws["rows"][0]["a"][n:]):

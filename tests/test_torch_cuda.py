@@ -435,3 +435,92 @@ def test_host_syncs_counts_every_synchronising_call_of_a_transition(dev):
         reported = sum("synchroniz" in str(w.message) for w in caught)
         counted = profiling.counters()["nuts.host_syncs"] - before
         assert int(stats.n_leapfrog.max()) > 1 and reported == counted
+
+
+def _priors_on(dev, spec, theta, g_lp, g_sites):
+    """``(log_prior, sites (C, dim), grad)`` of ``model.log_prior_and_sites`` at
+    ``theta``, computed on ``dev`` and returned on the CPU; the gradient as
+    ``testing.priors_twin`` takes it."""
+    from bumpcosmology_torch.inference.model import log_prior_and_sites
+
+    th = theta.to(dev).requires_grad_(True)
+    lp, sites = log_prior_and_sites(spec, th)
+    assert list(sites) == list(spec.names)
+    stacked = torch.stack([sites[k] for k in spec.names], -1)
+    loss = (g_lp.to(dev) * lp).sum() + (g_sites.to(dev) * stacked).sum()
+    (grad,) = torch.autograd.grad(loss, th)
+    torch.cuda.synchronize()
+    return lp.detach().cpu(), stacked.detach().cpu(), grad.cpu()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("c", [1, 3, 4, 128])
+@pytest.mark.parametrize("prior_set", ["pop_cosmo", "pop", "plpeak_cosmo", "brokenpl_cosmo", "every_case"])
+def test_priors_kernel_matches_the_per_site_code(dev, prior_set, c, dtype):
+    """Kernel P (``csrc/priors.cu``) against the per-site code on the CPU at
+    N(0, 3^2) points and rows at +40, -40 (and 0): log prior, sites and the
+    gradient within ``testing.priors_gaps``' limits, the same entries -inf,
+    and two launches each way bit for bit the same."""
+    from bumpcosmology_torch.inference.model import ModelSpec
+    from bumpcosmology_torch.ops import cuda_priors
+    from bumpcosmology_torch.testing import PRIOR_SETS, prior_thetas, priors_gaps, priors_twin
+
+    spec = ModelSpec(priors=dict(PRIOR_SETS[prior_set]), loglike=None)
+    theta = prior_thetas(c, spec.dim, seed=c, dtype=dtype)
+    gen = torch.Generator().manual_seed(7)
+    g_lp = torch.randn((c,), generator=gen, dtype=dtype)
+    g_sites = torch.randn((c, spec.dim), generator=gen, dtype=dtype)
+    before = dict(cuda_priors.LAUNCHES)
+    got = _priors_on(dev, spec, theta, g_lp, g_sites)
+    again = _priors_on(dev, spec, theta, g_lp, g_sites)
+    assert cuda_priors.LAUNCHES == {k: v + 2 for k, v in before.items()}
+    gaps = priors_gaps(got, priors_twin(spec, theta, g_lp, g_sites), cuda_priors.table_rows(spec.priors))
+    print(f"priors {prior_set} C={c} {dtype}: {gaps}")
+    assert gaps.pop("same_finite")
+    assert max(gaps.values()) <= 1.0, gaps
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_priors_kernel_runs_once_each_way_a_value_and_grad_of_a_transition(dev, monkeypatch):
+    """Over one NUTS transition of the flagship (4 chains of the committed
+    adapted state, depth 6), kernel P's forward and backward each launch once
+    a value+grad, and NUTS reads the device as often as in the same transition
+    with the per-site code on the card: the kernel reads nothing back."""
+    from pathlib import Path
+
+    from bumpcosmology_torch.benchdata import load_pop_cosmo_data
+    from bumpcosmology_torch.inference import model, nuts
+    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_model_spec
+    from bumpcosmology_torch.utils import load_warmup, profiling
+
+    bench = Path(__file__).resolve().parents[1] / "benchmarks"
+    spec = pop_cosmo_model_spec(load_pop_cosmo_data(bench / "flagship_catalog.npz", device=dev), 256, 1024,
+                                device=dev)
+    warm = load_warmup(bench / "flagship_warmup16.npz", device=dev)
+    potential, c = model.make_potential(spec), 4
+    theta = warm.state.theta[:c]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    step = lambda s: nuts.nuts_transition(potential, s, warm.eps[:c], warm.cov[:c], warm.chol_cov[:c], gen, 6)  # noqa: E731
+    state, _ = step(nuts.ChainState(theta, *model.value_and_grad(potential, theta)))
+    torch.cuda.synchronize()
+    start, gen_state = state, gen.get_state()
+    counted = {}
+    for route in ("kernel", "per_site"):
+        if route == "per_site":
+            monkeypatch.setattr(model, "log_prior_and_sites",
+                                lambda sp, th: (model._log_prior_and_jac(sp, th), model.constrain(sp, th)))
+        gen.set_state(gen_state)
+        before = profiling.counters()
+        _, stats = step(start)
+        torch.cuda.synchronize()
+        after = profiling.counters()
+        counted[route] = {k: after[k] - before[k] for k in after}, stats.n_leapfrog.cpu()
+    (kernel, n_kernel), (per_site, n_per_site) = counted["kernel"], counted["per_site"]
+    print(f"priors engagement: {kernel['model.value_and_grads']} value+grads, {kernel['nuts.host_syncs']} host "
+          f"syncs with the kernel, {per_site['nuts.host_syncs']} with the per-site code")
+    assert kernel["model.value_and_grads"] > 1
+    assert kernel["cuda_priors.priors_fwd"] == kernel["cuda_priors.priors_bwd"] == kernel["model.value_and_grads"]
+    assert per_site["cuda_priors.priors_fwd"] == per_site["cuda_priors.priors_bwd"] == 0
+    assert torch.equal(n_kernel, n_per_site)
+    assert kernel["nuts.host_syncs"] == per_site["nuts.host_syncs"]

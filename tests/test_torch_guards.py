@@ -417,6 +417,65 @@ def test_bump_log_dn_rejects_other_devices():
 
 
 @pytest.fixture
+def priors_twin_calls(monkeypatch):
+    from bumpcosmology_torch.inference import model
+
+    calls = []
+
+    def reached(*args, **kwargs):
+        calls.append(args)
+        raise AssertionError("the per-site priors were reached for a CUDA tensor")
+
+    monkeypatch.setattr(model, "_log_prior_and_jac", reached)
+    monkeypatch.setattr(model, "constrain", reached)
+    return calls
+
+
+def _priors_spec():
+    from bumpcosmology_torch.inference.model import ModelSpec
+    from bumpcosmology_torch.testing import PRIOR_SETS
+
+    return ModelSpec(priors=dict(PRIOR_SETS["every_case"]), loglike=None)
+
+
+@pytest.mark.parametrize("fault", ["float16", "int64", "sites"])
+def test_priors_raise_on_a_bad_cuda_theta(priors_twin_calls, fault):
+    from bumpcosmology_torch.inference.model import log_prior_and_sites
+    from bumpcosmology_torch.ops.cuda_priors import LAUNCHES
+
+    spec = _priors_spec()
+    theta = {"float16": torch.zeros(3, spec.dim, dtype=torch.float16),
+             "int64": torch.zeros(3, spec.dim, dtype=torch.int64), "sites": torch.zeros(3, spec.dim + 1)}[fault]
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="theta"):
+        log_prior_and_sites(spec, _OnCuda(theta))
+    assert not priors_twin_calls and LAUNCHES == before
+
+
+def test_priors_never_take_the_per_site_code_for_a_cuda_tensor(priors_twin_calls):
+    """A well-formed CUDA-typed theta goes on to the table's copy to the card
+    and the launch (which this host cannot make, so it raises); the per-site
+    code is not a fallback."""
+    from bumpcosmology_torch.inference.model import log_prior_and_sites
+    from bumpcosmology_torch.ops.cuda_priors import LAUNCHES
+
+    spec = _priors_spec()
+    before = dict(LAUNCHES)
+    with pytest.raises(Exception) as err:
+        log_prior_and_sites(spec, _OnCuda(torch.zeros(3, spec.dim)))
+    assert not isinstance(err.value, ValueError), err.value
+    assert not priors_twin_calls and LAUNCHES == before
+
+
+def test_priors_reject_other_devices():
+    from bumpcosmology_torch.inference.model import log_prior_and_sites
+
+    spec = _priors_spec()
+    with pytest.raises(ValueError, match="unsupported device"):
+        log_prior_and_sites(spec, torch.zeros(3, spec.dim, device="meta"))
+
+
+@pytest.fixture
 def snr_plain_calls(monkeypatch):
     from bumpcosmology_torch.mock import cuda_snr
 
@@ -492,7 +551,8 @@ def _extern_c_declarations(source: str):
 
 
 @pytest.mark.parametrize("source,module", [("bump", "ops.cuda_bump"), ("logwts", "ops.cuda_logwts"),
-                                           ("floor", "ops.launch_floor"), ("snr", "mock.cuda_snr")])
+                                           ("floor", "ops.launch_floor"), ("snr", "mock.cuda_snr"),
+                                           ("priors", "ops.cuda_priors")])
 def test_ctypes_signatures_match_the_extern_c_declarations(source, module):
     """A mismatch cuts a pointer to 32 bits or shifts every argument after
     it, without any error; only the source can show it on a host without nvcc."""
