@@ -8,13 +8,23 @@ a file of its own under this directory, found by the name that
 ``BENCHMARK.json`` gives it:
 
 * ``configs/<config>.json``: the model, the catalog, the adapted state and
-  their sizes;
+  their sizes (the keys the harness reads are listed below);
 * ``traffic/<mix>.json``: ``fit``'s settings, the value+grads that belong
   to its own warm-up, and the sizes of the checked samples and of the
   profiled stretch;
 * ``metrics/<metric>.py``: ``read(run)`` returns the metric or ``None``;
 * ``limits/<workload>.json``: the limit of each number that ``correct``
   compares.
+
+A configuration's keys that the harness reads: ``family``, the port's mass
+model, a key of ``likelihoods.MASS_FAMILIES`` (``bump`` where it is absent);
+``reference``, the module under ``reference/`` that recomputes the family's
+joint potential (its contract is in ``reference/__init__.py``);
+``catalog`` and ``warmup_state``, files under this directory, each with its
+``<key>_sha256``; ``events``, ``pe_samples`` and ``injections``, the cut of
+the catalog; ``n_grid`` (the bump's mass grid, another family's q-norm
+table's mass axis), ``n_z``, ``dl_margin``, ``chains`` and ``dense_mass``.
+Its other keys (``source``, ``assumed``, ...) are for the reader.
 
 The window.  The harness hands the entry the configuration's
 :class:`ModelSpec` with its log-likelihood wrapped (:class:`Tap`): every
@@ -397,7 +407,8 @@ def cut_catalog(raw: dict, nobs: int, nsamp: int, nsel: int) -> dict:
 
 class Cell:
     """One configuration under one traffic mix, set up once a process: the
-    catalog on the device, the spec and the adapted state; :meth:`run`
+    catalog on the device, the joint spec of its mass family and the adapted
+    state (an unknown family raises before anything is read); :meth:`run`
     drives the entry once from a seed with the spec's log-likelihood
     wrapped."""
 
@@ -405,9 +416,13 @@ class Cell:
         import numpy as np
         import torch
 
-        from bumpcosmology_torch.inference.likelihoods import pop_cosmo_model_spec
+        from bumpcosmology_torch.inference.likelihoods import MASS_FAMILIES
         from bumpcosmology_torch.utils.checkpoint import load_warmup
 
+        self.family = config.get("family", "bump")
+        if self.family not in MASS_FAMILIES:
+            raise ValueError(f"the configuration's family {self.family!r} is none of the port's mass families "
+                             f"{sorted(MASS_FAMILIES)}")
         self.config, self.traffic, self.device = config, traffic, torch.device(device)
         self.reference = importlib.import_module(f"cardbench.reference.{config['reference']}")
         self.nobs, self.nsamp, self.nsel = config["events"], config["pe_samples"], config["injections"]
@@ -419,8 +434,9 @@ class Cell:
         with np.load(warm_path) as d:  # the adapted step sizes and mass matrices, for the reference's side
             self.eps = np.asarray(d["eps"][: self.chains], dtype=np.float64)
             self.cov = np.asarray(d["cov"][: self.chains], dtype=np.float64)
-        self.spec = pop_cosmo_model_spec(program_data(self.raw, self.device), n_grid=config["n_grid"],
-                                         n_z=config["n_z"], device=self.device)
+        self.spec = MASS_FAMILIES[self.family].cosmo_spec(program_data(self.raw, self.device),
+                                                          n_grid=config["n_grid"], n_z=config["n_z"],
+                                                          device=self.device)
         warm = load_warmup(warm_path, device=self.device)
         self.warm = _take_chains(warm, self.chains)
         self._ref_inputs = {}
@@ -431,8 +447,8 @@ class Cell:
         self.spec = self.warm = None
 
     def shapes(self) -> dict:
-        return dict(n_grid=self.config["n_grid"], n_z=self.config["n_z"], queries=self.queries, nobs=self.nobs,
-                    per_chain=False)
+        return dict(family=self.family, n_grid=self.config["n_grid"], n_z=self.config["n_z"],
+                    queries=self.queries, nobs=self.nobs, per_chain=False)
 
     def run(self, seed: int, tap: Tap) -> None:
         """Drive the entry from ``seed`` with the spec's log-likelihood

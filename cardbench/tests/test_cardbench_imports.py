@@ -1,5 +1,6 @@
 """The import check: modules of JAX or of the JAX package are named by
 their whole top-level name, and a run loads none of them."""
+import ast
 import subprocess
 import sys
 
@@ -13,13 +14,35 @@ def test_top_level_names_are_compared_whole():
         "bumpcosmology_tpu", "flax", "jaxlib"]
 
 
+def reference_modules():
+    return sorted(p for p in (harness.BENCH_DIR / "reference").glob("*.py"))
+
+
 def test_the_harness_and_the_port_load_no_jax():
-    code = ("import sys; sys.path.insert(0, %r); from cardbench import harness; import cardbench.reference.bump_joint; "
+    refs = "; ".join(["import cardbench.reference"] + [f"import cardbench.reference.{p.stem}"
+                                                       for p in reference_modules() if p.stem != "__init__"])
+    code = ("import sys; sys.path.insert(0, %r); from cardbench import harness; %s; "
             "import bumpcosmology_torch.inference.sampler, bumpcosmology_torch.inference.calibration; "
-            "print(harness.forbidden_loaded())") % str(harness.REPO_DIR)
+            "print(harness.forbidden_loaded())") % (str(harness.REPO_DIR), refs)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_references_import_only_torch_numpy_and_the_standard_library():
+    """Every module under ``reference/``, the families' to come with the
+    bump's, imports ``torch``, ``numpy``, ``math``, ``typing`` and
+    ``__future__`` alone: nothing of the port, of JAX or of the harness."""
+    allowed = {"torch", "numpy", "math", "typing", "__future__"}
+    assert {"__init__", "bump_joint"} <= {p.stem for p in reference_modules()}
+    for path in reference_modules():
+        imported = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                imported.update(a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                imported.add("." if node.level else node.module.split(".")[0])
+        assert imported <= allowed, f"{path.name} imports {sorted(imported - allowed)}"
 
 
 def test_a_run_without_the_port_exits_without_a_result(tmp_path):
