@@ -396,12 +396,13 @@ def pop_cosmo_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopCosmoDat
         pop, cosmo, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
         log_w = cosmo_frame_logwts(pop, det, qry, plain)  # (C, N)
     else:
-        pop = build(sites, n_grid)
-        cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
-        if dl_bounds is None:
+        with span("loglike.tables"):
+            pop = build(sites, n_grid)
+            cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
+            det = None if dl_bounds is None else build_detector_table(cosmo, dl_bounds[0], dl_bounds[1], n=n_z)
+        if det is None:
             log_w = _cosmo_frame_logwts(pop, cosmo, pop_rows(data))
         else:
-            det = build_detector_table(cosmo, dl_bounds[0], dl_bounds[1], n=n_z)
             log_w = _cosmo_frame_logwts_fused(pop, det, query_table(data) if qry is None else qry)
     n_ev = nobs * nsamp
     return pop, cosmo, log_w[:, :n_ev].reshape(-1, nobs, nsamp), log_w[:, n_ev:]
@@ -669,7 +670,8 @@ def plpeak_from_sites(sites: Dict[str, torch.Tensor]) -> PLPeakPopulationParams:
 
 
 def _build_plpeak(sites, n_grid):
-    return build_plpeak_population(plpeak_from_sites(sites), n_m=n_grid)
+    with span("loglike.qnorm"):
+        return build_plpeak_population(plpeak_from_sites(sites), n_m=n_grid)
 
 
 def brokenpl_from_sites(sites: Dict[str, torch.Tensor]) -> BrokenPLPopulationParams:
@@ -679,7 +681,8 @@ def brokenpl_from_sites(sites: Dict[str, torch.Tensor]) -> BrokenPLPopulationPar
 
 
 def _build_brokenpl(sites, n_grid):
-    return build_brokenpl_population(brokenpl_from_sites(sites), n_m=n_grid)
+    with span("loglike.qnorm"):
+        return build_brokenpl_population(brokenpl_from_sites(sites), n_m=n_grid)
 
 
 def _family_deterministics(build, sites, data: PopData, n_grid: int, rows=None):

@@ -23,9 +23,14 @@ profiler is off a span costs one check.  The spans, each inside its parent:
   (``model.value_and_grad``), inside ``nuts.transition``;
 * ``potential.loglike``: the forward of the spec's log-likelihood
   (``model.make_potential``), inside ``potential.value_and_grad``;
-* ``loglike.tables``: the bump table (kernel A), the cosmology and the
-  detector tables, forward (``likelihoods._frame_tables``), inside
-  ``potential.loglike``;
+* ``loglike.tables``: the mass family's tables, the cosmology and the
+  detector tables, forward, inside ``potential.loglike``, on every family's
+  joint route: the bump's table by kernel A (``likelihoods._frame_tables``),
+  or another family's intensity (``likelihoods.pop_cosmo_event_sel_logwts``);
+* ``loglike.qnorm``: POWER-LAW+PEAK's or BROKEN POWER LAW's q-norm table and
+  pivot (``likelihoods._build_plpeak``, ``_build_brokenpl``), inside
+  ``loglike.tables`` on the joint route and inside ``potential.loglike`` on
+  the population-only one;
 * ``loglike.backward``: the backward from the log-likelihood's output to
   its sites, recorded on autograd's thread, inside ``potential.value_and_grad``.
 

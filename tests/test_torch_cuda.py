@@ -437,6 +437,56 @@ def test_host_syncs_counts_every_synchronising_call_of_a_transition(dev):
         assert int(stats.n_leapfrog.max()) > 1 and reported == counted
 
 
+
+def test_host_syncs_counts_every_synchronising_call_of_a_plpeak_transition(dev):
+    """The same count on the POWER-LAW+PEAK joint fit (the cell
+    ``flagship_plpeak.nuts``: its cut catalog and committed adapted state,
+    4 chains, depth 6): over a transition ``nuts.host_syncs`` rises by as
+    many as the synchronising calls that CUDA's sync debug mode reports, and
+    a value+grad of the family's potential alone (its eager log-likelihood,
+    the q-norm table and pivot included) reports none."""
+    import json
+    import warnings
+    from pathlib import Path
+
+    from bumpcosmology_torch.inference import nuts
+    from bumpcosmology_torch.inference.likelihoods import MASS_FAMILIES
+    from bumpcosmology_torch.inference.model import make_potential, value_and_grad
+    from bumpcosmology_torch.utils import load_warmup, profiling
+    from cardbench import harness
+
+    config = json.loads((harness.BENCH_DIR / "configs" / "flagship_plpeak.json").read_text())
+    raw = harness.cut_catalog(harness.read_catalog(harness.data_path(config, "catalog")), config["events"],
+                              config["pe_samples"], config["injections"])
+    spec = MASS_FAMILIES["plpeak"].cosmo_spec(harness.program_data(raw, dev), n_grid=config["n_grid"],
+                                              n_z=config["n_z"], device=dev)
+    warm = load_warmup(harness.data_path(config, "warmup_state"), device=dev)
+    potential, c = make_potential(spec), config["chains"]
+    theta = warm.state.theta[:c]
+    state = nuts.ChainState(theta, *value_and_grad(potential, theta))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    step = lambda s: nuts.nuts_transition(potential, s, warm.eps[:c], warm.cov[:c], warm.chol_cov[:c], gen, 6)  # noqa: E731
+    state, _ = step(state)
+    torch.cuda.synchronize()
+
+    def reported(fn):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return out, sum("synchroniz" in str(w.message) for w in caught)
+
+    for _ in range(2):
+        before = profiling.counters()["nuts.host_syncs"]
+        (state, stats), n = reported(lambda: step(state))
+        counted = profiling.counters()["nuts.host_syncs"] - before
+        assert int(stats.n_leapfrog.max()) > 1 and n == counted
+    _, n = reported(lambda: value_and_grad(potential, state.theta))
+    assert n == 0
+
 def _priors_on(dev, spec, theta, g_lp, g_sites):
     """``(log_prior, sites (C, dim), grad)`` of ``model.log_prior_and_sites`` at
     ``theta``, computed on ``dev`` and returned on the CPU; the gradient as

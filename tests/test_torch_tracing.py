@@ -152,3 +152,97 @@ def test_the_value_and_grads_counter_counts_every_log_likelihood_call(fits, trac
     # a leapfrog reads the device twice; the warmup's first value+grad and the
     # state's recomputation read it not at all, the step-size search's first once
     assert f["counts"]["nuts.host_syncs"] >= 2 * (f["calls"] - 2) - 1
+
+
+# ---------------------------------------------------------------------------
+# The families' joint route: ``loglike.tables`` around the family's intensity
+# and the cosmology and detector tables, ``loglike.qnorm`` around the q-norm
+# table and pivot inside it
+# ---------------------------------------------------------------------------
+
+FAMILY_PARENT = {"loglike.qnorm": "loglike.tables", "loglike.tables": "potential.loglike"}
+
+
+def _family_fit(spec):
+    return fit(spec, seed=5, num_warmup=NUM_WARMUP, num_samples=NUM_SAMPLES, num_chains=2,
+               cfg=NutsConfig(max_depth=3), device="cpu", verbose=False)
+
+
+@pytest.fixture(scope="module", params=["plpeak", "brokenpl"])
+def family_fits(request):
+    """A tiny joint fit of a power-law-in-q family, untraced and under the
+    torch profiler: each its result and the spans recorded."""
+    from bumpcosmology_torch.inference.likelihoods import MASS_FAMILIES
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    spec = MASS_FAMILIES[request.param].cosmo_spec(synthetic_pop_cosmo_data(4, 16, 64, seed=1, device="cpu"),
+                                                   n_grid=32, n_z=64, device="cpu")
+    out = {}
+    for traced in (False, True):
+        before = profiling.spans()
+        if traced:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                res = _family_fit(spec)
+        else:
+            res = _family_fit(spec)
+        out[traced] = dict(res=res, spans=profiling.spans(), before_spans=before)
+    yield out
+    torch.set_num_threads(threads)
+
+
+def test_family_route_records_nothing_with_the_profiler_off(family_fits):
+    off = family_fits[False]
+    assert off["spans"] == off["before_spans"]
+
+
+def test_family_route_draws_are_bit_identical_with_the_profiler_on_and_off(family_fits):
+    off, on = family_fits[False]["res"], family_fits[True]["res"]
+    assert set(off.posterior) == set(on.posterior)
+    for k in off.posterior:
+        np.testing.assert_array_equal(off.posterior[k], on.posterior[k], err_msg=k)
+    for k in off.sample_stats:
+        np.testing.assert_array_equal(off.sample_stats[k], on.sample_stats[k], err_msg=k)
+
+
+@pytest.mark.parametrize("child", sorted(FAMILY_PARENT))
+def test_family_route_spans_nest_qnorm_in_tables_in_the_loglike(family_fits, child):
+    """Every ``loglike.qnorm`` lies in one ``loglike.tables``, every
+    ``loglike.tables`` in one ``potential.loglike``, each naming it, and
+    each forward of the log-likelihood builds the tables once."""
+    spans = family_fits[True]["spans"]
+    parent = FAMILY_PARENT[child]
+    outer = [(s, e) for n, _, s, e in spans if n == parent]
+    kids = [(p, s, e) for n, p, s, e in spans if n == child]
+    assert kids and len(kids) == len([n for n, _, _, _ in spans if n == "potential.loglike"])
+    for p, s, e in kids:
+        assert p == parent and sum(ps <= s and e <= pe for ps, pe in outer) == 1
+
+
+def test_family_route_readers_split_each_interval(family_fits, monkeypatch):
+    """sampler_self_ms + priors_ms + loglike_ms is the mean interval of the
+    complete value+grads, as on the bump, and the q-norm table is a part of
+    the tables, which are a part of the log-likelihood."""
+    from cardbench import harness, program_record
+
+    spans = family_fits[True]["spans"]
+    vgs = program_record.value_and_grads(spans)
+    assert vgs and len(vgs) >= NUM_SAMPLES
+    monkeypatch.setattr(program_record, "program_spans", lambda: spans)
+    parts = {name: harness.load_reader(name)(None) for name in ("sampler_self_ms", "priors_ms", "loglike_ms",
+                                                                 "tables_ms", "qnorm_ms")}
+    assert all(v > 0.0 for v in parts.values())
+    interval = 1e-6 * sum(v["next"] - v["start"] for v in vgs) / len(vgs)
+    assert parts["sampler_self_ms"] + parts["priors_ms"] + parts["loglike_ms"] == pytest.approx(interval, rel=1e-12)
+    assert parts["qnorm_ms"] <= parts["tables_ms"] < parts["loglike_ms"]
+
+
+def test_the_q_norm_reader_reads_nothing_on_the_bump(fits, monkeypatch):
+    """The bump's route has no q-norm table: ``qnorm_ms`` is ``None`` there,
+    as on a program that records no such span."""
+    from cardbench import harness, program_record
+
+    monkeypatch.setattr(program_record, "program_spans", lambda: fits[True]["spans"])
+    assert harness.load_reader("qnorm_ms")(None) is None
+    monkeypatch.setattr(program_record, "program_spans", lambda: None)
+    assert harness.load_reader("qnorm_ms")(None) is None
