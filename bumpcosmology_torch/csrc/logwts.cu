@@ -164,15 +164,10 @@
 //   route a shape takes), unused and may be null on ROUTE_SHARED.
 //   Each function returns the CUDA error of its launch (0 on success), or ERR_SMEM (-1).
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <math.h>
-
-namespace cg = cooperative_groups;
+#include "rows.cuh"  // the cluster skeleton, the lse epilogue, the fixed-point bins, the launch
 
 namespace {
 
-constexpr int CLUSTER = 8;     // blocks per chain: the portable maximum cluster size
 constexpr int R_FWD = 4;       // rows a lane holds in flight, forward
 constexpr int R_BWD = 1;       // and backward
 constexpr int WARPS_FWD = 32;  // most warps of a block, forward
@@ -180,20 +175,10 @@ constexpr int WARPS_BWD = 32;  // and backward
 constexpr int NS = 15;
 constexpr int NACC = 13;           // scalar slots that can carry a cotangent (v0 .. zp)
 constexpr int NS_PAD = 16;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2 = 0.69314718055994531f;
 constexpr float MBH_MIN = 5.0f;
 constexpr float MREF = 30.0f;
 constexpr float QREF = 1.0f;
-// fixed-point table cotangents: units of 2^-40, split into words of 2^32 units
-constexpr double FX_ONE = 1099511627776.0;             // 2^40
-constexpr double FX_WORD = 4294967296.0;               // 2^32
-constexpr double FX_INV_WORD = 2.3283064365386963e-10;  // 2^-32
-constexpr double FX_HI_UNIT = 0.00390625;              // 2^-8: a hi word in units of one
-constexpr double FX_LO_UNIT = 9.094947017729282e-13;   // 2^-40
-constexpr float FX_RANGE = 4503599627370496.0f;        // 2^52: the bound on |v| N
-constexpr unsigned long long FX_MARK = 1ull << 63;     // a lo word's out-of-range mark
-constexpr int FX_MAX_N = 1 << 29;                      // the backward's rows a chain, below
 
 // scalar slots, as the Pallas layout (pallas_logwts.py:57-61); slots 13-14 (table
 // lengths) are kept for layout only: the kernel takes K and G as int arguments.
@@ -203,48 +188,6 @@ enum Slot {
   INV_DV = NS, INV_DMBH, INV_MBHMAX, INV_W, LZP, SP_ZP, SG_ZP, INV_OPZP, NSX
 };
 constexpr int NSX_PAD = 24;
-
-// How the N rows of a chain are cut into pieces that never straddle a segment.
-struct Work {
-  int N, nobs, nsamp;
-  int piece;      // rows of one warp work item: 32 lanes x the rows a lane holds
-  int n_ev;       // nobs * nsamp
-  int spe;        // pieces per event
-  int p_ev;       // nobs * spe
-  int p_total;
-  int per_block;  // pieces of one block of the cluster
-};
-
-Work make_work(int N, int nobs, int nsamp, int rows_per_lane) {
-  Work w;
-  w.N = N; w.nobs = nobs; w.nsamp = nsamp;
-  w.piece = 32 * rows_per_lane;
-  w.n_ev = nobs * nsamp;
-  w.spe = nobs > 0 ? (nsamp + w.piece - 1) / w.piece : 1;
-  w.p_ev = nobs * w.spe;
-  w.p_total = w.p_ev + (N - w.n_ev + w.piece - 1) / w.piece;
-  w.per_block = (w.p_total + CLUSTER - 1) / CLUSTER;
-  return w;
-}
-
-// the fewest equal rounds of at most max_warps warps over a block's pieces
-int pick_threads(const Work& w, int max_warps) {
-  const int pieces = w.per_block > 0 ? w.per_block : 1;
-  const int rounds = (pieces + max_warps - 1) / max_warps;
-  return 32 * ((pieces + rounds - 1) / rounds);
-}
-
-__device__ __forceinline__ void piece_rows(const Work& w, int p, int& row0, int& row1, int& seg) {
-  if (p < w.p_ev) {
-    seg = p / w.spe;
-    row0 = seg * w.nsamp + (p - seg * w.spe) * w.piece;
-    row1 = min(row0 + w.piece, (seg + 1) * w.nsamp);
-  } else {
-    seg = w.nobs;
-    row0 = w.n_ev + (p - w.p_ev) * w.piece;
-    row1 = min(row0 + w.piece, w.N);
-  }
-}
 
 // Cheap forms for the places where the result enters a sum of order one, so that an absolute
 // error of 4e-7 is harmless: exp of a non-positive number, log(1 + e) and 1/(1 + e) for e in
@@ -256,6 +199,12 @@ __device__ __forceinline__ float recip_1p(float e) { return __fdividef(1.0f, 1.0
 
 // a quotient that only a gradient sees
 __device__ __forceinline__ float grad_div(float a, float b) { return __fdividef(a, b); }
+
+// a segment's exp and log in the lse epilogue (rows.cuh)
+struct FastMath {
+  static __device__ __forceinline__ float exp(float x) { return exp_neg(x); }
+  static __device__ __forceinline__ float log(float x) { return logf(x); }
+};
 
 struct Bracket {
   int lo;
@@ -371,36 +320,6 @@ __device__ __forceinline__ void load_tables(const float* det, const float* bump,
   }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
-}
-
-// (m, s) <- the pair of log(s exp(m) + s2 exp(m2)); an empty pair is (-inf, 0)
-__device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
-  const float mm = fmaxf(m, m2);
-  if (mm == -INFINITY) {
-    s = 0.0f;
-  } else {
-    s = s * exp_neg(m - mm) + s2 * exp_neg(m2 - mm);
-  }
-  m = mm;
-}
-
-// all lanes end with the merge of the warp's 32 pairs
-__device__ __forceinline__ void warp_lse_merge(float& m, float& s) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float m2 = __shfl_xor_sync(FULL, m, off);
-    const float s2 = __shfl_xor_sync(FULL, s, off);
-    lse_merge(m, s, m2, s2);
-  }
-}
-
 template <bool LSE, bool PER_CHAIN>
 __global__ void __launch_bounds__(32 * WARPS_FWD)
 logwts_fwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
@@ -441,59 +360,11 @@ logwts_fwd_kernel(const float* __restrict__ det, const float* __restrict__ bump,
         if (n < row1) out[(size_t)c * w.N + n] = o[j];
       }
     } else {
-      float m = o[0];
-#pragma unroll
-      for (int j = 1; j < R_FWD; ++j) m = fmaxf(m, o[j]);
-      m = warp_max(m);
-      float sum = 0.0f;
-      if (m > -INFINITY) {
-#pragma unroll
-        for (int j = 0; j < R_FWD; ++j) sum += exp_neg(o[j] - m);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        s_pm[p - p0] = m;
-        s_ps[p - p0] = sum;
-      }
+      piece_pair<FastMath>(o, lane, s_pm, s_ps, p - p0);
     }
   }
 
-  if (LSE) {
-    // the block's own selection pieces first, from its own shared memory
-    __syncthreads();
-    if (warp == 0) {
-      float m = -INFINITY, sum = 0.0f;
-      for (int p = max(p0, w.p_ev) + lane; p < p1; p += 32) lse_merge(m, sum, s_pm[p - p0], s_ps[p - p0]);
-      warp_lse_merge(m, sum);
-      if (lane == 0) {
-        s_sel[0] = m;
-        s_sel[1] = sum;
-      }
-    }
-    cluster.sync();
-    // one warp per segment merges over the cluster: an event's few pieces where they lie,
-    // the selection's one pair per block
-    for (int seg = rank * nwarps + warp; seg <= w.nobs; seg += CLUSTER * nwarps) {
-      float m = -INFINITY, sum = 0.0f;
-      if (seg < w.nobs) {
-        for (int p = seg * w.spe + lane; p < (seg + 1) * w.spe; p += 32) {
-          const int r = p / w.per_block;
-          const int i = p - r * w.per_block;
-          lse_merge(m, sum, cluster.map_shared_rank(s_pm, r)[i], cluster.map_shared_rank(s_ps, r)[i]);
-        }
-      } else if (lane < CLUSTER) {
-        const float* remote = cluster.map_shared_rank(s_sel, lane);
-        lse_merge(m, sum, remote[0], remote[1]);
-      }
-      warp_lse_merge(m, sum);
-      if (lane == 0) {
-        const float v = m == -INFINITY ? -INFINITY : m + logf(sum);
-        if (seg < w.nobs) lse_ev[(size_t)c * w.nobs + seg] = v;
-        else lse_sel[c] = v;
-      }
-    }
-    cluster.sync();  // no block leaves while its shared memory may still be read
-  }
+  if (LSE) lse_epilogue<FastMath>(w, s_pm, s_ps, s_sel, p0, p1, c, lse_ev, lse_sel);
 }
 
 struct BinAdd {
@@ -551,26 +422,8 @@ __device__ __forceinline__ void row_bwd(const Query& r, float g, const float* s,
   acc[DV] -= dpos * r.posz * s[INV_DV];
 }
 
-// A chain's table-cotangent bins in shared memory, in fixed point (see the header): the hi and
-// lo words of each bin (bit 63 of lo marks a contribution out of range), and the limit on |v|.
-struct Bins {
-  unsigned long long* hi;
-  unsigned long long* lo;
-  float lim;
-};
-
-__device__ __forceinline__ void fx_add(const Bins& b, int bin, float v) {
-  if (v == 0.0f) return;
-  if (!(fabsf(v) < b.lim)) {  // also NaN and inf
-    atomicOr(&b.lo[bin], FX_MARK);
-    return;
-  }
-  const double x = rint((double)v * FX_ONE);
-  const double h = floor(x * FX_INV_WORD);
-  const double l = x - h * FX_WORD;  // exact: an integer in [0, 2^32)
-  atomicAdd(&b.hi[bin], (unsigned long long)(long long)h);
-  if (l != 0.0) atomicAdd(&b.lo[bin], (unsigned long long)l);
-}
+// A chain's table-cotangent bins in shared memory, in fixed point (see the header; rows.cuh's fx_add).
+using Bins = BinsT<float>;
 
 __device__ __forceinline__ void add_bins(const BinAdd& a, const Bins& b, int base) {
   if (a.lo >= 0) {
@@ -748,26 +601,6 @@ bool bad_shape(int C, int K, int G, int N, int qry_cs, int nobs, int nsamp) {  /
          || (nobs > 0 && nsamp < 1) || (long long)nobs * nsamp > N;
 }
 
-constexpr int MAX_DEVICES = 64;
-constexpr int ERR_SMEM = -1;  // a launch that needs more shared memory than a block of the device has
-enum Route { ROUTE_SHARED = 0, ROUTE_GLOBAL = 1 };  // where the backward keeps its detector bins
-
-// The most dynamic shared memory a block of the current device may use (read once per device).
-cudaError_t smem_optin(size_t& most) {
-  static int cached[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int v = dev < MAX_DEVICES ? cached[dev] : 0;
-  if (v == 0) {
-    err = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    if (dev < MAX_DEVICES) cached[dev] = v;
-  }
-  most = (size_t)v;
-  return cudaSuccess;
-}
-
 // The backward's route at this shape on the current device, from the shape alone: ROUTE_SHARED
 // while its bins and tables fit in a block's shared memory, else ROUTE_GLOBAL while the forward at
 // the same shape fits; else ERR_SMEM.  Returns 0, a CUDA error or ERR_SMEM.
@@ -784,47 +617,6 @@ int bwd_route(bool lse, int K, int G, int N, int nobs, int nsamp, int& route) {
   route = ROUTE_GLOBAL;
   const Work wf = make_work(N, nobs, nsamp, R_FWD);
   return fwd_smem(K, G, wf, lse) <= most && bwd_smem(K, G, threads, true) <= most ? 0 : ERR_SMEM;
-}
-
-// The most dynamic shared memory a kernel has been allowed so far on each device, so that the
-// attribute is set when a launch first needs more than the default 48 KB, not on every launch.
-struct SmemAllowed {
-  size_t bytes[MAX_DEVICES] = {};
-};
-
-// One cluster of CLUSTER blocks per chain.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, SmemAllowed& allowed, int C, int threads, size_t smem, void* stream,
-           Args... args) {
-  if (smem > 48 * 1024) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev >= MAX_DEVICES || smem > allowed.bytes[dev]) {
-      int most = 0;
-      err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      if (err != cudaSuccess) return (int)err;
-      if (smem > (size_t)most) return ERR_SMEM;
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      if (dev < MAX_DEVICES) allowed.bytes[dev] = smem;
-    }
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER, C, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
 }
 
 // The backward of either epilogue on the route its shape takes; on ROUTE_GLOBAL the scratch

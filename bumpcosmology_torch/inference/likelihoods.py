@@ -20,12 +20,18 @@ family, ``None`` the PISN bump, as in the JAX package.
   package's take its non-fused route.
 * POWER-LAW+PEAK and BROKEN POWER LAW, joint model: kernel B hard-codes the
   bump's table layout, and the JAX package sends only the bump's intensity
-  to its Pallas kernel (``likelihoods.py:351-356``).  The potential takes
+  to its Pallas kernel (``likelihoods.py:351-356``).  On the card the
+  potential takes kernel F (:func:`~bumpcosmology_torch.ops.cuda_families.family_lse`):
+  the same query rows against the detector table at ``n_z`` points, each
+  row's weight under the family (the q-norm table read at m1, the pivot
+  computed in the kernel) and the segment log-sum-exps, one launch forward
+  and one backward; only the q-norm, cosmology and detector tables are
+  built in PyTorch.  On the CPU, and with ``plain=True``, it takes F's twin,
   the XLA branch of ``_cosmo_frame_logwts_fused`` in plain PyTorch with
-  autograd (the detector table at ``n_z`` points, one bracket per row shared
-  by the chains); the deterministics take the non-fused
-  ``_cosmo_frame_logwts`` (``likelihoods.py:308-323``: ``z_at_dl`` and
-  ``dvc_and_ddl_at_z`` on the cosmology table), as the JAX package's do.
+  autograd (one bracket per row shared by the chains).  The deterministics
+  take the non-fused ``_cosmo_frame_logwts`` (``likelihoods.py:308-323``:
+  ``z_at_dl`` and ``dvc_and_ddl_at_z`` on the cosmology table), as the JAX
+  package's do.
 * Population-only model, every family: the rows are source-frame (m1, q, z)
   weighed at a fixed cosmology (:class:`FixedCosmoGrid`) in plain PyTorch
   with autograd (:func:`pop_loglike`), as the JAX package computes them in
@@ -88,6 +94,7 @@ from bumpcosmology_torch.models.plpeak import PLPeakMassParams, PLPeakPopulation
 from bumpcosmology_torch.models.population import COORDS, QREF, build_population, log_dndmdqdv
 from bumpcosmology_torch.models.redshift import ZREF
 from bumpcosmology_torch.ops.collectives import all_gather_cat, copy_to_group
+from bumpcosmology_torch.ops.cuda_families import family_lse, family_scalars
 from bumpcosmology_torch.ops.cuda_logwts import cosmo_frame_logwts, cosmo_frame_logwts_lse, query_rows
 from bumpcosmology_torch.ops.logsumexp import sharded_logsumexp
 from bumpcosmology_torch.ops.interp import interp_unit_spaced, interp_unit_spaced_columns
@@ -396,10 +403,7 @@ def pop_cosmo_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopCosmoDat
         pop, cosmo, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
         log_w = cosmo_frame_logwts(pop, det, qry, plain)  # (C, N)
     else:
-        with span("loglike.tables"):
-            pop = build(sites, n_grid)
-            cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
-            det = None if dl_bounds is None else build_detector_table(cosmo, dl_bounds[0], dl_bounds[1], n=n_z)
+        pop, cosmo, det = _family_tables(build, sites, n_grid, n_z, dl_bounds)
         if det is None:
             log_w = _cosmo_frame_logwts(pop, cosmo, pop_rows(data))
         else:
@@ -418,9 +422,11 @@ def pop_cosmo_segment_lse(sites: Dict[str, torch.Tensor], data: PopCosmoData,
     ``qry`` is :func:`query_table` of ``data`` (computed if not given).  The
     bump (``build=None``) goes through kernel B's ``lse`` epilogue (``dl_bounds``
     defaulting to the data's; ``plain=True`` takes the kernels' plain twins
-    whatever the device); another family through
-    :func:`pop_cosmo_event_sel_logwts`'s plain routes.  A fleet's data
-    (leading axis S = C) give chain ``s`` catalog ``s``.
+    whatever the device).  POWER-LAW+PEAK and BROKEN POWER LAW with
+    ``dl_bounds`` on the card go through kernel F (:func:`~bumpcosmology_torch.ops.cuda_families.family_lse`);
+    on the CPU, with ``plain=True`` or without ``dl_bounds``, through
+    :func:`pop_cosmo_event_sel_logwts`'s plain routes, F's twin.  A fleet's
+    data (leading axis S = C) give chain ``s`` catalog ``s``.
     """
     nobs, nsamp = data.events.a.shape[-2:]
     if build is None:
@@ -428,6 +434,12 @@ def pop_cosmo_segment_lse(sites: Dict[str, torch.Tensor], data: PopCosmoData,
         qry = query_table(data) if qry is None else qry
         pop, _, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
         return cosmo_frame_logwts_lse(pop, det, qry, nobs, nsamp, plain)
+    if isinstance(build, _QNormFamily) and not plain and dl_bounds is not None and data.events.a.device.type == "cuda":
+        # kernel F: the tables without the pivot, which F computes
+        pop, _, det = _family_tables(build, sites, n_grid, n_z, dl_bounds, pivot=False)
+        scal = family_scalars(build.name, pop.params.mass, pop.params.redshift)
+        return family_lse(build.name, det, pop.log_nq, pop.dm, scal, query_table(data) if qry is None else qry,
+                          nobs, nsamp)
     _, _, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, dl_bounds, qry, build=build)
     return torch.logsumexp(log_w, -1), torch.logsumexp(log_sel_w, -1)
 
@@ -669,20 +681,38 @@ def plpeak_from_sites(sites: Dict[str, torch.Tensor]) -> PLPeakPopulationParams:
                                   redshift=_redshift_from_sites(sites))
 
 
-def _build_plpeak(sites, n_grid):
-    with span("loglike.qnorm"):
-        return build_plpeak_population(plpeak_from_sites(sites), n_m=n_grid)
-
-
 def brokenpl_from_sites(sites: Dict[str, torch.Tensor]) -> BrokenPLPopulationParams:
     """Site dict → BrokenPL parameters: every mass site direct, ``kappa = lam + dkappa``."""
     return BrokenPLPopulationParams(mass=BrokenPLMassParams(*(sites[k] for k in BrokenPLMassParams._fields)),
                                     redshift=_redshift_from_sites(sites))
 
 
-def _build_brokenpl(sites, n_grid):
-    with span("loglike.qnorm"):
-        return build_brokenpl_population(brokenpl_from_sites(sites), n_m=n_grid)
+class _QNormFamily(NamedTuple):
+    """A family normalised in q, as a ``build``: ``build(sites, n_grid)`` is
+    its intensity (q-norm table and pivot, in the span ``loglike.qnorm``);
+    ``name`` is its code in kernel F, which weighs its joint rows on the card."""
+
+    name: str
+    from_sites: object  # sites -> the family's population parameters (mass, redshift)
+    build_population: object  # (params, n_m=, pivot=) -> intensity
+
+    def __call__(self, sites, n_grid, pivot: bool = True):
+        with span("loglike.qnorm"):
+            return self.build_population(self.from_sites(sites), n_m=n_grid, pivot=pivot)
+
+
+def _family_tables(build, sites, n_grid: int, n_z: int, dl_bounds, pivot: bool = True):
+    """A family's intensity, the cosmology table and the detector table
+    (``None`` without ``dl_bounds``) of the sites, in the span ``loglike.tables``."""
+    with span("loglike.tables"):
+        pop = build(sites, n_grid, pivot=pivot)
+        cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
+        return pop, cosmo, None if dl_bounds is None else build_detector_table(cosmo, dl_bounds[0], dl_bounds[1],
+                                                                              n=n_z)
+
+
+_build_plpeak = _QNormFamily("plpeak", plpeak_from_sites, build_plpeak_population)
+_build_brokenpl = _QNormFamily("brokenpl", brokenpl_from_sites, build_brokenpl_population)
 
 
 def _family_deterministics(build, sites, data: PopData, n_grid: int, rows=None):

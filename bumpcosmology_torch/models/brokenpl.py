@@ -12,7 +12,8 @@ POWER-LAW+PEAK family's q^{β_q}·S(q·m1), so the taper, the power-law norm and
 the q-normalization table come from :mod:`bumpcosmology_torch.models.plpeak`,
 as the JAX module takes them from its sibling.  Same pivot convention, same
 batching (``(C,)`` parameters, ``(C, M)`` queries), plain PyTorch with
-autograd: no kernel in either package.
+autograd; on the card the joint fit's rows take kernel F
+(``ops/cuda_families.py``), whose plain twin this module is.
 """
 from __future__ import annotations
 
@@ -118,9 +119,11 @@ class BrokenPLIntensity(NamedTuple):
 
 
 def build_brokenpl_population(params: BrokenPLPopulationParams, n_m: int = DEFAULT_N_M,
-                              n_q: int = DEFAULT_N_Q) -> BrokenPLIntensity:
-    """The per-draw BrokenPL intensity of ``C`` chains (q-norm table + pivot normalization)."""
+                              n_q: int = DEFAULT_N_Q, pivot: bool = True) -> BrokenPLIntensity:
+    """The per-draw BrokenPL intensity of ``C`` chains (q-norm table + pivot
+    normalization).  ``pivot=False`` leaves ``log_norm`` at 0, for a caller
+    that computes the pivot itself (kernel F does, in the kernel)."""
     p = params.mass
     dm, log_nq = _log_nq_grid(p.beta_q, p.mmin, p.delta_m, n_m, n_q)
     intensity = BrokenPLIntensity(params=params, dm=dm, log_nq=log_nq, log_norm=torch.zeros_like(p.alpha1))
-    return intensity._replace(log_norm=_pivot_log_norm(intensity))
+    return intensity._replace(log_norm=_pivot_log_norm(intensity)) if pivot else intensity

@@ -14,10 +14,12 @@ hard supports are soft walls (linear log-density ramps), as in the JAX
 package, with the same constants.
 
 Batched over chains like the rest of the port: parameter leaves are ``(C,)``,
-queries ``(C, M)``, the q-normalization table ``(C, n_m)``.  Everything is
-plain PyTorch with autograd: the family has no kernel in either package (the
-JAX package sends it through XLA).  The gradient guards are the JAX
-package's: the taper's interior is evaluated at a clamped ``x``, the norm
+queries ``(C, M)``, the q-normalization table ``(C, n_m)``.  Everything here
+is plain PyTorch with autograd (the JAX package sends the family through
+XLA).  On the card the joint fit's rows, pivot and segment log-sum-exps take
+kernel F (``ops/cuda_families.py``, ``csrc/families_math.cuh``), whose plain
+twin this module is; only :func:`_log_nq_grid` runs there in PyTorch.  The
+gradient guards are the JAX package's: the taper's interior is evaluated at a clamped ``x``, the norm
 swaps in ``x_safe`` near ``α = 1``, and every ``clip``/``maximum`` that a
 test point can tie (the taper's clamp and ramps, the walls) is
 ``torch.maximum``/``torch.minimum``, whose gradient at a tie splits as JAX's does.
@@ -217,9 +219,11 @@ def _pivot_log_norm(intensity) -> torch.Tensor:
 
 
 def build_plpeak_population(params: PLPeakPopulationParams, n_m: int = DEFAULT_N_M,
-                            n_q: int = DEFAULT_N_Q) -> PLPeakIntensity:
-    """The per-draw PLPeak intensity of ``C`` chains (q-norm table + pivot normalization)."""
+                            n_q: int = DEFAULT_N_Q, pivot: bool = True) -> PLPeakIntensity:
+    """The per-draw PLPeak intensity of ``C`` chains (q-norm table + pivot
+    normalization).  ``pivot=False`` leaves ``log_norm`` at 0, for a caller
+    that computes the pivot itself (kernel F does, in the kernel)."""
     p = params.mass
     dm, log_nq = _log_nq_grid(p.beta_q, p.mmin, p.delta_m, n_m, n_q)
     intensity = PLPeakIntensity(params=params, dm=dm, log_nq=log_nq, log_norm=torch.zeros_like(p.alpha))
-    return intensity._replace(log_norm=_pivot_log_norm(intensity))
+    return intensity._replace(log_norm=_pivot_log_norm(intensity)) if pivot else intensity

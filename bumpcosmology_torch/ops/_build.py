@@ -5,9 +5,11 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
 Libraries land in ``BUILD_DIR``, by default ``bumpcosmology_torch/_build/``
 (git-ignored; ``utils.enable_compilation_cache`` moves it), under a name
-that carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.  :func:`build_kernels` starts one
-``nvcc`` per source, all at once.
+that carries a hash of the source, the ``csrc/*.cuh`` headers it includes
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is reused.  :func:`build_kernels` starts one ``nvcc`` per source, all
+at once.  ``csrc/families.cu`` (kernel F) adds ``-fmad=false``: it keeps
+the eager twin's roundings, no multiply and add fused into one.
 
 Nothing here runs at import time: the CPU test host has no ``nvcc``.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,7 +34,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 DEFAULT_BUILD_DIR = _PKG / "_build"
 BUILD_DIR = DEFAULT_BUILD_DIR
-KERNEL_SOURCES = ("bump", "logwts", "snr", "floor", "priors")
+KERNEL_SOURCES = ("bump", "logwts", "snr", "floor", "priors", "families")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,9 +56,30 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source on first use")
 
 
+# flags a source adds to NVCC_FLAGS
+EXTRA_FLAGS = {"families": ("-fmad=false",)}
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
+def _sources(name: str) -> bytes:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, each once, in the order first included."""
+    seen, out, todo = set(), [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.add(f)
+        text = (CSRC / f).read_bytes()
+        out.append(text)
+        todo += [h.decode() for h in re.findall(rb'#include "([\w.]+)"', text)]
+    return b"".join(out)
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(_sources(name) + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -74,7 +98,7 @@ def build_kernels(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
     reports, failures = {}, []

@@ -48,6 +48,7 @@ import math
 import torch
 
 from bumpcosmology_torch.ops._build import kernel_function, raise_on
+from bumpcosmology_torch.ops._rows import ERR_SMEM, bwd_scratch, check_segments, counter
 from bumpcosmology_torch.ops.special import softplus
 
 __all__ = ["SLOTS", "LAUNCHES", "query_rows", "logwts", "logwts_plain", "logwts_lse",
@@ -203,8 +204,7 @@ class _LogwtsPlain(torch.autograd.Function):
 
 
 def _check_segments(n: int, nobs: int, nsamp: int) -> None:
-    if nobs < 0 or (nobs > 0 and nsamp < 1) or nobs * nsamp > n:
-        raise ValueError(f"logwts_lse: {nobs} events x {nsamp} samples do not fit in {n} query rows")
+    check_segments("logwts_lse", n, nobs, nsamp)
 
 
 def _segment_lse(out, nobs: int, nsamp: int):
@@ -253,17 +253,12 @@ _SIGNATURES = {
     "logwts_bwd_route": ([_I] * 6 + [_P], _I),
     "logwts_max_k": ([_I] * 5, _I),
 }
-_ERR_SMEM = -1  # csrc/logwts.cu's ERR_SMEM: the launch needs more shared memory than a block has
-_ROUTE_GLOBAL = 1  # csrc/logwts.cu's ROUTE_GLOBAL: the backward's detector bins in device memory
-_ROUTES = {}  # (device, lse, K, G, N, nobs, nsamp) -> the backward's route
-
-
 def _raise_on(rc: int, what: str, k: int, g_len: int, n: int, nobs: int = 0, nsamp: int = 1) -> None:
     """:func:`raise_on`, but a shape refused for its shared memory raises a
     ``ValueError`` that names the most detector-table rows K (``fit.n_z``)
     that fit at this shape: the forward's limit, which the backward shares
     (about 28,900 at G = 256 on an H100 at the flagship's shape)."""
-    if rc == _ERR_SMEM:
+    if rc == ERR_SMEM:
         most = _max_k(what.endswith("_bwd"), g_len, n, nobs, nsamp)
         raise ValueError(f"{what}: a detector table of K = {k} rows (fit.n_z) with G = {g_len} bump bins needs "
                          f"more shared memory than a block of this device has; at most K = {most} fit at "
@@ -319,34 +314,16 @@ def _logwts_fwd_cuda(det, bump, scal, qry):
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), out.data_ptr(),
         c, k, g_len, n, qry_cs, stream)
     _raise_on(rc, "logwts_fwd", k, g_len, n)
-    LAUNCHES["logwts_fwd" + ("_per_chain" if qry_cs else "")] += 1
+    LAUNCHES[counter("logwts_fwd", qry_cs)] += 1
     return out
 
 
-def _bwd_scratch(what: str, det, c: int, k: int, g_len: int, n: int, nobs: int = 0, nsamp: int = 1):
-    """The scratch of the backward ``what`` at this shape: None on the route
-    with the detector's bins in shared memory, a ``(C, 2, 2K)`` int64 tensor
-    (the launch zeroes it) on the route with them in device memory
-    (:data:`_ROUTE_GLOBAL`).  The route is ``csrc/logwts.cu``'s, from the
-    shape alone, read once per shape and device.  Raises beyond the
+def _bwd_scratch(what: str, det, k: int, g_len: int, n: int, nobs: int = 0, nsamp: int = 1):
+    """The scratch of the backward ``what`` at this shape (``_rows.bwd_scratch``,
+    the route ``csrc/logwts.cu``'s from the shape alone).  Raises beyond the
     forward's limit."""
-    lse = int(what == "logwts_lse_bwd")
-    key = (det.device, lse, k, g_len, n, nobs, nsamp)
-    route = _ROUTES.get(key)
-    if route is None:
-        out = ctypes.c_int(-1)
-        rc = kernel_function("logwts", "logwts_bwd_route", _SIGNATURES)(lse, k, g_len, n, nobs, nsamp,
-                                                                         ctypes.byref(out))
-        _raise_on(rc, what, k, g_len, n, nobs, nsamp)
-        route = _ROUTES[key] = out.value
-    if route != _ROUTE_GLOBAL:
-        return None
-    return torch.empty((c, 2, 2 * k), dtype=torch.int64, device=det.device)
-
-
-def _counter(what: str, scratch, qry_cs: int) -> str:
-    """The :data:`LAUNCHES` key of a backward launch."""
-    return what + ("" if scratch is None else "_global") + ("_per_chain" if qry_cs else "")
+    return bwd_scratch("logwts", _SIGNATURES, (int(what == "logwts_lse_bwd"), k, g_len, n, nobs, nsamp), det,
+                       lambda rc: _raise_on(rc, what, k, g_len, n, nobs, nsamp))
 
 
 def _logwts_bwd_cuda(det, bump, scal, qry, g):
@@ -355,14 +332,14 @@ def _logwts_bwd_cuda(det, bump, scal, qry, g):
     if g.shape != (c, n) or not g.is_contiguous():
         raise ValueError(f"g: expected a contiguous tensor of shape {(c, n)}, got {tuple(g.shape)} "
                          f"with strides {g.stride()}")
-    bins = _bwd_scratch("logwts_bwd", det, c, k, g_len, n)
+    bins = _bwd_scratch("logwts_bwd", det, k, g_len, n)
     d_det, d_bump, d_scal = _cotangent_outputs(det, bump, scal)
     rc = kernel_function("logwts", "logwts_bwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), g.data_ptr(),
         d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(), None if bins is None else bins.data_ptr(),
         c, k, g_len, n, qry_cs, stream)
     _raise_on(rc, "logwts_bwd", k, g_len, n)
-    LAUNCHES[_counter("logwts_bwd", bins, qry_cs)] += 1
+    LAUNCHES[counter("logwts_bwd", qry_cs, bins)] += 1
     return d_det, d_bump, d_scal
 
 
@@ -375,7 +352,7 @@ def _logwts_lse_fwd_cuda(det, bump, scal, qry, nobs: int, nsamp: int):
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), lse_ev.data_ptr(),
         lse_sel.data_ptr(), c, k, g_len, n, qry_cs, nobs, nsamp, stream)
     _raise_on(rc, "logwts_lse_fwd", k, g_len, n, nobs, nsamp)
-    LAUNCHES["logwts_lse_fwd" + ("_per_chain" if qry_cs else "")] += 1
+    LAUNCHES[counter("logwts_lse_fwd", qry_cs)] += 1
     return lse_ev, lse_sel
 
 
@@ -391,7 +368,7 @@ def _logwts_lse_bwd_cuda(det, bump, scal, qry, lse_ev, lse_sel, g_ev, g_sel, nob
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not (lse_ev.is_contiguous() and lse_sel.is_contiguous()):
         raise ValueError("lse_ev, lse_sel: expected contiguous tensors")
-    bins = _bwd_scratch("logwts_lse_bwd", det, c, k, g_len, n, nobs, nsamp)
+    bins = _bwd_scratch("logwts_lse_bwd", det, k, g_len, n, nobs, nsamp)
     d_det, d_bump, d_scal = _cotangent_outputs(det, bump, scal)
     rc = kernel_function("logwts", "logwts_lse_bwd", _SIGNATURES)(
         det.data_ptr(), bump.data_ptr(), scal.data_ptr(), qry.data_ptr(), lse_ev.data_ptr(),
@@ -399,7 +376,7 @@ def _logwts_lse_bwd_cuda(det, bump, scal, qry, lse_ev, lse_sel, g_ev, g_sel, nob
         g_sel.stride(0), d_det.data_ptr(), d_bump.data_ptr(), d_scal.data_ptr(),
         None if bins is None else bins.data_ptr(), c, k, g_len, n, qry_cs, nobs, nsamp, stream)
     _raise_on(rc, "logwts_lse_bwd", k, g_len, n, nobs, nsamp)
-    LAUNCHES[_counter("logwts_lse_bwd", bins, qry_cs)] += 1
+    LAUNCHES[counter("logwts_lse_bwd", qry_cs, bins)] += 1
     return d_det, d_bump, d_scal
 
 

@@ -21,6 +21,8 @@ import torch
 
 __all__ = ["interp", "inverse_interp", "interp_unit_spaced", "interp_unit_spaced_columns", "unit_bracket"]
 
+_LEAST_SUBNORMAL = 2.0 ** -1074  # float64's
+
 
 class _Rows(torch.autograd.Function):
     """``flat[idx]`` for a table's flattened rows ``flat`` ``(R, ...)``, with a
@@ -38,7 +40,10 @@ class _Rows(torch.autograd.Function):
     cancel a hundredfold; a count per row would sharpen that for one more
     pass over ``idx``); a row's scale never reaches another's, so chains that
     diverge leave the others' rows as they are.  A row with a non-finite
-    cotangent is non-finite."""
+    cotangent is non-finite.  A float64 row whose cotangents are all
+    subnormal takes the least subnormal for ``q``, of which each of them is a
+    whole multiple, where ``2^(e - 52)`` would round to zero; a float32 row's
+    ``e`` is never below -149, so its ``q`` needs no floor."""
 
     @staticmethod
     def forward(ctx, flat, idx):
@@ -54,6 +59,8 @@ class _Rows(torch.autograd.Function):
             0, rows[:, None].expand_as(g), g.abs(), "amax")
         # largest < 2^e (frexp); a row's total stays below n 2^e <= 2^(e + ceil(log2 n))
         q = torch.exp2(torch.frexp(largest)[1].double() + (math.ceil(math.log2(max(rows.numel(), 1))) - 52))
+        if ctx.dtype == torch.float64:
+            q = q.clamp_min(_LEAST_SUBNORMAL)
         sums = torch.zeros_like(q).index_add_(0, rows, torch.round(g.double() / q[rows]))
         return (sums * q).to(ctx.dtype).reshape(ctx.shape), None
 

@@ -1,6 +1,6 @@
-"""Time kernel A, B, C or P of another checkout on the same card, beside this one's.
+"""Time kernel A, B, C, P or F of another checkout on the same card, beside this one's.
 
-    python3 bumpcosmology_torch/tools/kernel_times.py --kernel a|b|c|p [--root DIR]
+    python3 bumpcosmology_torch/tools/kernel_times.py --kernel a|b|c|p|f [--root DIR]
 
 (run by path, not with ``-m``: the package it times is the one under ``--root``).
 
@@ -35,6 +35,18 @@ power limit.  Needs one NVIDIA GPU and nvcc.
   ``testing.priors_gaps``' limits; with each launch's bound from the bytes it
   moves (``bound_ms``), its operations being a few hundred, and the per-site
   code's eager call on the card (``plain_ms``).
+* ``--kernel f``: ``csrc/families.cu`` (POWER-LAW+PEAK) at the shape of the
+  benchmark's cell ``flagship_plpeak.nuts``: its cut catalog (56 x 128 PE
+  samples and 1,024 injections, one query table shared by the chains), the
+  detector table at n_z = 1,024, the q-norm table at n_grid = 256 and the 4
+  chains of its committed adapted state, the log-likelihood's cotangents;
+  held to the eager twin on the card (the log-sum-exps within rtol 2e-5, the
+  table and site cotangents within phase 3's rtol 5e-4 and 5e-4 of the largest);
+  ``bound_ms`` from ``cardbench/counts.py``'s operations of the family (a
+  chain-query's and the pivot's, forward or backward) and the bytes read and
+  written; ``plain_ms`` one eager call of the twin on the card, its forward
+  (the rows' weights, the pivot and ``torch.logsumexp``) or its backward
+  (autograd through them into the tables and the sites).
 
 To compare a commit with its parent, from the root of the checkout (``_archive/``
 is git-ignored):
@@ -256,6 +268,81 @@ def kernel_p_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
     return kernels, dict(C=[4, 128], dim=dim)
 
 
+def kernel_f_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: int):
+    """({kernel: row}, shape) of ``csrc/families.cu`` under ``root`` for
+    POWER-LAW+PEAK at the cell ``flagship_plpeak.nuts``'s shape (the
+    benchmark's configuration and data of this checkout)."""
+    import torch
+
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.model import constrain
+    from bumpcosmology_torch.models import plpeak
+    from bumpcosmology_torch.models.cosmology import DetectorFrameTable, build_cosmology, build_detector_table
+    from bumpcosmology_torch.models.parameters import RedshiftParams
+    from bumpcosmology_torch.ops import cuda_families as kf
+    from bumpcosmology_torch.utils.checkpoint import load_warmup
+    from cardbench import counts, harness
+    from chip_smoke import bound_ms, cuda_ms
+
+    dev = torch.device("cuda")
+    config = json.loads((harness.BENCH_DIR / "configs" / "flagship_plpeak.json").read_text())
+    raw = harness.cut_catalog(harness.read_catalog(harness.data_path(config, "catalog")), config["events"],
+                              config["pe_samples"], config["injections"])
+    data = harness.program_data(raw, dev)
+    n_grid, n_z, c = config["n_grid"], config["n_z"], config["chains"]
+    spec = lk.MASS_FAMILIES["plpeak"].cosmo_spec(data, n_grid=n_grid, n_z=n_z, device=dev)
+    with torch.no_grad():
+        sites = constrain(spec, load_warmup(harness.data_path(config, "warmup_state"), device=dev).state.theta[:c])
+        pop = lk.MASS_FAMILIES["plpeak"].build(sites, n_grid, pivot=False)  # the q-norm table alone, as F's route
+        params, dm, log_nq = pop.params, pop.dm, pop.log_nq
+        det = build_detector_table(build_cosmology(lk.cosmo_from_sites(sites), n=n_z), *lk.dl_bounds_of(data), n=n_z)
+        scal = kf.family_scalars("plpeak", params.mass, params.redshift).contiguous()
+    qry = lk.query_table(data)
+    nobs, nsamp = data.events.a.shape
+    n = qry.shape[0]
+    args = ("plpeak", det.cols, log_nq, scal, qry)
+    fwd = lambda: kf._fwd(*args, det.v0, det.dv, dm, nobs, nsamp)  # noqa: E731
+    lse_ev, lse_sel = fwd()
+    g_ev, g_sel = torch.ones_like(lse_ev), torch.full_like(lse_sel, -float(nobs))  # the log-likelihood's
+    bwd = lambda: kf._bwd(*args, lse_ev, lse_sel, g_ev, g_sel, det.v0, det.dv, dm, nobs, nsamp)  # noqa: E731
+    got = bwd()
+
+    # the eager twin on the card, differentiable in the three inputs that F differentiates
+    leaves = scal.clone().requires_grad_(True)
+    col = {k: leaves[:, i] for i, k in enumerate(kf.SLOTS["plpeak"])}
+    pop_params = plpeak.PLPeakPopulationParams(plpeak.PLPeakMassParams(*(col[k] for k in plpeak.PLPeakMassParams._fields)),
+                                               RedshiftParams(col["lam"], col["kappa"], col["zp"]))
+    nq_l, cols_l = log_nq.clone().requires_grad_(True), det.cols.clone().requires_grad_(True)
+
+    def plain_fwd():
+        pop = plpeak.PLPeakIntensity(params=pop_params, dm=dm, log_nq=nq_l, log_norm=torch.zeros_like(col["mmin"]))
+        pop = pop._replace(log_norm=plpeak._pivot_log_norm(pop))
+        w = lk._cosmo_frame_logwts_fused(pop, DetectorFrameTable(det.params, det.v0, det.dv, cols_l), qry)
+        return (torch.logsumexp(w[:, :nobs * nsamp].reshape(c, nobs, nsamp), -1),
+                torch.logsumexp(w[:, nobs * nsamp:], -1))
+
+    ref_ev, ref_sel = plain_fwd()
+    plain_bwd = lambda: torch.autograd.grad((ref_ev, ref_sel), [cols_l, nq_l, leaves], (g_ev, g_sel),  # noqa: E731
+                                            retain_graph=True)
+    ref = plain_bwd()
+    err_fwd = max(check_close("F lse_ev", lse_ev, ref_ev.detach(), 2e-5, 2e-5),
+                  check_close("F lse_sel", lse_sel, ref_sel.detach(), 2e-5, 2e-5))
+    err_bwd = max(check_close(f"F d_{name}", a, b, 5e-4, 5e-4 * float(b.abs().max()) + 1e-5)
+                  for name, a, b in zip(("det", "nq", "scal"), got, ref))
+
+    terms = counts.FAMILY_QUERY_OPS["plpeak"]
+    ops = [c * (n * sum(t[i] for t in terms) + sum(t[i] for t in terms if t[0] in counts.PIVOT_TERMS))
+           for i in (1, 2)]
+    read = 4 * (n * 4 + c * (2 * n_z + n_grid + kf._NS))  # the query rows, the two tables and the sites
+    kernels = {}
+    bounds = bound_ms(read + 4 * c * (nobs + 1), ops[0]), bound_ms(2 * read + 8 * c * (nobs + 1), ops[1])
+    for name, fn, err, plain, (b_ms, b_by) in (("f_fwd_lse", fwd, err_fwd, plain_fwd, bounds[0]),
+                                               ("f_bwd_lse", bwd, err_bwd, plain_bwd, bounds[1])):
+        kernels[name] = row(fn, err)
+        kernels[name].update(bound_ms=b_ms, bound_by=b_by, plain_ms=cuda_ms(plain))
+    return kernels, dict(C=c, N=n, nobs=nobs, nsamp=nsamp, K=n_z, n_m=n_grid)
+
+
 def device_ms_by_launch(fn, calls: int = 5):
     """{kernel name: mean device ms a call} of the launches of ``fn()``, from a
     ``torch.profiler`` trace of ``calls`` eager calls."""
@@ -280,7 +367,7 @@ def device_ms_by_launch(fn, calls: int = 5):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("a", "b", "c", "p"), required=True)
+    ap.add_argument("--kernel", choices=("a", "b", "c", "p", "f"), required=True)
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--no-check", action="store_true",
                     help="report max_abs_err without holding it to the limits: for timing a copy with a part of "
@@ -306,7 +393,8 @@ def main(argv=None) -> int:
         def check_close(name, got, ref, rtol, atol):  # noqa: F811
             return float((got - ref).abs().max())
 
-    times = {"a": kernel_a_times, "b": kernel_b_times, "c": kernel_c_times, "p": kernel_p_times}[args.kernel]
+    times = {"a": kernel_a_times, "b": kernel_b_times, "c": kernel_c_times, "p": kernel_p_times,
+             "f": kernel_f_times}[args.kernel]
     kernels, shape = times(root, row, check_close, N_GRID, N_Z, SEED)
     torch.cuda.synchronize()
     print(json.dumps(dict(root=str(root), kernel=args.kernel, card=card_line(), shape=shape, kernels=kernels,

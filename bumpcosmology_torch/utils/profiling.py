@@ -26,11 +26,12 @@ profiler is off a span costs one check.  The spans, each inside its parent:
 * ``loglike.tables``: the mass family's tables, the cosmology and the
   detector tables, forward, inside ``potential.loglike``, on every family's
   joint route: the bump's table by kernel A (``likelihoods._frame_tables``),
-  or another family's intensity (``likelihoods.pop_cosmo_event_sel_logwts``);
-* ``loglike.qnorm``: POWER-LAW+PEAK's or BROKEN POWER LAW's q-norm table and
-  pivot (``likelihoods._build_plpeak``, ``_build_brokenpl``), inside
-  ``loglike.tables`` on the joint route and inside ``potential.loglike`` on
-  the population-only one;
+  or another family's intensity (``likelihoods._family_tables``);
+* ``loglike.qnorm``: POWER-LAW+PEAK's or BROKEN POWER LAW's q-norm table
+  (``likelihoods._QNormFamily``), inside ``loglike.tables`` on the joint
+  route (on the card's kernel-F route the grid alone: F computes the pivot)
+  and with the pivot elsewhere (the CPU, the deterministics, and inside
+  ``potential.loglike`` on the population-only route);
 * ``loglike.backward``: the backward from the log-likelihood's output to
   its sites, recorded on autograd's thread, inside ``potential.value_and_grad``.
 
@@ -45,7 +46,8 @@ The counters (:func:`counters`) are plain integers: ``model.value_and_grads``
 (batched value+grads), ``nuts.host_syncs`` (reads of the device by NUTS's
 transitions and its step-size search: a leapfrog's active-chain check and
 its ``nonzero``, one check a subtree) and the hand-written kernels'
-launches, ``cuda_bump.*``, ``cuda_logwts.*``, ``cuda_priors.*`` and ``cuda_snr.*``.
+launches, ``cuda_bump.*``, ``cuda_logwts.*``, ``cuda_families.*``, ``cuda_priors.*`` and
+``cuda_snr.*``.
 
 The JAX package's ``xla_cost`` (XLA's static flops and bytes of a jitted
 function) has no counterpart: the port compiles nothing with XLA.  The
@@ -213,12 +215,12 @@ def counters() -> Dict[str, int]:
     value+grads, NUTS's reads of the device and the kernels' launches."""
     from bumpcosmology_torch.inference import model, nuts
     from bumpcosmology_torch.mock import cuda_snr
-    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts, cuda_priors
+    from bumpcosmology_torch.ops import cuda_bump, cuda_families, cuda_logwts, cuda_priors
 
     out = {}
     for prefix, counts in (("model", model.COUNTS), ("nuts", nuts.COUNTS), ("cuda_bump", cuda_bump.LAUNCHES),
-                           ("cuda_logwts", cuda_logwts.LAUNCHES), ("cuda_priors", cuda_priors.LAUNCHES),
-                           ("cuda_snr", cuda_snr.LAUNCHES)):
+                           ("cuda_logwts", cuda_logwts.LAUNCHES), ("cuda_families", cuda_families.LAUNCHES),
+                           ("cuda_priors", cuda_priors.LAUNCHES), ("cuda_snr", cuda_snr.LAUNCHES)):
         out.update((f"{prefix}.{k}", v) for k, v in counts.items())
     return out
 

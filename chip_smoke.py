@@ -60,6 +60,17 @@ holds every CUDA kernel against its plain PyTorch twin:
    potential on the card, so every phase below that counts launches also
    holds P's: once forward a potential on the card, once backward a
    value+grad;
+3f. kernel F (the q-normalised families' joint rows, pivot and segment
+   log-sum-exps, ``csrc/families.cu``) for POWER-LAW+PEAK at the shape of the
+   benchmark's cell ``flagship_plpeak.nuts`` (56 x 128 PE samples and 1,024
+   injections, n_z = 1,024, n_grid = 256, its 4 committed chains), forward
+   and backward against its eager twin on the card (the log-sum-exps rtol
+   2e-5 / atol 2e-5, the cotangents phase 3's rtol 5e-4 and 5e-4 of the
+   largest), timed beside the twin's eager call and bounded by its
+   operations and bytes (``tools/kernel_times.kernel_f_times``).  Every
+   phase below that counts launches holds F's as well: on a family's joint
+   route on the card, once forward a potential and once backward a
+   value+grad, nothing elsewhere;
 4. the 16-chain potential value+grad (through the ``lse`` epilogue), kernels
    against twins: |dU|/(1+|U|) < 2e-4 and |dgrad|/(1+|grad|) < 5e-3, timed with
    CUDA events; two value+grads at the same thetas must agree bit for bit;
@@ -124,8 +135,10 @@ holds every CUDA kernel against its plain PyTorch twin:
    ``mass_family="brokenpl"`` on phase 6's mock fit inputs at their full
    width (every catalog event x 128 samples and 1,024 selection rows), and
    (b) ``run_pop_cosmo_fit`` with ``mass_family="plpeak"`` on the flagship
-   catalog, with the checks of phases 7-8: every launch count (A, B, C)
-   0 (these families run no kernel, in either package); the trace reads
+   catalog, with the checks of phases 7-8: kernels A, B and C never (the
+   population-only route and the deterministics are plain PyTorch), and
+   kernel F in (b) alone, once forward a potential and once backward a
+   value+grad (the family's joint route on the card); the trace reads
    back with the family's file name and attrs; the potential and gradient at
    the adapted state, and the deterministics of the run's draws, against
    the same built on the CPU from the same tables (phase 4's limits, 2e-4);
@@ -148,7 +161,8 @@ holds every CUDA kernel against its plain PyTorch twin:
    every launch count set to 0 before each stage and read after it: (a)
    ``_stage_compare`` at ``CompareConfig``'s defaults (batches of 64 draws:
    kernel A's forward and B's ``lse`` forward once a joint batch of the
-   pointwise matrix and of the evidence, no backward), each pointwise row
+   pointwise matrix and of the evidence, PLPeak's F forward once a batch,
+   no backward), each pointwise row
    summing to the model's log-likelihood within 2e-4, the joint matrix card
    against CPU within 2e-4; (b) ``_stage_ppc`` at ``PpcConfig``'s defaults
    (B's ``rows`` forward once a joint batch of 32), on the first batch B
@@ -210,25 +224,27 @@ holds every CUDA kernel against its plain PyTorch twin:
    and pandas import here, and with all three the figures of phases 7-12's
    artifacts are drawn;
 15. the SBC certificates' paths: (a) the PLPEAK and BROKENPL joint
-   potentials (plain PyTorch: the fused detector-table route through
-   ``ops/interp.py``'s lookup) at 16 prior draws, on the flagship shared by
-   the chains and on 16 leave-one-out catalogs one a chain: two value+grads
-   bit-identical, the first 4 chains card against CPU at phase 4's limits,
-   no launch but P's, once each way a value+grad on the card; (b) the
+   potentials (kernel F on the card; on the CPU its eager twin, the fused
+   detector-table route through ``ops/interp.py``'s lookup) at 16 prior
+   draws, on the flagship shared by the chains and on 16 leave-one-out
+   catalogs one a chain: two value+grads bit-identical, the first 4 chains
+   card against CPU at phase 4's limits, no launch but P's and F's (F's
+   shared or per-chain layout as the catalogs are), each once each way a
+   value+grad on the card; (b) the
    certificate's kernel shapes, run in phases 2 and 3: kernel A at C = 128, G = 128 and kernel B's both epilogues on 128
    per-chain tables of 7,680 rows at K = 256, G = 128, against their twins;
    (c) ``tools/sbc_certificate.py --family plpeak`` at the reference
    configuration cut to 8 simulations and 5 + 4 transitions at ``max_depth``
    4, every launch count set to 0 before and read after (the campaign's:
-   kernel C, and A's forward at most once; and the fleet's priors: P once
-   backward a value+grad, once forward besides for each of the 16 start
-   candidates):
+   kernel C, and A's forward at most once; and the fleet's potentials: P and
+   F's per-chain layout once backward a value+grad, once forward besides
+   for each of the 16 start candidates):
    the artifact's keys and ranks, the rate check; the verdict is printed,
    not held.
 
 The ``kernels`` line's ``launches`` are phase 7's (the joint fit, C: phase
 6's stages, B's per-chain rows: phase 11b's, and at the LOO fleet's shape
-phase 12d's); ``launches_by_path`` gives every path, phases 4b and 6-15 (phase
+phase 12d's, F: phase 10b's, the PLPeak joint fit); ``launches_by_path`` gives every path, phases 4b and 6-15 (phase
 14's on each rank: the sharded value+grad and the three mesh fits; and
 the launches of 14c and 14d).  Every kernel is
 timed twice: ``ms`` is its device time (20 launches captured
@@ -501,7 +517,7 @@ def run(mock_dir: Path) -> int:
     )
     from bumpcosmology_torch.inference.model import constrain, make_potential, value_and_grad
     from bumpcosmology_torch.inference.nuts import NutsConfig, run_sampling
-    from bumpcosmology_torch.ops import _build, cuda_bump, cuda_logwts, cuda_priors, launch_floor
+    from bumpcosmology_torch.ops import _build, cuda_bump, cuda_families, cuda_logwts, cuda_priors, launch_floor
     from bumpcosmology_torch.utils.checkpoint import load_warmup
 
     card = card_line()
@@ -728,6 +744,8 @@ def run(mock_dir: Path) -> int:
     # ---- phase 3p: kernel P --------------------------------------------
     rows.update(kernel_p_phase(tag))
     phase_done("3p_kernel_p")
+    rows.update(kernel_f_phase(tag))
+    phase_done("3f_kernel_f")
 
     # ---- phase 4: potential value+grad ----------------------------------
     pot, pot_plain = make_potential(spec), make_potential(spec_plain)
@@ -757,7 +775,7 @@ def run(mock_dir: Path) -> int:
     phase_done("4b_potential_n_z_8192")
 
     # ---- phase 5: NUTS sampling through the kernels ----------------------
-    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_priors.LAUNCHES)
+    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_priors.LAUNCHES, cuda_families.LAUNCHES)
     for cnt in counters:
         for k in cnt:
             cnt[k] = 0
@@ -836,11 +854,13 @@ def run(mock_dir: Path) -> int:
     chees_launches = chees_pop_phase(dev, tag, pop_spec, pop_theta0)
     phase_done("9b_chees_pop")
 
-    # ---- phase 10: the other mass families, no kernel on their path ------
+    # ---- phase 10: the other mass families, kernel F on the joint route ---
     brokenpl_launches = fit_phase(dev, tag, "pop", family="brokenpl", data_dir=mock_dir)[0]
     phase_done("10a_brokenpl_pop_fit")
     plpeak_launches = fit_phase(dev, tag, "joint", family="plpeak", trace_dir=compare_dir)[0]
     phase_done("10b_plpeak_joint_fit")
+    for k in FAMILIES:  # F's main path is the families' joint fit
+        launches[k] = plpeak_launches[k]
 
     # ---- phase 11: the calibration suite ----------------------------------
     sbc_pop_launches = sbc_phase(dev, tag, "pop")
@@ -874,7 +894,8 @@ def run(mock_dir: Path) -> int:
     log(f"phase wall times (host clock, s): {json.dumps(phase_s)}")
 
     sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
-               "snr": "bumpcosmology_torch/csrc/snr.cu", "priors": "bumpcosmology_torch/csrc/priors.cu"}
+               "snr": "bumpcosmology_torch/csrc/snr.cu", "priors": "bumpcosmology_torch/csrc/priors.cu",
+               "families": "bumpcosmology_torch/csrc/families.cu"}
     replaces = {
         "bump_fwd": "bumpcosmology_tpu/ops/pallas_bump.py:177",
         "bump_bwd": "bumpcosmology_tpu/ops/pallas_bump.py:199",
@@ -891,6 +912,8 @@ def run(mock_dir: Path) -> int:
         "snr_integral": "bumpcosmology_tpu/mock/pallas_snr.py:116",
         "priors_fwd": "none: the priors of bumpcosmology_tpu/inference/model.py, which XLA fuses",
         "priors_bwd": "none: the priors of bumpcosmology_tpu/inference/model.py, which XLA fuses",
+        "families_fwd": "none: the JAX package's q-normalised families go through XLA (likelihoods.py:351-361)",
+        "families_bwd": "none: the JAX package's q-normalised families go through XLA (likelihoods.py:351-361)",
     }
     kernels = []
     for name, row in rows.items():
@@ -919,6 +942,10 @@ def run(mock_dir: Path) -> int:
         elif name in PRIORS:
             status = ("ok: built, matches the per-site code; launched on every potential on the card (phase 3p: "
                       "C = 4 and C = 128; the kernels line's row C = 4)")
+        elif name in FAMILIES:
+            status = ("ok: built, matches its eager twin (phase 3f: POWER-LAW+PEAK at flagship_plpeak.nuts's "
+                      "shape); launched on the q-normalised families' joint route on the card (phases 10b, 12a, "
+                      "15a, 15c)")
         elif name.endswith("_per_chain_loo"):
             status = ("ok: built, matches its plain twin; a query table per chain at the LOO fleet's shape (phase 3: "
                       "56 x 38,656 rows); launched on the LOO fleet of the joint model (phase 12d)")
@@ -1207,9 +1234,9 @@ def _counting_hmc_steps(steps: list):
 
 def _counters():
     from bumpcosmology_torch.mock import cuda_snr
-    from bumpcosmology_torch.ops import cuda_bump, cuda_logwts, cuda_priors
+    from bumpcosmology_torch.ops import cuda_bump, cuda_families, cuda_logwts, cuda_priors
 
-    return cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_snr.LAUNCHES, cuda_priors.LAUNCHES
+    return cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_snr.LAUNCHES, cuda_priors.LAUNCHES, cuda_families.LAUNCHES
 
 
 def _zero_counters():
@@ -1226,10 +1253,26 @@ def _zero_counters():
 
 
 PRIORS = ("priors_fwd", "priors_bwd")
+FAMILIES = ("families_fwd", "families_bwd")
 
 
-def _but_priors(launches: dict) -> dict:
-    return {k: v for k, v in launches.items() if k not in PRIORS}
+def _but_priors(launches: dict, families: bool = False) -> dict:
+    """The launches but kernel P's, and with ``families`` but kernel F's (every key of ``cuda_families``)."""
+    return {k: v for k, v in launches.items() if k not in PRIORS and not (families and k.startswith("families_"))}
+
+
+def check_families(label: str, launches: dict, n_vg: int, n_pot=None, layout: str = "") -> None:
+    """Kernel F launched once forward for each of ``n_pot`` potentials (by
+    default the ``n_vg`` value+grads alone) and once backward for each of
+    the ``n_vg`` value+grads, all on ``layout`` (``""``: a query table shared
+    by the chains; ``"_per_chain"``) and the backward's shared-memory route,
+    and nothing else of F."""
+    n_pot = n_vg if n_pot is None else n_pot
+    got = {k: v for k, v in launches.items() if k.startswith("families_") and v}
+    want = {k: v for k, v in (("families_fwd" + layout, n_pot), ("families_bwd" + layout, n_vg)) if v}
+    if got != want:
+        raise AssertionError(f"{label}: kernel F launched {got}, not {want} (once forward a potential, once "
+                             "backward a value+grad)")
 
 
 def check_priors(label: str, launches: dict, n_vg: int, n_pot=None) -> None:
@@ -1771,12 +1814,12 @@ def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None, tr
 
     # the kernels on the path: the bump's once per batched value+grad, the forward alone for the prior draws'
     # potentials and for each chunk of the deterministics (kernel B's rows forward on the joint model); the
-    # other families' none
+    # other families' joint potentials kernel F (checked below), their deterministics and population-only fit none
     c, n_draws = FIT_CHAINS, FIT_CHAINS * FIT_SAMPLES
     n_chunks = -(-n_draws // 128)
     n_prior = calls["value"]
     if not bump:
-        ok = not any(_but_priors(launches).values())
+        ok = not any(_but_priors(launches, families=True).values())
     elif joint:
         ok = (launches["bump_bwd"] == launches["logwts_lse_bwd"] == n_vg() and launches["logwts_fwd"] == n_chunks
               and launches["bump_fwd"] == launches["logwts_lse_fwd"] + n_chunks == n_vg() + n_prior + n_chunks
@@ -1789,6 +1832,10 @@ def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None, tr
             "zero on every kernel but P" if not bump else f"one of each kernel per value+grad ({n_vg()}), {n_chunks} "
             "forwards for the deterministics") + f": {launches}")
     check_priors(f"fit ({family}, {model})", launches, n_vg(), n_vg() + n_prior)
+    if joint and not bump:
+        check_families(f"fit ({family}, {model})", launches, n_vg(), n_vg() + n_prior)
+    else:
+        check_families(f"fit ({family}, {model})", launches, 0)
     warm = res.warmup_state
     if warm.eps.shape != (c,) or not bool(torch.isfinite(warm.eps).all()) or not bool((warm.eps > 0).all()):
         raise AssertionError(f"fit ({family}, {model}): adapted step sizes {warm.eps.tolist()}")
@@ -2117,6 +2164,27 @@ def kernel_p_phase(tag: str) -> dict:
             for name in PRIORS}
 
 
+def kernel_f_phase(tag: str) -> dict:
+    """Phase 3f: kernel F for POWER-LAW+PEAK at the cell ``flagship_plpeak.nuts``'s
+    shape (``tools/kernel_times.kernel_f_times``: held to its eager twin on the
+    card at phase 3's limits, each launch timed, bounded and beside the twin's
+    eager call).  Returns the kernels-line rows of the forward and the backward."""
+    from bumpcosmology_torch.tools.kernel_times import kernel_f_times
+
+    def row(fn, err, **graph_kwargs):
+        ms, call_ms = both_ms(fn, **graph_kwargs)
+        return dict(ms=ms, call_ms=call_ms, max_abs_err=err)
+
+    kernels, shape = kernel_f_times(ROOT, row, check_close, N_GRID, N_Z, SEED)
+    log(f"{tag} phase 3f kernel F (POWER-LAW+PEAK, {json.dumps(shape)}; max_abs_err against the eager twin on the "
+        f"card; ms device time in one replayed graph, call_ms one eager call, plain_ms the twin's eager call, "
+        f"bound_ms by operations at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s or bytes at {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s): " + json.dumps({k: {f: (float(f"{v:.4g}") if isinstance(v, float) else v) for f, v in r.items()}
+                                 for k, r in kernels.items()}))
+    return {name: dict(kernels[key], bound=(kernels[key]["bound_ms"], kernels[key]["bound_by"]))
+            for name, key in zip(FAMILIES, ("f_fwd_lse", "f_bwd_lse"))}
+
+
 def potential_large_table_phase(tag: str, data, theta, u_1024):
     """Phase 4b: the joint potential of the flagship at ``n_z`` = ``LARGE_N_Z``
     from the committed state (16 chains), a table on kernel B's second
@@ -2308,16 +2376,17 @@ def kernel_b_comparison_shapes(tag: str, data, sites, qry, gen):
 
 
 def family_repeats_phase(dev, tag: str) -> dict:
-    """Phase 15a: the PLPEAK and BROKENPL joint potentials (the fused
-    detector-table route in plain PyTorch, no kernel) at the first 16 of 64
-    prior draws whose value+grad is finite (seed 0), on the flagship shared
-    by the chains and on a fleet of 16 catalogs (the flagship without event
-    ``s`` for chain ``s``: a query table per chain, as the SBC fleet reads
-    it).  Two value+grads must give the same bits; the first 4 chains are
-    held against the same potential on the CPU at phase 4's limits
-    (|dU|/(1+|U|) < 2e-4, |dgrad|/(1+|grad|) < 5e-3); each value+grad is
-    timed (CUDA events, mean of 5).  Every launch count is set to 0 before
-    and read after: none may move.  Returns the launches."""
+    """Phase 15a: the PLPEAK and BROKENPL joint potentials (kernel F on the
+    card, its eager twin on the CPU) at the first 16 of 64 prior draws whose
+    value+grad is finite (seed 0), on the flagship shared by the chains and
+    on a fleet of 16 catalogs (the flagship without event ``s`` for chain
+    ``s``: a query table per chain, as the SBC fleet reads it).  Two
+    value+grads must give the same bits; the first 4 chains are held
+    against the same potential on the CPU at phase 4's limits (|dU|/(1+|U|)
+    < 2e-4, |dgrad|/(1+|grad|) < 5e-3); each value+grad is timed (CUDA
+    events, mean of 5).  Every launch count is set to 0 before and read
+    after: kernels P and F once each way a value+grad on the card (F on the
+    layout of its catalogs), nothing else.  Returns the launches."""
     import torch
 
     from bumpcosmology_torch.benchdata import load_pop_cosmo_data
@@ -2337,21 +2406,21 @@ def family_repeats_phase(dev, tag: str) -> dict:
     with torch.no_grad():
         fleet = take_fleet(make_loo_datas(data), torch.arange(FAMILY_CHAINS, device=dev))
     bits = lambda x: x.view(torch.int32)  # noqa: E731  (a NaN equals itself)
-    results, n_card = {}, [0]
+    results, n_card = {}, {"shared": 0, "fleet": 0}  # value+grads on the card, by layout
 
-    def card_vg(pot, theta):
-        n_card[0] += 1
+    def card_vg(pot, theta, layout):
+        n_card[layout] += 1
         return value_and_grad(pot, theta)
 
     _zero_counters()
     for family in ("plpeak", "brokenpl"):
         fam = MASS_FAMILIES[family]
         theta = family_thetas(fam.cosmo_spec(data, N_GRID, N_Z, device=dev), FAMILY_CHAINS)
-        n_card[0] += 1  # family_thetas: one value+grad of its candidates on the card
+        n_card["shared"] += 1  # family_thetas: one value+grad of its candidates on the card
         for layout, d in (("shared", data), ("fleet", fleet)):
             bounds = dl_bounds_of(d)
             pot = make_potential(fam.cosmo_spec(d, N_GRID, N_Z, device=dev))
-            (u1, g1), (u2, g2) = card_vg(pot, theta), card_vg(pot, theta)
+            (u1, g1), (u2, g2) = card_vg(pot, theta, layout), card_vg(pot, theta, layout)
             torch.cuda.synchronize()
             if not (torch.equal(bits(u1), bits(u2)) and torch.equal(bits(g1), bits(g2))):
                 raise AssertionError(f"{family} joint, {layout} table: two value+grads at the same thetas differ")
@@ -2366,15 +2435,20 @@ def family_repeats_phase(dev, tag: str) -> dict:
             if not (du < 2e-4 and dg < 5e-3):
                 raise AssertionError(f"{family} joint, {layout} table: card vs CPU |dU|/(1+|U|) {du:.3e}, "
                                      f"|dgrad|/(1+|grad|) {dg:.3e}")
-            ms = cuda_ms(lambda: card_vg(pot, theta), reps=5, warmup=1)
+            ms = cuda_ms(lambda: card_vg(pot, theta, layout), reps=5, warmup=1)
             results[f"{family} {layout}"] = dict(du=float(f"{du:.3e}"), dg=float(f"{dg:.3e}"), ms=round(ms, 3))
     launches = _read_counters()
-    if any(_but_priors(launches).values()):
-        raise AssertionError(f"phase 15a: the families' potentials launched kernels other than P: {launches}")
-    check_priors("phase 15a", launches, n_card[0])
+    if any(_but_priors(launches, families=True).values()):
+        raise AssertionError(f"phase 15a: the families' potentials launched kernels other than P and F: {launches}")
+    n_all = n_card["shared"] + n_card["fleet"]
+    check_priors("phase 15a", launches, n_all)
+    check_families("phase 15a, shared", {k: v for k, v in launches.items() if not k.endswith("_per_chain")},
+                   n_card["shared"])
+    check_families("phase 15a, fleet", {k: v for k, v in launches.items() if k.endswith("_per_chain")},
+                   n_card["fleet"], layout="_per_chain")
     log(f"{tag} phase 15a the families' joint value+grads ({FAMILY_CHAINS} chains; the flagship shared, and "
-        f"{FAMILY_CHAINS} leave-one-out catalogs one a chain; kernel P once each way in each of the {n_card[0]} on "
-        f"the card): two bit-identical at each; the first "
+        f"{FAMILY_CHAINS} leave-one-out catalogs one a chain; kernel P once each way in each of the {n_all} on "
+        f"the card, kernel F in each on its layout: {json.dumps(n_card)}): two bit-identical at each; the first "
         f"{FAMILY_CPU_CHAINS} chains card vs CPU and ms a value+grad (CUDA events, mean of 5): {json.dumps(results)}")
     return launches
 
@@ -2387,10 +2461,11 @@ def certificate_tool_phase(dev, tag: str) -> dict:
     certificate's 6.5·10⁶ draws: at SNR 20 a 10⁶-draw campaign detects about
     600 injections, fewer than the 3,584 the fresh-noise simulator draws its
     selection set from).  Every launch count is set to 0 just before and read
-    just after: the campaign's launches only, kernel C (its SNRs) and kernel
-    A's forward at most once (the fiducial population of its draws, which
-    ``data/weights.py`` builds once a process: phase 6 has built it), no
-    backward and no kernel B (the family's fit is plain PyTorch).  The artifact must carry the
+    just after: the campaign's launches, kernel C (its SNRs) and kernel A's
+    forward at most once (the fiducial population of its draws, which
+    ``data/weights.py`` builds once a process: phase 6 has built it), and
+    the fleet's, kernels P and F (a query table per chain) once backward a
+    value+grad and once forward a potential, no kernel B.  The artifact must carry the
     JAX layout's keys with every rank in [0, n_bins), the rate check must
     have run; the verdict is printed, not held, at this depth.  Returns the
     launches."""
@@ -2421,10 +2496,11 @@ def certificate_tool_phase(dev, tag: str) -> dict:
     if r["rate_p"] is None or not np.isfinite(r["rate_p"]):
         raise AssertionError("phase 15c: the rate check did not run")
     if (launches["snr_integral"] == 0 or launches["bump_fwd"] > 1
-            or any(v for k, v in launches.items() if k not in ("snr_integral", "bump_fwd") + PRIORS)):
+            or any(v for k, v in _but_priors(launches, families=True).items() if k not in ("snr_integral", "bump_fwd"))):
         raise AssertionError(f"phase 15c: launches {launches} (the campaign's: kernel C, A's forward at most "
-                             "once; the fleet's priors: P)")
+                             "once; the fleet's potentials: P and F)")
     check_priors("phase 15c", launches, n_vg, n_vg + 16)  # the 16 start candidates' potentials
+    check_families("phase 15c", launches, n_vg, n_vg + 16, layout="_per_chain")
     log(f"{tag} phase 15c sbc_certificate --family plpeak cut to {CERT_SMOKE_SIMS} simulations, "
         f"{CERT_SMOKE_WARMUP} + {CERT_SMOKE_SAMPLES} transitions at max_depth {CERT_SMOKE_DEPTH}: wall "
         f"{r['wall_s']:.2f} s (campaign {r['campaign_s']:.2f}, simulations {r['simulate_s']:.2f}, candidates "
@@ -2709,13 +2785,14 @@ def _site_label(names) -> str:
 
 # launches of one device batch of phase 12, by model: the joint bump's pointwise and evidence batches run kernel
 # A's forward and kernel B's lse forward (shared table); its PPC batches kernel B's rows forward; the pop bump
-# kernel A's forward alone; PLPeak no kernel; every evidence batch (a potential) kernel P's forward besides
+# kernel A's forward alone; PLPeak's pointwise and evidence batches kernel F's forward, its PPC batches (the rows
+# themselves, eager) no kernel; every evidence batch (a potential) kernel P's forward besides
 _BATCH_LAUNCHES = {
     ("pointwise", "pop"): {"bump_fwd": 1}, ("pointwise", "pop_cosmo"): {"bump_fwd": 1, "logwts_lse_fwd": 1},
-    ("pointwise", "pop_cosmo_plpeak"): {},
+    ("pointwise", "pop_cosmo_plpeak"): {"families_fwd": 1},
     ("evidence", "pop"): {"bump_fwd": 1, "priors_fwd": 1},
     ("evidence", "pop_cosmo"): {"bump_fwd": 1, "logwts_lse_fwd": 1, "priors_fwd": 1},
-    ("evidence", "pop_cosmo_plpeak"): {"priors_fwd": 1},
+    ("evidence", "pop_cosmo_plpeak"): {"families_fwd": 1, "priors_fwd": 1},
     ("ppc", "pop"): {"bump_fwd": 1}, ("ppc", "pop_cosmo"): {"bump_fwd": 1, "logwts_fwd": 1},
     ("ppc", "pop_cosmo_plpeak"): {},
 }
@@ -2763,8 +2840,8 @@ def model_comparison_phase(dev, tag: str, data_dir):
     (a) ``_stage_compare`` at ``CompareConfig``'s defaults (160 draws a
     trace in batches of 64): every pointwise and evidence batch of the joint
     bump launches kernel A's forward and kernel B's ``lse`` forward once, the
-    pop bump's kernel A's forward once, PLPeak's nothing, and no backward
-    anywhere; each pointwise row sums to ``pop_loglike`` /
+    pop bump's kernel A's forward once, PLPeak's kernel F's forward once, and
+    no backward anywhere; each pointwise row sums to ``pop_loglike`` /
     ``pop_cosmo_loglike`` at the same draw (|d|/(1+|ref|) < 2e-4); the joint
     bump's matrix on the card against the CPU on its first 64 draws (phase
     4's limit, 2e-4).  (b) ``_stage_ppc`` at ``PpcConfig``'s defaults
@@ -2885,7 +2962,7 @@ def model_comparison_phase(dev, tag: str, data_dir):
         f"{json.dumps(stats)}")
     log("phase 12a table:\n" + table + ("\n" + str(art["attrs/bf_table"]) if str(art["attrs/bf_table"]) else ""))
     for k in ("bump_bwd", "logwts_bwd", "logwts_lse_bwd", "logwts_fwd", "logwts_lse_fwd_per_chain",
-              "logwts_lse_bwd_per_chain", "snr_integral", "priors_bwd"):
+              "logwts_lse_bwd_per_chain", "snr_integral", "priors_bwd", "families_bwd", "families_fwd_per_chain"):
         if launches["12a_compare"][k]:
             raise AssertionError(f"compare: {k} launched {launches['12a_compare'][k]} times")
 

@@ -442,9 +442,10 @@ def test_host_syncs_counts_every_synchronising_call_of_a_plpeak_transition(dev):
     """The same count on the POWER-LAW+PEAK joint fit (the cell
     ``flagship_plpeak.nuts``: its cut catalog and committed adapted state,
     4 chains, depth 6): over a transition ``nuts.host_syncs`` rises by as
-    many as the synchronising calls that CUDA's sync debug mode reports, and
-    a value+grad of the family's potential alone (its eager log-likelihood,
-    the q-norm table and pivot included) reports none."""
+    many as the synchronising calls that CUDA's sync debug mode reports,
+    kernel F launches once forward and once backward a value+grad, and a
+    value+grad of the family's potential alone (the q-norm grid, the
+    cosmology and detector tables and kernel F) reports none."""
     import json
     import warnings
     from pathlib import Path
@@ -480,12 +481,19 @@ def test_host_syncs_counts_every_synchronising_call_of_a_plpeak_transition(dev):
         return out, sum("synchroniz" in str(w.message) for w in caught)
 
     for _ in range(2):
-        before = profiling.counters()["nuts.host_syncs"]
+        before = profiling.counters()
         (state, stats), n = reported(lambda: step(state))
-        counted = profiling.counters()["nuts.host_syncs"] - before
-        assert int(stats.n_leapfrog.max()) > 1 and n == counted
+        after = profiling.counters()
+        delta = {k: after[k] - before[k] for k in after}
+        assert int(stats.n_leapfrog.max()) > 1 and n == delta["nuts.host_syncs"]
+        # kernel F once forward and once backward a value+grad, on the shared query table's shared-memory route
+        assert delta["model.value_and_grads"] > 1
+        assert delta["cuda_families.families_fwd"] == delta["cuda_families.families_bwd"] == \
+            delta["model.value_and_grads"]
+        assert sum(v for k, v in delta.items() if k.startswith("cuda_families.")) == 2 * delta["model.value_and_grads"]
     _, n = reported(lambda: value_and_grad(potential, state.theta))
     assert n == 0
+
 
 def _priors_on(dev, spec, theta, g_lp, g_sites):
     """``(log_prior, sites (C, dim), grad)`` of ``model.log_prior_and_sites`` at
@@ -574,3 +582,211 @@ def test_priors_kernel_runs_once_each_way_a_value_and_grad_of_a_transition(dev, 
     assert per_site["cuda_priors.priors_fwd"] == per_site["cuda_priors.priors_bwd"] == 0
     assert torch.equal(n_kernel, n_per_site)
     assert kernel["nuts.host_syncs"] == per_site["nuts.host_syncs"]
+
+
+# ---------------------------------------------------------------------------
+# Kernel F: the q-normalised families' joint route
+# ---------------------------------------------------------------------------
+
+# sites on the edges of the POWER-LAW+PEAK model, a chain each (cardbench/tests/test_cardbench_plpeak.py's
+# EDGES); the broken power law takes those of its sites it shares
+FAMILY_EDGES = {
+    "h": (0.7, 0.36, 1.39, 0.68), "Om": (0.3, 0.02, 0.95, 0.31), "w": (-1.0, -1.45, -0.55, -0.9),
+    "alpha": (2.5, 11.9, 1.0 - 1e-13, -3.9), "beta_q": (1.0, -3.9, 0.0, 11.9),
+    "mmin": (8.0, 9.5, 2.1, 5.0), "mmax": (30.05, 99.9, 60.0, 45.0), "lam_peak": (0.3, 0.001, 0.5, 0.99),
+    "mu_m": (45.0, 21.0, 35.0, 20.2), "sigma_m": (8.0, 9.9, 3.0, 1.01), "delta_m": (0.05, 9.95, 4.0, 0.001),
+    "lam": (2.7, -1.2, 6.6, 0.0), "dkappa": (3.0, 1.1, 6.8, 2.0), "zp": (1.9, 0.05, 3.8, 1.0),
+    "R_unit": (0.0, 1.0, -1.0, 0.5),
+}
+
+
+def _family_case(dev, family, c, layout, dtype, seed=5, edges=False, nobs=8, nsamp=64, nsel=1024):
+    """(data, sites) of a small joint fit of ``family`` on the card: one
+    synthetic catalog shared by the chains, or (``per_chain``) four catalogs
+    a chain each in turn; the sites at ``c`` prior draws, or at the model's
+    edges (``c`` = 4)."""
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.model import ModelSpec, constrain, prior_sample
+    from bumpcosmology_torch.testing import synthetic_pop_cosmo_data
+
+    def cast(d):
+        return lk.PopCosmoData(*(type(x)(*(t.to(dtype) for t in x)) for x in (d.events, d.selection)))
+
+    cats = [cast(synthetic_pop_cosmo_data(nobs, nsamp, nsel, seed=3 + s, device=dev)) for s in range(4)]
+    data = lk.stack_fleet([cats[i % 4] for i in range(c)]) if layout == "per_chain" else cats[0]
+    spec = ModelSpec(priors=dict(lk.MASS_FAMILIES[family].cosmo_priors), loglike=None, device=torch.device("cpu"))
+    theta = prior_sample(spec, torch.Generator().manual_seed(seed), shape=(c,)).to(dtype)
+    sites = constrain(spec, theta)
+    if edges:
+        sites.update({k: torch.tensor(v, dtype=dtype) for k, v in FAMILY_EDGES.items() if k in sites})
+    return data, {k: v.detach().to(dev) for k, v in sites.items()}
+
+
+def _family_value_and_grad(family, data, sites, plain, n_grid=128, n_z=256, bounds=None, g=None):
+    """``(lse_ev, lse_sel, {site: gradient}, launches)`` of the joint route:
+    kernel F (``plain=False``) or its eager twin on the card; the gradient of
+    the log-likelihood, or with ``g = (g_ev, g_sel)`` of the log-sum-exps
+    weighted by them; ``launches`` the change of ``cuda_families.LAUNCHES``."""
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.ops import cuda_families
+
+    build = lk.MASS_FAMILIES[family].build
+    bounds = lk.dl_bounds_of(data, margin=0.1) if bounds is None else bounds
+    leaves = {k: v.clone().requires_grad_(True) for k, v in sites.items()}
+    before = dict(cuda_families.LAUNCHES)
+    lse_ev, lse_sel = lk.pop_cosmo_segment_lse(leaves, data, n_grid, n_z, bounds, lk.query_table(data), plain, build)
+    if g is None:
+        nobs, nsamp = data.events.a.shape[-2:]
+        loss = (lse_ev.sum(-1) - nobs * lse_sel).sum()
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    else:
+        grads = torch.autograd.grad((lse_ev, lse_sel), list(leaves.values()), g, allow_unused=True)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in cuda_families.LAUNCHES.items() if v != before[k]}
+    grads = {k: torch.zeros_like(v) if d is None else d for (k, v), d in zip(leaves.items(), grads)}
+    return lse_ev.detach(), lse_sel.detach(), grads, launches
+
+
+def _assert_family_close(got, ref):
+    """The families' parity limits on the card: |d lse| / (1 + |lse|) < 2e-4,
+    |d grad| / (1 + |grad|) < 5e-3, site by site."""
+    for a, b in zip(got[:2], ref[:2]):
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+        fin = torch.isfinite(b)
+        assert float(((a[fin] - b[fin]).abs() / (1 + b[fin].abs())).max()) < 2e-4
+    for k, b in ref[2].items():
+        a = got[2][k]
+        assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()), k
+        assert float(((a - b).abs() / (1 + b.abs())).max()) < 5e-3, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", ["shared", "per_chain"])
+@pytest.mark.parametrize("c", [1, 4, 128])
+@pytest.mark.parametrize("family", ["plpeak", "brokenpl"])
+def test_family_kernel_matches_the_eager_twin(dev, family, c, layout, dtype):
+    """Kernel F's per-event and selection log-sum-exps and the gradient of
+    the log-likelihood by every site against the eager twin on the card
+    (``plain=True``), within the families' parity limits; F launches once
+    each way, on the layout's counter, and the twin launches nothing of it."""
+    data, sites = _family_case(dev, family, c, layout, dtype)
+    got = _family_value_and_grad(family, data, sites, plain=False)
+    ref = _family_value_and_grad(family, data, sites, plain=True)
+    suffix = "_per_chain" if layout == "per_chain" else ""
+    assert got[3] == {"families_fwd" + suffix: 1, "families_bwd" + suffix: 1} and ref[3] == {}
+    _assert_family_close(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("family", ["plpeak", "brokenpl"])
+def test_family_kernel_at_the_model_edges(dev, family, dtype):
+    """The same at sites on the model's edges: alpha within 1e-13 of 1 (the
+    power law's series branch), delta_m at 0.001 and 9.95, lam_peak at
+    0.001 and 0.99, redshift parameters at their bounds."""
+    data, sites = _family_case(dev, family, 4, "shared", dtype, edges=True)
+    _assert_family_close(_family_value_and_grad(family, data, sites, plain=False),
+                         _family_value_and_grad(family, data, sites, plain=True))
+
+
+@pytest.mark.parametrize("layout", ["shared", "per_chain"])
+@pytest.mark.parametrize("family", ["plpeak", "brokenpl"])
+def test_family_kernel_backward_is_bit_identical_between_launches(dev, family, layout):
+    """Two value+grads through kernel F give the same bits, with the shared
+    query table and with one a chain: the table cotangents are summed in
+    fixed point and the chain's sums in a fixed order."""
+    data, sites = _family_case(dev, family, 4, layout, torch.float32)
+    first = _family_value_and_grad(family, data, sites, plain=False)
+    second = _family_value_and_grad(family, data, sites, plain=False)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    for k, v in first[2].items():
+        assert torch.equal(v.view(torch.int32), second[2][k].view(torch.int32)), k
+
+
+@pytest.mark.parametrize("family", ["plpeak", "brokenpl"])
+def test_family_kernel_gives_an_all_dead_segment_minus_infinity_and_no_gradient(dev, family):
+    """An event whose rows all weigh -inf (log pdraw = +inf): F returns -inf
+    for it and finite gradients under a non-zero cotangent of every
+    segment, the same as the eager twin on the catalog without that event
+    (whose own logsumexp backward would give NaN there)."""
+    from bumpcosmology_torch.inference import likelihoods as lk
+
+    data, sites = _family_case(dev, family, 4, "shared", torch.float32)
+    bounds = lk.dl_bounds_of(data, margin=0.1)
+    ev = data.events
+    dead = data._replace(events=ev._replace(log_pdraw=torch.cat([torch.full_like(ev.log_pdraw[:1], float("inf")),
+                                                                 ev.log_pdraw[1:]])))
+    alive = data._replace(events=type(ev)(*(x[1:] for x in ev)))
+    nobs = ev.a.shape[0]
+    gen = torch.Generator().manual_seed(3)
+    g_ev, g_sel = torch.rand((4, nobs), generator=gen).to(dev), torch.rand((4,), generator=gen).to(dev)
+    got = _family_value_and_grad(family, dead, sites, plain=False, bounds=bounds, g=(g_ev, g_sel))
+    ref = _family_value_and_grad(family, alive, sites, plain=True, bounds=bounds, g=(g_ev[:, 1:], g_sel))
+    assert bool(torch.isneginf(got[0][:, 0]).all())
+    _assert_family_close((got[0][:, 1:], got[1], got[2]), ref[:3])
+
+
+@pytest.mark.parametrize("layout", ["shared", "per_chain"])
+def test_family_kernel_backward_in_device_memory(dev, layout):
+    """A detector table of 8,192 rows, beyond the backward's shared memory:
+    the backward takes its device-memory route (``_global``), matches the
+    twin, and repeats bit for bit."""
+    data, sites = _family_case(dev, "plpeak", 4, layout, torch.float32)
+    got = _family_value_and_grad("plpeak", data, sites, plain=False, n_z=8192)
+    suffix = "_per_chain" if layout == "per_chain" else ""
+    assert got[3] == {"families_fwd" + suffix: 1, "families_bwd_global" + suffix: 1}
+    _assert_family_close(got, _family_value_and_grad("plpeak", data, sites, plain=True, n_z=8192))
+    again = _family_value_and_grad("plpeak", data, sites, plain=False, n_z=8192)
+    for k, v in got[2].items():
+        assert torch.equal(v, again[2][k]), k
+
+
+def kernel_b_digests(dev):
+    """sha256 of kernel B's outputs on fixed inputs, both epilogues, both
+    directions, both query layouts and both backward routes (K = 1,024 and
+    8,192), and of the bump's joint value+grad at 4 chains of the committed
+    flagship state: what the shared skeleton (``csrc/rows.cuh``) must leave
+    as it was."""
+    import hashlib
+    from pathlib import Path
+
+    from bumpcosmology_torch.benchdata import load_pop_cosmo_data
+    from bumpcosmology_torch.inference.likelihoods import pop_cosmo_model_spec
+    from bumpcosmology_torch.inference.model import make_potential, value_and_grad
+    from bumpcosmology_torch.utils import load_warmup
+
+    rng = np.random.default_rng(2021)
+    raw = hashlib.sha256()
+    c, nobs, nsamp, nsel = 4, 16, 128, 2048
+    n = nobs * nsamp + nsel
+    for k in (1024, 8192):
+        tables, qry = _logwts_inputs(rng, dev, c, k, 256, n)
+        for q in (qry, torch.stack([qry[torch.as_tensor(rng.permutation(n), device=dev)] for _ in range(c)])):
+            out = cuda_logwts._logwts_fwd_cuda(*tables, q)
+            g = torch.as_tensor(rng.normal(size=(c, n)).astype(np.float32), device=dev) * torch.isfinite(out)
+            lse_ev, lse_sel = cuda_logwts._logwts_lse_fwd_cuda(*tables, q, nobs, nsamp)
+            g_ev = torch.as_tensor(rng.normal(size=(c, nobs)).astype(np.float32), device=dev)
+            g_sel = torch.as_tensor(rng.normal(size=c).astype(np.float32), device=dev)
+            for x in (out, *cuda_logwts._logwts_bwd_cuda(*tables, q, g), lse_ev, lse_sel,
+                      *cuda_logwts._logwts_lse_bwd_cuda(*tables, q, lse_ev, lse_sel, g_ev, g_sel, nobs, nsamp)):
+                raw.update(x.cpu().numpy().tobytes())
+    bench = Path(cuda_logwts.__file__).resolve().parents[2] / "benchmarks"
+    spec = pop_cosmo_model_spec(load_pop_cosmo_data(bench / "flagship_catalog.npz", device=dev), 256, 1024,
+                                device=dev)
+    theta = load_warmup(bench / "flagship_warmup16.npz", device=dev).state.theta[:4]
+    vg = hashlib.sha256()
+    for x in value_and_grad(make_potential(spec), theta):
+        vg.update(x.cpu().numpy().tobytes())
+    return {"kernel_b": raw.hexdigest(), "bump_value_and_grad": vg.hexdigest()}
+
+
+# kernel_b_digests on an H100 80GB HBM3 (sm_90a, ops/_build.py's flags) before kernel F shared B's skeleton
+KERNEL_B_DIGESTS = {"kernel_b": "3f28a53468168c7c173f5622140426ba1ade76cafba5e515e16b4fc63ca0cf5a",
+                    "bump_value_and_grad": "fa12d569e2326d7347f99473b607c1af2402664da17d3cce9aa6a9b9742f92d9"}
+
+
+def test_kernel_b_gives_the_bits_it_gave_before_the_shared_skeleton(dev):
+    """Kernel B, and the bump's joint value+grad through it, give the same
+    bits as before ``csrc/rows.cuh`` took their skeleton out of ``logwts.cu``."""
+    if torch.cuda.get_device_capability(dev) != (9, 0):
+        pytest.skip("the digests were taken on an sm_90 card")
+    assert kernel_b_digests(dev) == KERNEL_B_DIGESTS

@@ -532,10 +532,10 @@ def test_snr_integral_never_takes_a_plain_version_for_a_cuda_tensor(snr_plain_ca
 def _extern_c_declarations(source: str):
     """{function: [ctypes type per argument]} of the ``extern "C" int f(...)``
     definitions of a CUDA source: a pointer is ``c_void_p``, an ``int`` is
-    ``c_int``, a ``float`` is ``c_float``."""
+    ``c_int``, a ``float`` is ``c_float``, a ``double`` is ``c_double``."""
     import ctypes
 
-    scalars = {"int": ctypes.c_int, "float": ctypes.c_float}
+    scalars = {"int": ctypes.c_int, "float": ctypes.c_float, "double": ctypes.c_double}
     out = {}
     for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source):
         kinds = []
@@ -552,7 +552,7 @@ def _extern_c_declarations(source: str):
 
 @pytest.mark.parametrize("source,module", [("bump", "ops.cuda_bump"), ("logwts", "ops.cuda_logwts"),
                                            ("floor", "ops.launch_floor"), ("snr", "mock.cuda_snr"),
-                                           ("priors", "ops.cuda_priors")])
+                                           ("priors", "ops.cuda_priors"), ("families", "ops.cuda_families")])
 def test_ctypes_signatures_match_the_extern_c_declarations(source, module):
     """A mismatch cuts a pointer to 32 bits or shifts every argument after
     it, without any error; only the source can show it on a host without nvcc."""

@@ -157,3 +157,14 @@ def test_table_row_cotangents_sum_the_same_in_any_order(ncol):
     np.maximum.at(largest, i64, np.abs(g64))
     got = first.reshape(rows, ncol).double().numpy()
     assert np.all(np.abs(got - exact) <= 1e-9 * largest + np.abs(exact) * 2.0 ** -24)
+
+
+def test_table_row_cotangents_that_are_subnormal_sum_exactly():
+    """A float64 row whose cotangents are all subnormal (a density far below
+    its wall, reached through the card's lookups) sums them exactly, where
+    the row's step ``q`` would otherwise round to zero and make it NaN."""
+    flat = torch.zeros(4, dtype=torch.float64, requires_grad=True)
+    g = torch.tensor([1e-310, 2e-310, 1.0, 0.0, 5e-324], dtype=torch.float64)
+    tinterp._Rows.apply(flat, torch.tensor([0, 0, 1, 2, 3])).backward(g)
+    assert flat.grad.tolist() == [1e-310 + 2e-310, 1.0, 0.0, 5e-324]
+
