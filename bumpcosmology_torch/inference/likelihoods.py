@@ -6,8 +6,14 @@ batched over chains, and the registry :data:`MASS_FAMILIES`.
     log L = Σ_events [ logsumexp_samples(log w) − log nsamp ]  −  nobs·log μ_sel
     log μ_sel = logsumexp_injections(log w_sel) − log Ndraw
 
-**Routes by family.** ``build`` ``(sites, n_grid) → intensity`` selects a
-family, ``None`` the PISN bump, as in the JAX package.
+**Routes by family.** ``build`` selects a family, ``None`` the PISN bump,
+as in the JAX package; here it is a family object (:class:`_Family`, the
+``build`` of :data:`MASS_FAMILIES`), and ``build(sites, n_grid)`` is the
+family's intensity, as there.  Each family states its routes once: its
+tables, what ``dl_bounds=None`` means for it, its joint route's per-row
+weights and segment log-sum-exps, and its own deterministics.  Every
+family's joint route takes the family's kernel for CUDA tensors with
+``plain`` false and its plain twin otherwise (:meth:`_Family.takes_kernel`).
 
 * The bump, joint model: the JAX package's fused/Pallas route
   (``_cosmo_frame_logwts_fused``, ``likelihoods.py:339-361``).  Every PE
@@ -62,7 +68,8 @@ counterpart of the JAX package's GSPMD placement.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional
+from functools import partial
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -268,6 +275,10 @@ def make_pop_cosmo_data(m1s_det, qs, dls, pdraw, m1s_det_sel, qs_sel, dls_sel, p
     return PopCosmoData(events=ev, selection=sel)
 
 
+def _redshift_from_sites(sites) -> RedshiftParams:
+    return RedshiftParams(lam=sites["lam"], kappa=sites["lam"] + sites["dkappa"], zp=sites["zp"])
+
+
 def population_from_sites(sites: Dict[str, torch.Tensor]) -> PopulationParams:
     """mbhmax = mpisn + dmbhmax,  fpl = exp(log_fpl),  kappa = lam + dkappa."""
     mass = MassParams(
@@ -275,8 +286,19 @@ def population_from_sites(sites: Dict[str, torch.Tensor]) -> PopulationParams:
         mbhmax=sites["mpisn"] + sites["dmbhmax"], sigma=sites["sigma"],
         fpl=torch.exp(sites["log_fpl"]), beta=sites["beta"],
     )
-    redshift = RedshiftParams(lam=sites["lam"], kappa=sites["lam"] + sites["dkappa"], zp=sites["zp"])
-    return PopulationParams(mass=mass, redshift=redshift)
+    return PopulationParams(mass=mass, redshift=_redshift_from_sites(sites))
+
+
+def plpeak_from_sites(sites: Dict[str, torch.Tensor]) -> PLPeakPopulationParams:
+    """Site dict → PLPeak parameters: every mass site direct, ``kappa = lam + dkappa``."""
+    return PLPeakPopulationParams(mass=PLPeakMassParams(*(sites[k] for k in PLPeakMassParams._fields)),
+                                  redshift=_redshift_from_sites(sites))
+
+
+def brokenpl_from_sites(sites: Dict[str, torch.Tensor]) -> BrokenPLPopulationParams:
+    """Site dict → BrokenPL parameters: every mass site direct, ``kappa = lam + dkappa``."""
+    return BrokenPLPopulationParams(mass=BrokenPLMassParams(*(sites[k] for k in BrokenPLMassParams._fields)),
+                                    redshift=_redshift_from_sites(sites))
 
 
 def cosmo_from_sites(sites: Dict[str, torch.Tensor]) -> CosmoParams:
@@ -342,16 +364,6 @@ def selection_neff_terms(log_sel_wts: torch.Tensor, log_ndraw: torch.Tensor):
     return log_mu, torch.exp(2.0 * log_mu - log_s2)
 
 
-def _frame_tables(sites, n_grid: int, n_z: int, dl_bounds, plain: bool):
-    """The bump's population (kernel A's table), the cosmology table and the
-    detector table of the sites: the span ``loglike.tables`` while the torch
-    profiler records."""
-    with span("loglike.tables"):
-        pop = build_population(population_from_sites(sites), n_grid, plain)
-        cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
-        return pop, cosmo, build_detector_table(cosmo, dl_bounds[0], dl_bounds[1], n=n_z)
-
-
 def _cosmo_frame_logwts(pop, cosmo, rows) -> torch.Tensor:
     """``(C, N)`` detector-frame weights of the ``(4, N)`` rows [m1_det, q,
     dL, log pdraw] on the cosmology table: z = z(dL) by the table's inverse,
@@ -383,6 +395,115 @@ def _cosmo_frame_logwts_fused(pop, det, qry) -> torch.Tensor:
             - qry[..., 3])
 
 
+# ---------------------------------------------------------------------------
+# Mass families: each family's routes, stated once
+# ---------------------------------------------------------------------------
+
+
+class _Family(NamedTuple):
+    """A mass family as the likelihoods take it: the ``build`` of their
+    signatures (``None`` is :data:`_BUMP`, see :func:`_family`).
+
+    ``family(sites, n_grid)`` is its per-draw intensity: the bump's table
+    by kernel A (its plain twin with ``plain=True``), or a q-normalised
+    family's q-norm table and pivot in the span ``loglike.qnorm``
+    (``pivot=False`` leaves the pivot at 0, for kernel F to compute).
+    ``fills_bounds``: ``dl_bounds=None`` means the data's bounds (the bump),
+    or else the non-fused route, as the JAX package's signatures have it.
+    ``rows(pop, det, qry, kernel)`` and ``lse(pop, det, qry, nobs, nsamp,
+    kernel)`` are the fused route's ``(C, N)`` weights and segment
+    log-sum-exps, by the family's kernel or by its plain twin
+    (:meth:`takes_kernel`).  ``extras`` names the family's own
+    deterministic sites, read off its mass parameters (the JAX package's
+    ``_bump_extras``, ``likelihoods.py:549-551``)."""
+
+    name: str  # its key in MASS_FAMILIES; for a q-normalised family, also its code in kernel F
+    intensity: Callable  # (sites, n_grid, plain, pivot) -> intensity
+    fills_bounds: bool
+    rows: Callable
+    lse: Callable
+    extras: tuple
+
+    def __call__(self, sites, n_grid: int, plain: bool = False, pivot: bool = True):
+        return self.intensity(sites, n_grid, plain, pivot)
+
+    @staticmethod
+    def takes_kernel(plain: bool, data) -> bool:
+        """Every family's rule: the kernel for CUDA tensors with ``plain`` false, the plain twin otherwise."""
+        return not plain and data.events.a.device.type == "cuda"
+
+    def bounds(self, dl_bounds, data):
+        """``dl_bounds``; for ``None``, the data's bounds if the family
+        fills them, else ``None`` (the non-fused route)."""
+        return dl_bounds_of(data) if dl_bounds is None and self.fills_bounds else dl_bounds
+
+    def tables(self, sites, n_grid: int, n_z: int, dl_bounds, plain: bool = False, pivot: bool = True):
+        """The intensity, the cosmology table and the detector table (``None``
+        without ``dl_bounds``) of the sites, in the span ``loglike.tables``."""
+        with span("loglike.tables"):
+            pop = self(sites, n_grid, plain, pivot)
+            cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
+            det = None if dl_bounds is None else build_detector_table(cosmo, dl_bounds[0], dl_bounds[1], n=n_z)
+            return pop, cosmo, det
+
+
+def _bump_intensity(sites, n_grid: int, plain: bool, pivot: bool):
+    """The bump's population, its table by kernel A; the bump has no pivot."""
+    return build_population(population_from_sites(sites), n_grid, plain)
+
+
+def _bump_rows(pop, det, qry, kernel: bool):
+    """Kernel B's ``rows`` epilogue, or its twin."""
+    return cosmo_frame_logwts(pop, det, qry, not kernel)
+
+
+def _bump_lse(pop, det, qry, nobs: int, nsamp: int, kernel: bool):
+    """Kernel B's ``lse`` epilogue, or its twin."""
+    return cosmo_frame_logwts_lse(pop, det, qry, nobs, nsamp, not kernel)
+
+
+def _qnorm_intensity(from_sites, build, sites, n_grid: int, plain: bool, pivot: bool):
+    """A q-normalised family's intensity, by its own ``from_sites`` and ``build``."""
+    with span("loglike.qnorm"):
+        return build(from_sites(sites), n_m=n_grid, pivot=pivot)
+
+
+def _qnorm_rows(pop, det, qry, kernel: bool):
+    """Kernel F has no ``rows`` epilogue: the twin on every device."""
+    return _cosmo_frame_logwts_fused(pop, det, qry)
+
+
+def _qnorm_lse(name: str, pop, det, qry, nobs: int, nsamp: int, kernel: bool):
+    """Kernel F on tables built without the pivot, or its twin: the fused
+    route in plain PyTorch with autograd, then ``torch.logsumexp``."""
+    if kernel:
+        scal = family_scalars(name, pop.params.mass, pop.params.redshift)
+        return family_lse(name, det, pop.log_nq, pop.dm, scal, qry, nobs, nsamp)
+    log_w, log_sel_w = _segments(_cosmo_frame_logwts_fused(pop, det, qry), nobs, nsamp)
+    return torch.logsumexp(log_w, -1), torch.logsumexp(log_sel_w, -1)
+
+
+def _qnorm_family(name: str, from_sites, build) -> _Family:
+    return _Family(name, partial(_qnorm_intensity, from_sites, build), False, _qnorm_rows, partial(_qnorm_lse, name),
+                   ())
+
+
+_BUMP = _Family("bump", _bump_intensity, True, _bump_rows, _bump_lse, ("mbhmax", "fpl"))
+_PLPEAK = _qnorm_family("plpeak", plpeak_from_sites, build_plpeak_population)
+_BROKENPL = _qnorm_family("brokenpl", brokenpl_from_sites, build_brokenpl_population)
+
+
+def _family(build) -> _Family:
+    """The family ``build`` selects: ``None`` is the bump, as in the JAX package's signatures."""
+    return _BUMP if build is None else build
+
+
+def _segments(log_w: torch.Tensor, nobs: int, nsamp: int):
+    """``(C, N)`` weights as the events' ``(C, nobs, nsamp)`` and the injections' ``(C, nsel)``."""
+    n_ev = nobs * nsamp
+    return log_w[:, :n_ev].reshape(-1, nobs, nsamp), log_w[:, n_ev:]
+
+
 def pop_cosmo_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopCosmoData,
                                n_grid: int = DEFAULT_N_GRID, n_z: int = 1024, dl_bounds=None,
                                qry=None, plain: bool = False, build=None):
@@ -390,26 +511,20 @@ def pop_cosmo_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopCosmoDat
     per-row detector-frame weights that the deterministics (``neff``,
     ``neff_sel``, ``selection_noise_nats``) consume.
 
-    The bump (``build=None``): one kernel-B launch with the ``rows`` epilogue,
-    the fused branch of the JAX package's ``_pop_cosmo_event_sel_logwts``
-    (``likelihoods.py:472-476``), ``dl_bounds`` defaulting to the data's.
-    Another family: with ``dl_bounds``, the fused route in plain PyTorch;
-    without, the non-fused route, as the JAX package's deterministics take it.
-    A fleet's data (leading axis S = C) give chain ``s`` catalog ``s``."""
-    nobs, nsamp = data.events.a.shape[-2:]
-    if build is None:
-        dl_bounds = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
-        qry = query_table(data) if qry is None else qry
-        pop, cosmo, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
-        log_w = cosmo_frame_logwts(pop, det, qry, plain)  # (C, N)
+    With detector bounds, the fused route through the family's ``rows``:
+    for the bump one kernel-B launch with the ``rows`` epilogue, the fused
+    branch of the JAX package's ``_pop_cosmo_event_sel_logwts``
+    (``likelihoods.py:472-476``), ``dl_bounds`` defaulting to the data's;
+    for another family plain PyTorch.  Another family without
+    ``dl_bounds``: the non-fused route, as the JAX package's deterministics
+    take it.  A fleet's data (leading axis S = C) give chain ``s`` catalog ``s``."""
+    family = _family(build)
+    pop, cosmo, det = family.tables(sites, n_grid, n_z, family.bounds(dl_bounds, data), plain)
+    if det is None:
+        log_w = _cosmo_frame_logwts(pop, cosmo, pop_rows(data))
     else:
-        pop, cosmo, det = _family_tables(build, sites, n_grid, n_z, dl_bounds)
-        if det is None:
-            log_w = _cosmo_frame_logwts(pop, cosmo, pop_rows(data))
-        else:
-            log_w = _cosmo_frame_logwts_fused(pop, det, query_table(data) if qry is None else qry)
-    n_ev = nobs * nsamp
-    return pop, cosmo, log_w[:, :n_ev].reshape(-1, nobs, nsamp), log_w[:, n_ev:]
+        log_w = family.rows(pop, det, query_table(data) if qry is None else qry, family.takes_kernel(plain, data))
+    return (pop, cosmo, *_segments(log_w, *data.events.a.shape[-2:]))
 
 
 def pop_cosmo_segment_lse(sites: Dict[str, torch.Tensor], data: PopCosmoData,
@@ -419,29 +534,25 @@ def pop_cosmo_segment_lse(sites: Dict[str, torch.Tensor], data: PopCosmoData,
     model's weights for sites of shape ``(C,)``: the two terms of the
     likelihood before their constants.
 
-    ``qry`` is :func:`query_table` of ``data`` (computed if not given).  The
-    bump (``build=None``) goes through kernel B's ``lse`` epilogue (``dl_bounds``
-    defaulting to the data's; ``plain=True`` takes the kernels' plain twins
-    whatever the device).  POWER-LAW+PEAK and BROKEN POWER LAW with
-    ``dl_bounds`` on the card go through kernel F (:func:`~bumpcosmology_torch.ops.cuda_families.family_lse`);
-    on the CPU, with ``plain=True`` or without ``dl_bounds``, through
-    :func:`pop_cosmo_event_sel_logwts`'s plain routes, F's twin.  A fleet's
-    data (leading axis S = C) give chain ``s`` catalog ``s``.
+    ``qry`` is :func:`query_table` of ``data`` (computed if not given).  With
+    detector bounds, the family's ``lse``: the bump's kernel B ``lse``
+    epilogue (``dl_bounds`` defaulting to the data's), POWER-LAW+PEAK's and
+    BROKEN POWER LAW's kernel F (:func:`~bumpcosmology_torch.ops.cuda_families.family_lse`),
+    or, on the CPU and with ``plain=True``, their plain twins.  Another
+    family without ``dl_bounds``: :func:`pop_cosmo_event_sel_logwts`'s
+    non-fused route.  A fleet's data (leading axis S = C) give chain ``s``
+    catalog ``s``.
     """
+    family = _family(build)
+    dl_bounds = family.bounds(dl_bounds, data)
+    if dl_bounds is None:
+        _, _, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, None, qry, plain, family)
+        return torch.logsumexp(log_w, -1), torch.logsumexp(log_sel_w, -1)
+    kernel = family.takes_kernel(plain, data)
+    # a kernel computes the pivot itself (F does; the bump has none)
+    pop, _, det = family.tables(sites, n_grid, n_z, dl_bounds, plain, pivot=not kernel)
     nobs, nsamp = data.events.a.shape[-2:]
-    if build is None:
-        dl_bounds = dl_bounds if dl_bounds is not None else dl_bounds_of(data)
-        qry = query_table(data) if qry is None else qry
-        pop, _, det = _frame_tables(sites, n_grid, n_z, dl_bounds, plain)
-        return cosmo_frame_logwts_lse(pop, det, qry, nobs, nsamp, plain)
-    if isinstance(build, _QNormFamily) and not plain and dl_bounds is not None and data.events.a.device.type == "cuda":
-        # kernel F: the tables without the pivot, which F computes
-        pop, _, det = _family_tables(build, sites, n_grid, n_z, dl_bounds, pivot=False)
-        scal = family_scalars(build.name, pop.params.mass, pop.params.redshift)
-        return family_lse(build.name, det, pop.log_nq, pop.dm, scal, query_table(data) if qry is None else qry,
-                          nobs, nsamp)
-    _, _, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, dl_bounds, qry, build=build)
-    return torch.logsumexp(log_w, -1), torch.logsumexp(log_sel_w, -1)
+    return family.lse(pop, det, query_table(data) if qry is None else qry, nobs, nsamp, kernel)
 
 
 def pop_cosmo_loglike(sites: Dict[str, torch.Tensor], data: PopCosmoData,
@@ -498,24 +609,23 @@ def _shared_deterministics(sites, pop, log_wts, log_sel_wts, log_ndraw, nobs: in
     }
 
 
-def _bump_extras(pop):
-    """The bump family's reparameterized sites (``_bump_extras``, ``likelihoods.py:549-551``)."""
-    return {"mbhmax": pop.params.mass.mbhmax, "fpl": pop.params.mass.fpl}
-
-
 def pop_cosmo_deterministics(sites: Dict[str, torch.Tensor], data: PopCosmoData,
                              n_grid: int = DEFAULT_N_GRID, n_z: int = 1024, dl_bounds=None,
-                             qry=None, plain: bool = False) -> Dict[str, torch.Tensor]:
+                             qry=None, plain: bool = False, build=None) -> Dict[str, torch.Tensor]:
     """Every deterministic trace site of the joint model for sites of shape
-    ``(C,)`` (``pop_cosmo_deterministics``, ``likelihoods.py:563-573``): the
-    shared set, ``mbhmax``, ``fpl`` and ``hz = h E(z)`` on ``COORDS["z_grid"]``.
-    The weights come from one kernel-B launch with the ``rows`` epilogue."""
+    ``(C,)`` (``pop_cosmo_deterministics``, ``likelihoods.py:563-573``, and
+    the families' ``*_cosmo_deterministics``): the shared set, the family's
+    own sites (the bump's ``mbhmax`` and ``fpl``) and ``hz = h E(z)`` on
+    ``COORDS["z_grid"]``.  The weights are :func:`pop_cosmo_event_sel_logwts`'s:
+    the bump's from one kernel-B launch with the ``rows`` epilogue, another
+    family's on the non-fused route unless ``dl_bounds`` is given."""
+    family = _family(build)
     nobs = data.events.a.shape[0]
     pop, cosmo, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, dl_bounds, qry,
-                                                              plain)
+                                                              plain, family)
     log_w, log_sel_w = _whole_rows(log_w, log_sel_w, data)
     out = _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
-    out.update(_bump_extras(pop))
+    out.update({k: getattr(pop.params.mass, k) for k in family.extras})
     out["hz"] = _hz(cosmo, log_w)
     return out
 
@@ -543,17 +653,15 @@ def _pop_event_sel_logwts(sites: Dict[str, torch.Tensor], data: PopData, n_grid:
     one :func:`log_dndmdqdv` call.
 
     ``rows`` is :func:`pop_rows` of ``data`` (computed if not given);
-    ``build`` ``(sites, n_grid) → intensity`` selects the family (``None``:
-    the bump, whose table kernel A builds, or its plain twin with ``plain=True``).
-    A fleet's data (leading axis S = C) give chain ``s`` catalog ``s``."""
-    nobs, nsamp = data.events.a.shape[-2:]
+    ``build`` selects the family (``None``: the bump, whose table kernel A
+    builds, or its plain twin with ``plain=True``).  A fleet's data (leading
+    axis S = C) give chain ``s`` catalog ``s``."""
     m1, q, z, log_pdraw = pop_rows(data) if rows is None else rows
-    pop = build_population(population_from_sites(sites), n_grid, plain) if build is None else build(sites, n_grid)
+    pop = _family(build)(sites, n_grid, plain)
     c = next(iter(sites.values())).shape[0]
     log_w = (log_dndmdqdv(pop, m1.expand(c, -1), q.expand(c, -1), z.expand(c, -1))
              + data.planck.log_dvdz_dt(z) - log_pdraw)
-    n_ev = nobs * nsamp
-    return pop, log_w[:, :n_ev].reshape(c, nobs, nsamp), log_w[:, n_ev:]
+    return (pop, *_segments(log_w, *data.events.a.shape[-2:]))
 
 
 def pop_loglike(sites: Dict[str, torch.Tensor], data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None,
@@ -577,15 +685,17 @@ def pop_loglike(sites: Dict[str, torch.Tensor], data: PopData, n_grid: int = DEF
 
 
 def pop_deterministics(sites: Dict[str, torch.Tensor], data: PopData, n_grid: int = DEFAULT_N_GRID,
-                       rows=None, plain: bool = False) -> Dict[str, torch.Tensor]:
+                       rows=None, plain: bool = False, build=None) -> Dict[str, torch.Tensor]:
     """Every deterministic trace site of the population-only model for sites
-    of shape ``(C,)`` (``pop_deterministics``, ``likelihoods.py:554-560``): the
-    shared set, ``mbhmax`` and ``fpl``."""
+    of shape ``(C,)`` (``pop_deterministics``, ``likelihoods.py:554-560``, and
+    the families' ``*_deterministics``): the shared set and the family's own
+    sites (the bump's ``mbhmax`` and ``fpl``)."""
+    family = _family(build)
     nobs = data.events.a.shape[0]
-    pop, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, plain)
+    pop, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, plain, family)
     log_w, log_sel_w = _whole_rows(log_w, log_sel_w, data)
     out = _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
-    out.update(_bump_extras(pop))
+    out.update({k: getattr(pop.params.mass, k) for k in family.extras})
     return out
 
 
@@ -666,114 +776,52 @@ def pop_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: 
 
 # ---------------------------------------------------------------------------
 # POWER-LAW+PEAK (models/plpeak.py) and BROKEN POWER LAW (models/brokenpl.py):
-# the same likelihood skeleton, through ``build``.  Their deterministics are
-# the shared set without the bump's extras (plus ``hz`` for the joint model).
+# the JAX package's names, each the shared function with the family's object.
 # ---------------------------------------------------------------------------
-
-
-def _redshift_from_sites(sites) -> RedshiftParams:
-    return RedshiftParams(lam=sites["lam"], kappa=sites["lam"] + sites["dkappa"], zp=sites["zp"])
-
-
-def plpeak_from_sites(sites: Dict[str, torch.Tensor]) -> PLPeakPopulationParams:
-    """Site dict → PLPeak parameters: every mass site direct, ``kappa = lam + dkappa``."""
-    return PLPeakPopulationParams(mass=PLPeakMassParams(*(sites[k] for k in PLPeakMassParams._fields)),
-                                  redshift=_redshift_from_sites(sites))
-
-
-def brokenpl_from_sites(sites: Dict[str, torch.Tensor]) -> BrokenPLPopulationParams:
-    """Site dict → BrokenPL parameters: every mass site direct, ``kappa = lam + dkappa``."""
-    return BrokenPLPopulationParams(mass=BrokenPLMassParams(*(sites[k] for k in BrokenPLMassParams._fields)),
-                                    redshift=_redshift_from_sites(sites))
-
-
-class _QNormFamily(NamedTuple):
-    """A family normalised in q, as a ``build``: ``build(sites, n_grid)`` is
-    its intensity (q-norm table and pivot, in the span ``loglike.qnorm``);
-    ``name`` is its code in kernel F, which weighs its joint rows on the card."""
-
-    name: str
-    from_sites: object  # sites -> the family's population parameters (mass, redshift)
-    build_population: object  # (params, n_m=, pivot=) -> intensity
-
-    def __call__(self, sites, n_grid, pivot: bool = True):
-        with span("loglike.qnorm"):
-            return self.build_population(self.from_sites(sites), n_m=n_grid, pivot=pivot)
-
-
-def _family_tables(build, sites, n_grid: int, n_z: int, dl_bounds, pivot: bool = True):
-    """A family's intensity, the cosmology table and the detector table
-    (``None`` without ``dl_bounds``) of the sites, in the span ``loglike.tables``."""
-    with span("loglike.tables"):
-        pop = build(sites, n_grid, pivot=pivot)
-        cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
-        return pop, cosmo, None if dl_bounds is None else build_detector_table(cosmo, dl_bounds[0], dl_bounds[1],
-                                                                              n=n_z)
-
-
-_build_plpeak = _QNormFamily("plpeak", plpeak_from_sites, build_plpeak_population)
-_build_brokenpl = _QNormFamily("brokenpl", brokenpl_from_sites, build_brokenpl_population)
-
-
-def _family_deterministics(build, sites, data: PopData, n_grid: int, rows=None):
-    nobs = data.events.a.shape[0]
-    pop, log_w, log_sel_w = _pop_event_sel_logwts(sites, data, n_grid, rows, build=build)
-    log_w, log_sel_w = _whole_rows(log_w, log_sel_w, data)
-    return _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
-
-
-def _family_cosmo_deterministics(build, sites, data: PopCosmoData, n_grid: int, n_z: int):
-    """The non-fused route (no ``dl_bounds``), as the JAX package's family deterministics take."""
-    nobs = data.events.a.shape[0]
-    pop, cosmo, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, build=build)
-    log_w, log_sel_w = _whole_rows(log_w, log_sel_w, data)
-    out = _shared_deterministics(sites, pop, log_w, log_sel_w, data.selection.log_ndraw, nobs)
-    out["hz"] = _hz(cosmo, log_w)
-    return out
 
 
 def plpeak_loglike(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None) -> torch.Tensor:
     """Population-only log-likelihood under POWER-LAW+PEAK."""
-    return pop_loglike(sites, data, n_grid, rows, build=_build_plpeak)
+    return pop_loglike(sites, data, n_grid, rows, build=_PLPEAK)
 
 
 def plpeak_cosmo_loglike(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
                          dl_bounds=None, qry=None, n_det=None) -> torch.Tensor:
     """Joint log-likelihood under POWER-LAW+PEAK (fused route with ``dl_bounds``);
     ``n_det`` as in :func:`pop_cosmo_loglike`, accepted and unused."""
-    return pop_cosmo_loglike(sites, data, n_grid, n_z, dl_bounds, qry, build=_build_plpeak)
+    return pop_cosmo_loglike(sites, data, n_grid, n_z, dl_bounds, qry, build=_PLPEAK)
 
 
 def plpeak_deterministics(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None):
     """Deterministic sites of the PLPeak population-only fit (the shared set)."""
-    return _family_deterministics(_build_plpeak, sites, data, n_grid, rows)
+    return pop_deterministics(sites, data, n_grid, rows, build=_PLPEAK)
 
 
 def plpeak_cosmo_deterministics(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024):
-    """Deterministic sites of the PLPeak joint fit (the shared set + ``hz``)."""
-    return _family_cosmo_deterministics(_build_plpeak, sites, data, n_grid, n_z)
+    """Deterministic sites of the PLPeak joint fit (the shared set + ``hz``), on the non-fused route."""
+    return pop_cosmo_deterministics(sites, data, n_grid, n_z, build=_PLPEAK)
 
 
 def brokenpl_loglike(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None) -> torch.Tensor:
     """Population-only log-likelihood under BROKEN POWER LAW."""
-    return pop_loglike(sites, data, n_grid, rows, build=_build_brokenpl)
+    return pop_loglike(sites, data, n_grid, rows, build=_BROKENPL)
 
 
 def brokenpl_cosmo_loglike(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
                            dl_bounds=None, qry=None, n_det=None) -> torch.Tensor:
     """Joint log-likelihood under BROKEN POWER LAW (fused route with ``dl_bounds``);
     ``n_det`` as in :func:`pop_cosmo_loglike`, accepted and unused."""
-    return pop_cosmo_loglike(sites, data, n_grid, n_z, dl_bounds, qry, build=_build_brokenpl)
+    return pop_cosmo_loglike(sites, data, n_grid, n_z, dl_bounds, qry, build=_BROKENPL)
 
 
 def brokenpl_deterministics(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None):
     """Deterministic sites of the BrokenPL population-only fit (the shared set)."""
-    return _family_deterministics(_build_brokenpl, sites, data, n_grid, rows)
+    return pop_deterministics(sites, data, n_grid, rows, build=_BROKENPL)
 
 
 def brokenpl_cosmo_deterministics(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024):
-    """Deterministic sites of the BrokenPL joint fit (the shared set + ``hz``)."""
-    return _family_cosmo_deterministics(_build_brokenpl, sites, data, n_grid, n_z)
+    """Deterministic sites of the BrokenPL joint fit (the shared set + ``hz``), on the non-fused route."""
+    return pop_cosmo_deterministics(sites, data, n_grid, n_z, build=_BROKENPL)
 
 
 # POWER-LAW+PEAK hyperpriors: the GWTC-3 fiducial analysis ranges.
@@ -808,26 +856,26 @@ BROKENPL_COSMO_PRIORS = {**_COSMO_PRIORS, **_BROKENPL_MASS_PRIORS, **_REDSHIFT_P
 
 def plpeak_model_spec(data: PopData, n_grid: int = DEFAULT_N_GRID, device=None) -> ModelSpec:
     """The POWER-LAW+PEAK population-only model (12 sites) on ``device`` (``None`` means CUDA)."""
-    return _pop_spec(PLPEAK_PRIORS, data, n_grid, device, build=_build_plpeak)
+    return _pop_spec(PLPEAK_PRIORS, data, n_grid, device, build=_PLPEAK)
 
 
 def plpeak_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
                             device=None, n_det=None) -> ModelSpec:
     """The joint POWER-LAW+PEAK + flat-wCDM model (15 sites) on ``device`` (``None`` means CUDA).
     ``n_det``: as in :func:`pop_cosmo_model_spec`, accepted and unused."""
-    return _cosmo_spec(PLPEAK_COSMO_PRIORS, data, n_grid, n_z, device, build=_build_plpeak)
+    return _cosmo_spec(PLPEAK_COSMO_PRIORS, data, n_grid, n_z, device, build=_PLPEAK)
 
 
 def brokenpl_model_spec(data: PopData, n_grid: int = DEFAULT_N_GRID, device=None) -> ModelSpec:
     """The BROKEN POWER LAW population-only model (11 sites) on ``device`` (``None`` means CUDA)."""
-    return _pop_spec(BROKENPL_PRIORS, data, n_grid, device, build=_build_brokenpl)
+    return _pop_spec(BROKENPL_PRIORS, data, n_grid, device, build=_BROKENPL)
 
 
 def brokenpl_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
                               device=None, n_det=None) -> ModelSpec:
     """The joint BROKEN POWER LAW + flat-wCDM model (14 sites) on ``device`` (``None`` means CUDA).
     ``n_det``: as in :func:`pop_cosmo_model_spec`, accepted and unused."""
-    return _cosmo_spec(BROKENPL_COSMO_PRIORS, data, n_grid, n_z, device, build=_build_brokenpl)
+    return _cosmo_spec(BROKENPL_COSMO_PRIORS, data, n_grid, n_z, device, build=_BROKENPL)
 
 
 # ---------------------------------------------------------------------------
@@ -865,7 +913,7 @@ MASS_FAMILIES: Dict[str, MassFamily] = {
         cosmo_trace_name="trace_cosmo.npz",
     ),
     "plpeak": MassFamily(
-        build=_build_plpeak,
+        build=_PLPEAK,
         pop_priors=PLPEAK_PRIORS,
         cosmo_priors=PLPEAK_COSMO_PRIORS,
         pop_spec=plpeak_model_spec,
@@ -876,7 +924,7 @@ MASS_FAMILIES: Dict[str, MassFamily] = {
         cosmo_trace_name="trace_cosmo_plpeak.npz",
     ),
     "brokenpl": MassFamily(
-        build=_build_brokenpl,
+        build=_BROKENPL,
         pop_priors=BROKENPL_PRIORS,
         cosmo_priors=BROKENPL_COSMO_PRIORS,
         pop_spec=brokenpl_model_spec,

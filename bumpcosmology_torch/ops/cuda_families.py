@@ -20,7 +20,7 @@ The backward returns the cotangents of all three: the detector's and the
 q-norm table's reach the sites through the eager code that built them.
 
 The plain twin is the eager code itself: the CPU, and ``plain=True`` on the
-card, take it (``likelihoods.pop_cosmo_segment_lse``).  This module only
+card, take it (the families' ``lse`` in ``inference/likelihoods.py``).  This module only
 launches: a tensor that is not on CUDA, not float32 or float64, not
 contiguous or not of the expected shape raises ``ValueError``.  The table
 cotangents are summed in fixed point (kernel B's), so two launches give the

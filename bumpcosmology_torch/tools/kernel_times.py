@@ -12,8 +12,8 @@ it forward and backward at the flagship shapes on the warm thetas of
 ``benchmarks/flagship_warmup16.npz``, holds each launch against that checkout's
 plain twin at ``chip_smoke.py``'s limits, and prints one JSON line: for each
 kernel ``ms`` (device time) and ``call_ms`` (one eager wrapper call), taken with
-``chip_smoke.py``'s own timers, and ``max_abs_err``; with the card's name and
-power limit.  Needs one NVIDIA GPU and nvcc.
+the timers of this checkout's ``tools/oncard.py``, and ``max_abs_err``; with the
+card's name and power limit.  Needs one NVIDIA GPU and nvcc.
 
 * ``--kernel a``: ``csrc/bump.cu`` at C = 16, G = 256 (phase 2's limits: forward
   rtol 1e-4 / atol 5e-5, VJP rtol 2e-4 / atol 1e-5).
@@ -22,7 +22,7 @@ power limit.  Needs one NVIDIA GPU and nvcc.
   3's limits); where it takes a query table per chain, also the shared table
   copied once per chain (``*_copied``, 16 x 38,912 x 4) and 20 distinct
   per-chain tables of 2,816 rows (``*_per_chain``, the SBC fleet's shape,
-  ``chip_smoke.fleet_queries``) and the leave-one-out fleet's 56 tables of
+  ``oncard.fleet_queries``) and the leave-one-out fleet's 56 tables of
   38,656 rows (``*_per_chain_loo``, ``influence.make_loo_datas``).
 * ``--kernel c``: ``csrc/snr.cu`` on the rows of phase 6's 10^7-draw campaign
   (the same draws as ``chip_smoke.run_campaign``'s, about 7 s of host draws a run), phase 6's
@@ -62,6 +62,11 @@ import argparse
 import json
 import sys
 from pathlib import Path
+
+if __package__:  # imported, as chip_smoke.py imports it
+    from bumpcosmology_torch.tools import oncard
+else:  # run by path: this checkout's oncard.py from this directory, whatever package --root puts first
+    import oncard
 
 HERE = Path(__file__).resolve().parents[2]
 
@@ -107,21 +112,11 @@ def kernel_b_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
     """({kernel: row}, shape) of ``csrc/logwts.cu`` under ``root``."""
     import torch
 
-    from bumpcosmology_torch.inference.likelihoods import (
-        cosmo_from_sites,
-        dl_bounds_of,
-        population_from_sites,
-        query_table,
-    )
-    from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table
-    from bumpcosmology_torch.models.population import build_population
+    from bumpcosmology_torch.inference.likelihoods import query_table
     from bumpcosmology_torch.ops import cuda_logwts as kb
 
     data, sites = warm_sites(root, n_grid, n_z)
-    with torch.no_grad():
-        pop = build_population(population_from_sites(sites), n_grid)
-        det = build_detector_table(build_cosmology(cosmo_from_sites(sites), n=n_z), *dl_bounds_of(data), n=n_z)
-        tables = (det.cols.contiguous(), pop.mass_table.log_bump.contiguous(), kb.pack_scalars(pop, det).contiguous())
+    tables = oncard.b_tables(sites, data, n_z, n_grid)
     qry = query_table(data)
     c, n = tables[0].shape[0], qry.shape[0]
     nobs, nsamp = data.events.a.shape
@@ -158,32 +153,32 @@ def kernel_b_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
 def per_chain_layouts(data, sites, tables, qry, row, gen):
     """Kernel B on (C, N, 4) query tables: the shared table copied per chain,
     the SBC fleet's 20 distinct tables and the leave-one-out fleet's 56 (each
-    held by ``chip_smoke.b_against_twin``)."""
+    held by ``oncard.b_against_twin``)."""
     import torch
 
     from bumpcosmology_torch.inference.influence import make_loo_datas
     from bumpcosmology_torch.inference.likelihoods import query_table
     from bumpcosmology_torch.ops import cuda_logwts as kb
-    from chip_smoke import SBC_NOBS, SBC_NSAMP, SBC_SIMS, b_against_twin, b_tables, fleet_queries, tiled_sites
 
     nobs, nsamp = data.events.a.shape
     c = tables[0].shape[0]
     copied = qry.expand(c, -1, -1).contiguous()
-    errs = b_against_twin("B copied", tables, copied, nobs, nsamp, gen)[0]
+    errs = oncard.b_against_twin("B copied", tables, copied, nobs, nsamp, gen)[0]
     out = {"logwts_fwd_copied": row(lambda: kb._logwts_fwd_cuda(*tables, copied), errs["rows_fwd"]),
            "logwts_lse_fwd_copied": row(lambda: kb._logwts_lse_fwd_cuda(*tables, copied, nobs, nsamp),
                                         errs["lse_fwd"])}
-    t20 = b_tables({k: torch.cat([v, v[: SBC_SIMS - c]]) for k, v in sites.items()}, data)
-    fq = fleet_queries(data, SBC_SIMS, gen)
-    errs, _, (lse_ev, lse_sel), (_, g_ev, g_sel) = b_against_twin("B per-chain", t20, fq, SBC_NOBS, SBC_NSAMP, gen)
-    out["logwts_lse_fwd_per_chain"] = row(lambda: kb._logwts_lse_fwd_cuda(*t20, fq, SBC_NOBS, SBC_NSAMP),
-                                          errs["lse_fwd"])
+    f_obs, f_samp = oncard.SBC_NOBS, oncard.SBC_NSAMP
+    t20 = oncard.b_tables({k: torch.cat([v, v[: oncard.SBC_SIMS - c]]) for k, v in sites.items()}, data)
+    fq = oncard.fleet_queries(data, oncard.SBC_SIMS, gen)
+    errs, _, (lse_ev, lse_sel), (_, g_ev, g_sel) = oncard.b_against_twin("B per-chain", t20, fq, f_obs, f_samp, gen)
+    out["logwts_lse_fwd_per_chain"] = row(lambda: kb._logwts_lse_fwd_cuda(*t20, fq, f_obs, f_samp), errs["lse_fwd"])
     out["logwts_lse_bwd_per_chain"] = row(
-        lambda: kb._logwts_lse_bwd_cuda(*t20, fq, lse_ev, lse_sel, g_ev, g_sel, SBC_NOBS, SBC_NSAMP), errs["lse_bwd"])
+        lambda: kb._logwts_lse_bwd_cuda(*t20, fq, lse_ev, lse_sel, g_ev, g_sel, f_obs, f_samp), errs["lse_bwd"])
     with torch.no_grad():
         lq = query_table(make_loo_datas(data))
-    t56 = b_tables(tiled_sites(sites, lq.shape[0]), data)
-    errs, _, (lse_ev, lse_sel), (_, g_ev, g_sel) = b_against_twin("B per-chain LOO", t56, lq, nobs - 1, nsamp, gen)
+    t56 = oncard.b_tables(oncard.tiled_sites(sites, lq.shape[0]), data)
+    errs, _, (lse_ev, lse_sel), (_, g_ev, g_sel) = oncard.b_against_twin("B per-chain LOO", t56, lq, nobs - 1, nsamp,
+                                                                          gen)
     out["logwts_lse_fwd_per_chain_loo"] = row(lambda: kb._logwts_lse_fwd_cuda(*t56, lq, nobs - 1, nsamp),
                                               errs["lse_fwd"])
     out["logwts_lse_bwd_per_chain_loo"] = row(
@@ -197,7 +192,6 @@ def kernel_c_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
 
     from bumpcosmology_torch.mock import catalog, psd, snr
     from bumpcosmology_torch.mock import cuda_snr as kc
-    from chip_smoke import MOCK_NDRAW, MOCK_SEED, PLAIN_CHUNK
 
     seen, network = {}, snr.network_snr
 
@@ -207,7 +201,8 @@ def kernel_c_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
 
     snr.network_snr = kept
     try:
-        catalog.draw_injection_campaign(ndraw=MOCK_NDRAW, seed=MOCK_SEED, device=torch.device("cuda"))
+        catalog.draw_injection_campaign(ndraw=oncard.MOCK_NDRAW, seed=oncard.MOCK_SEED,
+                                        device=torch.device("cuda"))
     finally:
         snr.network_snr = network
     m1, m2, dl = seen["rows"]
@@ -215,7 +210,7 @@ def kernel_c_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
     inv_psd = 1.0 / psd.PSDS["H1"](f_grid)
     grid = dict(f_min=float(f_grid[0]), f_max=float(f_grid[-1]), n_f=f_grid.shape[0], amp_scale=kc.AMP_SCALE)
     fn = lambda: kc._snr_integral_cuda(m1, m2, dl, inv_psd, **grid)  # noqa: E731
-    got, ref = fn(), kc.snr_integral_plain(m1, m2, dl, inv_psd, **grid, chunk=PLAIN_CHUNK)
+    got, ref = fn(), kc.snr_integral_plain(m1, m2, dl, inv_psd, **grid, chunk=oncard.PLAIN_CHUNK)
     torch.cuda.synchronize()
     check_close("C exact zeros", (got == 0).float(), (ref == 0).float(), 0.0, 0.0)  # the same zeros
     timed = row(fn, check_close("C", got, ref, 2e-5, 1e-6), launches=5, replays=2)
@@ -235,7 +230,7 @@ def kernel_p_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
     from bumpcosmology_torch.inference.model import ModelSpec, _log_prior_and_jac, constrain
     from bumpcosmology_torch.ops import cuda_priors as kp
     from bumpcosmology_torch.testing import prior_thetas, priors_gaps, priors_twin
-    from chip_smoke import bound_ms, cuda_ms
+
 
     spec = ModelSpec(priors=dict(POP_COSMO_PRIORS), loglike=None)
     rows, dim = kp.table_rows(spec.priors), spec.dim
@@ -260,11 +255,11 @@ def kernel_p_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
         # each launch's bound: the bytes it must move (theta, sites or the two cotangents, dtheta, the table)
         words = c * dim
         kernels[f"priors_fwd_c{c}"] = row(lambda: kp._priors_fwd_cuda(t, table), err)
-        kernels[f"priors_fwd_c{c}"].update(bound_ms=bound_ms(4 * (2 * words + c + table.numel()), 0)[0],
-                                           plain_ms=cuda_ms(plain_fwd))
+        kernels[f"priors_fwd_c{c}"].update(bound_ms=oncard.bound_ms(4 * (2 * words + c + table.numel()), 0)[0],
+                                           plain_ms=oncard.cuda_ms(plain_fwd))
         kernels[f"priors_bwd_c{c}"] = row(lambda: kp._priors_bwd_cuda(t, table, gs, gl), err)
-        kernels[f"priors_bwd_c{c}"].update(bound_ms=bound_ms(4 * (3 * words + c + table.numel()), 0)[0],
-                                           plain_ms=cuda_ms(plain_bwd))
+        kernels[f"priors_bwd_c{c}"].update(bound_ms=oncard.bound_ms(4 * (3 * words + c + table.numel()), 0)[0],
+                                           plain_ms=oncard.cuda_ms(plain_bwd))
     return kernels, dict(C=[4, 128], dim=dim)
 
 
@@ -282,7 +277,7 @@ def kernel_f_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
     from bumpcosmology_torch.ops import cuda_families as kf
     from bumpcosmology_torch.utils.checkpoint import load_warmup
     from cardbench import counts, harness
-    from chip_smoke import bound_ms, cuda_ms
+
 
     dev = torch.device("cuda")
     config = json.loads((harness.BENCH_DIR / "configs" / "flagship_plpeak.json").read_text())
@@ -335,11 +330,12 @@ def kernel_f_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
            for i in (1, 2)]
     read = 4 * (n * 4 + c * (2 * n_z + n_grid + kf._NS))  # the query rows, the two tables and the sites
     kernels = {}
-    bounds = bound_ms(read + 4 * c * (nobs + 1), ops[0]), bound_ms(2 * read + 8 * c * (nobs + 1), ops[1])
+    bounds = (oncard.bound_ms(read + 4 * c * (nobs + 1), ops[0]),
+              oncard.bound_ms(2 * read + 8 * c * (nobs + 1), ops[1]))
     for name, fn, err, plain, (b_ms, b_by) in (("f_fwd_lse", fwd, err_fwd, plain_fwd, bounds[0]),
                                                ("f_bwd_lse", bwd, err_bwd, plain_bwd, bounds[1])):
         kernels[name] = row(fn, err)
-        kernels[name].update(bound_ms=b_ms, bound_by=b_by, plain_ms=cuda_ms(plain))
+        kernels[name].update(bound_ms=b_ms, bound_by=b_by, plain_ms=oncard.cuda_ms(plain))
     return kernels, dict(C=c, N=n, nobs=nobs, nsamp=nsamp, K=n_z, n_m=n_grid)
 
 
@@ -380,25 +376,18 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_times: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(HERE))  # the timers and limits of this checkout's chip_smoke.py
-    from chip_smoke import N_GRID, N_Z, SEED, both_ms, card_line, check_close
-
     sys.path.insert(0, str(root))  # the package under --root
-
-    def row(fn, err, **graph_kwargs):
-        ms, call_ms = both_ms(fn, **graph_kwargs)
-        return dict(ms=ms, call_ms=call_ms, max_abs_err=err)
-
+    check_close = oncard.check_close
     if args.no_check:
-        def check_close(name, got, ref, rtol, atol):  # noqa: F811
+        def check_close(name, got, ref, rtol, atol):
             return float((got - ref).abs().max())
 
     times = {"a": kernel_a_times, "b": kernel_b_times, "c": kernel_c_times, "p": kernel_p_times,
              "f": kernel_f_times}[args.kernel]
-    kernels, shape = times(root, row, check_close, N_GRID, N_Z, SEED)
+    kernels, shape = times(root, oncard.timed_row, check_close, oncard.N_GRID, oncard.N_Z, oncard.SEED)
     torch.cuda.synchronize()
-    print(json.dumps(dict(root=str(root), kernel=args.kernel, card=card_line(), shape=shape, kernels=kernels,
-                          checked=not args.no_check)))
+    print(json.dumps(dict(root=str(root), kernel=args.kernel, card=oncard.card_line(), shape=shape,
+                          kernels=kernels, checked=not args.no_check)))
     return 0
 
 

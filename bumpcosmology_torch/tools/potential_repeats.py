@@ -10,7 +10,7 @@ batched value+grad of each model's potential once, then ``N`` times more
 (default 20): ``joint``, ``make_potential(pop_cosmo_model_spec(data, 256,
 1024))`` at the 16 warm thetas of ``benchmarks/flagship_warmup16.npz``;
 ``pop``, ``make_potential(pop_model_spec(...))`` on the same catalog taken
-back to the source frame (``chip_smoke.flagship_source_tables``), at the
+back to the source frame (``oncard.flagship_source_tables``), at the
 warm thetas' 12 population sites; ``plpeak_joint`` and ``brokenpl_joint``,
 the family's joint model (``MASS_FAMILIES[family].cosmo_spec``, the fused
 detector-table route in plain PyTorch) at the first 16 of 64 prior draws
@@ -38,6 +38,11 @@ import argparse
 import json
 import sys
 from pathlib import Path
+
+if __package__:  # imported, as chip_smoke.py imports it
+    from bumpcosmology_torch.tools import oncard
+else:  # run by path: this checkout's oncard.py from this directory, whatever package --root puts first
+    import oncard
 
 HERE = Path(__file__).resolve().parents[2]
 
@@ -68,18 +73,18 @@ def potential(root: Path, model: str, fleet: int = 0, device=None):
     from bumpcosmology_torch.inference.model import make_potential
     from bumpcosmology_torch.pipeline.stages import pop_data_from_tables
     from bumpcosmology_torch.utils.checkpoint import load_warmup
-    from chip_smoke import flagship_source_tables
 
+    catalog = root / "benchmarks" / "flagship_catalog.npz"
     theta = load_warmup(root / "benchmarks" / "flagship_warmup16.npz", device=device).state.theta
     if model == "pop":
         if fleet:
             raise ValueError("--fleet takes the joint models only")
         # the joint model's sites are the cosmology's 3 and then the population's 12, in the pop model's order
-        spec = pop_model_spec(pop_data_from_tables(*flagship_source_tables()), 256, device=device)
+        spec = pop_model_spec(pop_data_from_tables(*oncard.flagship_source_tables(catalog)), 256, device=device)
         return make_potential(spec), theta[:, 3:]
     family = "bump" if model == "joint" else model[: -len("_joint")]
     cosmo_spec = MASS_FAMILIES[family].cosmo_spec
-    data = load_pop_cosmo_data(root / "benchmarks" / "flagship_catalog.npz", device=device)
+    data = load_pop_cosmo_data(catalog, device=device)
     if family != "bump":
         theta = family_thetas(cosmo_spec(data, 256, 1024, device=device))
     if fleet:
@@ -121,9 +126,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("potential_repeats: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(HERE))  # this checkout's chip_smoke.py, for its tables and card line
-    from chip_smoke import card_line
-
     sys.path.insert(0, str(root))  # the package under --root
     from bumpcosmology_torch.inference.model import value_and_grad
     from bumpcosmology_torch.ops import _build
@@ -145,10 +147,10 @@ def main(argv=None) -> int:
             same_g += bool(torch.equal(g.view(torch.int32), g0.view(torch.int32)))
             max_dg = max(max_dg, float((g - g0).abs().max()))
         kernels, busy = device_profile(lambda: value_and_grad(pot, theta))
-        print(json.dumps(dict(root=str(root), model=model, fleet=args.fleet, card=card_line(), repeats=args.repeats,
-                              value_bit_identical=same_u, grad_bit_identical=same_g, max_abs_grad_diff=max_dg,
-                              ms=start.elapsed_time(end) / args.repeats, device_kernels=kernels,
-                              device_busy_ms=busy)), flush=True)
+        print(json.dumps(dict(root=str(root), model=model, fleet=args.fleet, card=oncard.card_line(),
+                              repeats=args.repeats, value_bit_identical=same_u, grad_bit_identical=same_g,
+                              max_abs_grad_diff=max_dg, ms=start.elapsed_time(end) / args.repeats,
+                              device_kernels=kernels, device_busy_ms=busy)), flush=True)
     return 0
 
 

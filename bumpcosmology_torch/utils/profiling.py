@@ -25,10 +25,10 @@ profiler is off a span costs one check.  The spans, each inside its parent:
   (``model.make_potential``), inside ``potential.value_and_grad``;
 * ``loglike.tables``: the mass family's tables, the cosmology and the
   detector tables, forward, inside ``potential.loglike``, on every family's
-  joint route: the bump's table by kernel A (``likelihoods._frame_tables``),
-  or another family's intensity (``likelihoods._family_tables``);
+  joint route (``likelihoods._Family.tables``): the bump's table by kernel
+  A, or another family's intensity;
 * ``loglike.qnorm``: POWER-LAW+PEAK's or BROKEN POWER LAW's q-norm table
-  (``likelihoods._QNormFamily``), inside ``loglike.tables`` on the joint
+  (``likelihoods._qnorm_intensity``), inside ``loglike.tables`` on the joint
   route (on the card's kernel-F route the grid alone: F computes the pivot)
   and with the pivot elsewhere (the CPU, the deterministics, and inside
   ``potential.loglike`` on the population-only route);

@@ -258,7 +258,11 @@ raises and exits non-zero.  The last two lines of stdout are
 the ``kernels`` JSON object and ``{"ok": true, "device": {...}}``; the line
 before them is the card's name and power limit from nvidia-smi.  Exits
 non-zero, printing no result, when CUDA is absent or the package is not
-beside this script.
+beside this script.  Its timers, the card's peaks, ``bound_ms`` and kernel
+B's checks are the package's (``bumpcosmology_torch/tools/oncard.py``, which
+``tools/kernel_times.py`` and ``tools/potential_repeats.py`` share), and its
+operation counts of kernels A and B are the benchmark's
+(``cardbench/counts.py``).
 """
 from __future__ import annotations
 
@@ -270,23 +274,34 @@ import tempfile
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent
-CATALOG = ROOT / "benchmarks" / "flagship_catalog.npz"
-WARMUP16 = ROOT / "benchmarks" / "flagship_warmup16.npz"
-SEED = 20261016
-N_GRID, N_Z = 256, 1024
-# a detector table beyond the 4,347 rows whose backward bins fit in shared memory: kernel B's second backward route
-LARGE_N_Z = 8192
-N_DRAWS = 3
-MAX_DEPTH = 10
-# phases 7 and 8: the fits from prior draws, cut in depth (warmup_schedule(30): 15, 5 with a mass update, 10)
-FIT_CHAINS, FIT_WARMUP, FIT_SAMPLES, FIT_DEPTH, POP_FIT_DEPTH = 16, 30, 10, 6, 5
-# phase 9: ChEES; 9a the hybrid from the committed adapted state, 9b run_chees from phase 8's prior draws
-CHEES_ADAPT, CHEES_SAMPLES, CHEES_WARMUP, CHEES_MAX_LEAPFROGS = 10, 10, 30, 64
-
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+from bumpcosmology_torch.tools.oncard import (
+    FP32_OPS_PER_S,
+    GRAPH_LAUNCHES,
+    HBM_BYTES_PER_S,
+    MOCK_NDRAW,
+    MOCK_SEED,
+    N_GRID,
+    N_Z,
+    PLAIN_CHUNK,
+    SBC_NOBS,
+    SBC_NSAMP,
+    SBC_NSEL,
+    SBC_SIMS,
+    SEED,
+    b_against_twin,
+    b_tables,
+    both_ms,
+    bound_ms,
+    card_line,
+    check_close,
+    check_cotangents,
+    cuda_ms,
+    fleet_queries,
+    flagship_source_tables,
+    graph_ms,
+    tiled_sites,
+    timed_row,
+)
 
 # FP32 operations per unit of work, tallied from the kernel sources (each
 # exp/log/log1p counted as one operation; the special-function unit runs
@@ -301,14 +316,30 @@ FP32_OPS_PER_S = 67e12
 #          z/kappa/zp terms (26), 4 table scatters and the slope terms (14) -> 185
 #   B lse epilogue per chain-query: forward max, exp, add, merge -> + 4;
 #          backward exp(out - lse), multiply, compare -> + 3
-OPS_A_FWD_PER_CELL = 9
-OPS_A_BWD_PER_CELL = 16
-SFU_A_PER_CELL = 1
-OPS_B_FWD_PER_QUERY = 97
-OPS_B_BWD_PER_QUERY = 185
-OPS_B_LSE_FWD_EXTRA = 4
-OPS_B_LSE_BWD_EXTRA = 3
-GRAPH_LAUNCHES = 20
+# cardbench/counts.py holds them, with the special-function unit's rate and the H100's SMs.
+from cardbench.counts import (
+    H100_SMS,
+    OPS_A_BWD_PER_CELL,
+    OPS_A_FWD_PER_CELL,
+    OPS_B_BWD_PER_QUERY,
+    OPS_B_FWD_PER_QUERY,
+    OPS_B_LSE_BWD_EXTRA,
+    OPS_B_LSE_FWD_EXTRA,
+    SFU_A_PER_CELL,
+    SFU_PER_CLOCK_PER_SM,
+)
+
+ROOT = Path(__file__).resolve().parent
+CATALOG = ROOT / "benchmarks" / "flagship_catalog.npz"
+WARMUP16 = ROOT / "benchmarks" / "flagship_warmup16.npz"
+# a detector table beyond the 4,347 rows whose backward bins fit in shared memory: kernel B's second backward route
+LARGE_N_Z = 8192
+N_DRAWS = 3
+MAX_DEPTH = 10
+# phases 7 and 8: the fits from prior draws, cut in depth (warmup_schedule(30): 15, 5 with a mass update, 10)
+FIT_CHAINS, FIT_WARMUP, FIT_SAMPLES, FIT_DEPTH, POP_FIT_DEPTH = 16, 30, 10, 6, 5
+# phase 9: ChEES; 9a the hybrid from the committed adapted state, 9b run_chees from phase 8's prior draws
+CHEES_ADAPT, CHEES_SAMPLES, CHEES_WARMUP, CHEES_MAX_LEAPFROGS = 10, 10, 30, 64
 
 # Kernel C's bound is the least work of its function on the campaign's own
 # rows, whatever implements it.  Bytes: m1, m2, dl in and the integral out (16
@@ -326,14 +357,9 @@ GRAPH_LAUNCHES = 20
 # d^2 + hw^2, hw^2 times the reciprocal, its square times g_k into the sum (5
 # operations) and one reciprocal.
 OPS_C_ROW, SFU_C_ROW, OPS_C_RING_POINT, SFU_C_RING_POINT = 82, 8, 5, 1
-SFU_PER_CLOCK_PER_SM, H100_SMS = 16, 132
-MOCK_NDRAW = 10_000_000
-MOCK_SEED = 333_165_393
 MOCK_NSAMP = 128
-PLAIN_CHUNK = 65536
-# phase 11: the calibration suite at SBCConfig's and ScoreCheckConfig's defaults, cut in fit depth and catalog count;
-# the fleet's shape (SBCConfig: 20 simulations of 12 events x 64 samples; the joint model's 2,048 injections)
-SBC_SIMS, SBC_NOBS, SBC_NSAMP, SBC_NSEL = 20, 12, 64, 2048
+# phase 11: the calibration suite at SBCConfig's and ScoreCheckConfig's defaults, cut in fit depth and catalog count,
+# on the SBC fleet's shape (oncard.SBC_*)
 SBC_WARMUP, SBC_SAMPLES, SBC_DEPTH = 30, 32, 5
 SBC_COSMO_CAMPAIGN = 4_000_000
 SCORE_CATALOGS = 50
@@ -362,64 +388,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean time of one eager call of ``fn()`` over ``reps`` calls, by CUDA events
-    on the stream: the wrapper call as the main path pays it (``call_ms``)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def graph_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = 5, warmup: int = 3) -> float:
-    """Device time of one ``fn()``: ``launches`` calls captured in one CUDA
-    graph, replayed ``replays`` times between two CUDA events.  The host queues
-    nothing while the graph runs, so this is the kernel's own time plus the
-    card's gap between two dependent graph nodes (``ms``)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (launches * replays)
-
-
-def both_ms(fn, **graph_kwargs):
-    """(device ms, call ms) of ``fn``."""
-    return graph_ms(fn, **graph_kwargs), cuda_ms(fn)
-
-
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def bound_a(n_bytes: float, cells: int, ops_per_cell: int, clock_hz: float):
     """Kernel A's bound: bytes, FP32 operations, or one special-function result
     (the exp) per cell at 16 per clock per SM.  Returns (ms, by, the three times in ms)."""
@@ -429,61 +397,12 @@ def bound_a(n_bytes: float, cells: int, ops_per_cell: int, clock_hz: float):
     return ms, ("bytes" if ms == t["bytes"] else "operations"), t
 
 
-def check_close(name: str, got, ref, rtol: float, atol: float) -> float:
-    """Raise unless |got - ref| <= atol + rtol |ref| with the same non-finite entries."""
-    import torch
-
-    if not torch.equal(torch.isfinite(got), torch.isfinite(ref)) or not torch.equal(
-            torch.isneginf(got), torch.isneginf(ref)):
-        raise AssertionError(f"{name}: non-finite entries differ between kernel and plain twin")
-    fin = torch.isfinite(ref)
-    err = (got[fin] - ref[fin]).abs()
-    lim = atol + rtol * ref[fin].abs()
-    if bool((err > lim).any()):
-        worst = int((err - lim).argmax())
-        raise AssertionError(f"{name}: |kernel - plain| {float(err[worst]):.3e} exceeds "
-                             f"{float(lim[worst]):.3e} (rtol {rtol}, atol {atol:.3e})")
-    return float(err.max()) if err.numel() else 0.0
-
-
-def b_tables(sites, data, n_z: int = N_Z, n_grid: int = N_GRID):
-    """Kernel B's per-chain inputs (detector table, bump table, 15 scalars) of
-    the constrained ``sites`` (C,) on ``data``'s dL range, at ``n_grid``, ``n_z``."""
-    import torch
-
-    from bumpcosmology_torch.inference.likelihoods import cosmo_from_sites, dl_bounds_of, population_from_sites
-    from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table
-    from bumpcosmology_torch.models.population import build_population
-    from bumpcosmology_torch.ops import cuda_logwts
-
-    with torch.no_grad():
-        pop = build_population(population_from_sites(sites), n_grid)
-        det = build_detector_table(build_cosmology(cosmo_from_sites(sites), n=n_z), *dl_bounds_of(data), n=n_z)
-        return (det.cols.contiguous(), pop.mass_table.log_bump.contiguous(),
-                cuda_logwts.pack_scalars(pop, det).contiguous())
-
-
-def check_cotangents(label, got3, ref3) -> float:
-    """Kernel B's three cotangents against the twin's: rtol 5e-4, atol 5e-4 x max |ref|."""
-    worst = 0.0
-    for name, got, ref in zip(("d_det", "d_bump", "d_scal"), got3, ref3):
-        scale = float(ref.abs().max())
-        worst = max(worst, check_close(f"{label} {name}", got, ref, rtol=5e-4, atol=5e-4 * scale))
-    return worst
-
-
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
               file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    try:
-        import bumpcosmology_torch  # noqa: F401
-    except ImportError as err:
-        print(f"chip_smoke: the port package is not beside this script ({err})", file=sys.stderr)
         return 2
     if len(sys.argv) > 1:  # one rank of phase 14, started by the script itself
         import argparse
@@ -836,7 +755,7 @@ def run(mock_dir: Path) -> int:
 
     compare_dir = mock_dir / "compare"  # the flagship's fit inputs and the traces of phases 7, 8, 10b for phase 12
     compare_dir.mkdir()
-    for name, table in zip(("pe-samples.npz", "selection-samples.npz"), flagship_source_tables()):
+    for name, table in zip(("pe-samples.npz", "selection-samples.npz"), flagship_source_tables(CATALOG)):
         write_table(compare_dir / name, table)
     joint_launches = fit_phase(dev, tag, "joint", trace_dir=compare_dir)[0]
     launches = dict(joint_launches, snr_integral=mock_launches["snr_integral"])  # the main path's; C's is phase 6's
@@ -1689,31 +1608,6 @@ def mock_campaign_phase(dev, tag: str, data_dir):
                 bound=(bound, by)), launches
 
 
-def flagship_source_tables():
-    """The flagship catalog as ``run_pop_cosmo_fit``'s input: source-frame
-    columns recovered on the host, the inverse of the stage's own conversion
-    (z from dL at Planck18, m1 = m1_det / (1 + z), the weight divided by the
-    Jacobian the stage multiplies in)."""
-    import numpy as np
-
-    from bumpcosmology_torch.data.weights import dm1sqz_dm1ddqdl, planck18_z_of_dl_np
-
-    with np.load(CATALOG) as d:
-        cat = {k: np.asarray(d[k], dtype=np.float64) for k in d.files}
-
-    def source(m1d, q, dl, log_pdraw):
-        z = planck18_z_of_dl_np(dl)
-        m1 = m1d / (1.0 + z)
-        return m1, q, z, np.exp(log_pdraw) / dm1sqz_dm1ddqdl(m1, q, z)
-
-    nobs, nsamp = cat["ev_a"].shape
-    m1, q, z, wt = source(*(cat[k].ravel() for k in ("ev_a", "ev_q", "ev_c", "ev_lp")))
-    pe = dict(m1=m1, q=q, z=z, wt=wt, evt=np.repeat(np.arange(nobs), nsamp))
-    m1, q, z, pdraw = source(*(cat[k] for k in ("sel_a", "sel_q", "sel_c", "sel_lp")))
-    sel = dict(m1=m1, q=q, z=z, pdraw=pdraw, ndraw=np.full(m1.shape, math.exp(float(cat["sel_ln"]))))
-    return pe, sel
-
-
 def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None, trace_dir=None):
     """The fit from prior draws to a trace, cut in depth: phase 7 (``model=
     "joint"``: ``run_pop_cosmo_fit``) and phase 8 (``model="pop"``:
@@ -1748,7 +1642,7 @@ def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None, tr
     run_stage, trace_name = ((stages.run_pop_cosmo_fit, fam.cosmo_trace_name) if joint
                              else (stages.run_pop_fit, fam.trace_name))
     if data_dir is None:
-        pe, sel = flagship_source_tables()
+        pe, sel = flagship_source_tables(CATALOG)
     else:  # the stage reads them; they are read here too for the comparison on the host
         pe, sel = read_table(Path(data_dir) / "pe-samples.npz"), read_table(Path(data_dir) / "selection-samples.npz")
     calls = {"value_grad": 0, "value": 0}
@@ -1966,68 +1860,6 @@ def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None, tr
     return launches, seen["spec"], seen["prior_theta"]
 
 
-def fleet_queries(data, chains: int, gen, nobs: int = SBC_NOBS, nsamp: int = SBC_NSAMP, nsel: int = SBC_NSEL):
-    """(chains, nobs * nsamp + nsel, 4) query tables, one a chain, in the
-    shape of phase 11b's fleet: each chain's own ``nobs`` events of the
-    flagship catalog with ``nsamp`` of their samples, and ``nsel`` of its
-    injections, picked at random (``gen``)."""
-    import torch
-
-    from bumpcosmology_torch.inference.likelihoods import (
-        EventData,
-        PopCosmoData,
-        SelectionData,
-        query_table,
-        stack_fleet,
-    )
-
-    ev, sel = data.events, data.selection
-    dev = ev.a.device
-    perm = lambda n: torch.randperm(n, generator=gen, device=dev)  # noqa: E731
-    parts = []
-    for _ in range(chains):
-        e = perm(ev.a.shape[0])[:nobs]
-        s = torch.stack([perm(ev.a.shape[1])[:nsamp] for _ in range(nobs)])
-        j = perm(sel.a.shape[0])[:nsel]
-        parts.append(PopCosmoData(EventData(*(torch.gather(x[e], 1, s) for x in ev)),
-                                  SelectionData(*(x[j] for x in sel[:4]), sel.log_ndraw)))
-    return query_table(stack_fleet(parts))
-
-
-def b_against_twin(label: str, tables, qry, nobs: int, nsamp: int, gen):
-    """Kernel B on ``qry`` ((N, 4) or (C, N, 4)) against its plain twin, both
-    epilogues, forward and backward (random cotangents), at phase 3's limits.
-    Returns ({rows_fwd, rows_bwd, lse_fwd, lse_bwd: max |err|}, the kernel's
-    rows, its (lse_ev, lse_sel), the cotangents (g_rows, g_ev, g_sel))."""
-    import torch
-
-    from bumpcosmology_torch.ops import cuda_logwts as kb
-
-    c, n = tables[0].shape[0], qry.shape[-2]
-    dev = qry.device
-    g_rows = torch.randn((c, n), generator=gen, device=dev)
-    g_ev = torch.randn((c, nobs), generator=gen, device=dev)
-    g_sel = torch.randn((c,), generator=gen, device=dev)
-    res, res_l = [], []
-    for rows_fn, lse_fn in ((kb.logwts, kb.logwts_lse), (kb.logwts_plain, kb.logwts_lse_plain)):
-        leaves = [x.clone().requires_grad_(True) for x in tables]
-        out = rows_fn(*leaves, qry)
-        (out.nan_to_num(neginf=0.0) * g_rows).sum().backward()
-        res.append((out.detach(), *(x.grad for x in leaves)))
-        leaves = [x.clone().requires_grad_(True) for x in tables]
-        lse_ev, lse_sel = lse_fn(*leaves, qry, nobs, nsamp)
-        torch.autograd.backward([lse_ev, lse_sel], [g_ev, g_sel])
-        res_l.append((lse_ev.detach(), lse_sel.detach(), *(x.grad for x in leaves)))
-    torch.cuda.synchronize()
-    errs = dict(
-        rows_fwd=check_close(f"{label} rows values", res[0][0], res[1][0], rtol=2e-5, atol=2e-5),
-        rows_bwd=check_cotangents(f"{label} rows", res[0][1:], res[1][1:]),
-        lse_fwd=max(check_close(f"{label} lse events", res_l[0][0], res_l[1][0], rtol=2e-5, atol=2e-5),
-                    check_close(f"{label} lse selection", res_l[0][1], res_l[1][1], rtol=2e-5, atol=2e-5)),
-        lse_bwd=check_cotangents(f"{label} lse", res_l[0][2:], res_l[1][2:]))
-    return errs, res[0][0], res_l[0][:2], (g_rows * torch.isfinite(res[0][0]), g_ev, g_sel)
-
-
 def b_backward_repeats(label: str, tables, qry, nobs: int, nsamp: int, gen) -> str:
     """Kernel B's backward, both epilogues, launched twice on the same inputs
     ((N, 4) or (C, N, 4) query rows, random cotangents): the two results must
@@ -2151,11 +1983,7 @@ def kernel_p_phase(tag: str) -> dict:
     rows of the forward and the backward at C = 4, the flagship benchmark's."""
     from bumpcosmology_torch.tools.kernel_times import kernel_p_times
 
-    def row(fn, err, **graph_kwargs):
-        ms, call_ms = both_ms(fn, **graph_kwargs)
-        return dict(ms=ms, call_ms=call_ms, max_abs_err=err)
-
-    kernels, shape = kernel_p_times(ROOT, row, check_close, N_GRID, N_Z, SEED)
+    kernels, shape = kernel_p_times(ROOT, timed_row, check_close, N_GRID, N_Z, SEED)
     log(f"{tag} phase 3p kernel P ({shape['dim']} sites, C = {shape['C']}; max_abs_err is the largest gap over "
         f"testing.priors_gaps' limit, at most 1; ms device time in one replayed graph, call_ms one eager call, "
         f"plain_ms the per-site code's eager call on the card, bound_ms the bytes at {HBM_BYTES_PER_S / 1e12:.2f} "
@@ -2171,11 +1999,7 @@ def kernel_f_phase(tag: str) -> dict:
     eager call).  Returns the kernels-line rows of the forward and the backward."""
     from bumpcosmology_torch.tools.kernel_times import kernel_f_times
 
-    def row(fn, err, **graph_kwargs):
-        ms, call_ms = both_ms(fn, **graph_kwargs)
-        return dict(ms=ms, call_ms=call_ms, max_abs_err=err)
-
-    kernels, shape = kernel_f_times(ROOT, row, check_close, N_GRID, N_Z, SEED)
+    kernels, shape = kernel_f_times(ROOT, timed_row, check_close, N_GRID, N_Z, SEED)
     log(f"{tag} phase 3f kernel F (POWER-LAW+PEAK, {json.dumps(shape)}; max_abs_err against the eager twin on the "
         f"card; ms device time in one replayed graph, call_ms one eager call, plain_ms the twin's eager call, "
         f"bound_ms by operations at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s or bytes at {HBM_BYTES_PER_S / 1e12:.2f} "
@@ -2289,11 +2113,6 @@ def kernel_b_certificate_shape(tag: str, data, sites, gen) -> None:
     log(f"{tag} phase 3 kernel B at the SBC certificate's shape (phase 15b): {fq.shape[0]} per-chain tables of "
         f"{fq.shape[1]} rows, K={tables[0].shape[1]}, G={tables[1].shape[1]}: max|err| against the twin "
         + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}))
-
-
-def tiled_sites(sites, n: int):
-    """The constrained ``sites`` (C,) repeated to ``n`` chains."""
-    return {k: v.repeat(-(-n // v.shape[0]))[:n] for k, v in sites.items()}
 
 
 def per_chain_lse_rows(label: str, tables, fq, nobs: int, nsamp: int, gen, suffix: str = ""):

@@ -459,20 +459,24 @@ def route_calls(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("family", FAMILIES + ("bump",))
-def test_only_the_bump_reaches_kernels_a_and_b(family, datasets, route_calls):
-    """The joint potential, the per-row weights, the registry's deterministics
-    and the pop likelihood of each family, counted by route."""
+@pytest.mark.parametrize("family, plain", [("plpeak", False), ("brokenpl", False), ("bump", False),
+                                           ("plpeak", True), ("brokenpl", True)],
+                         ids=["plpeak", "brokenpl", "bump", "plpeak-plain", "brokenpl-plain"])
+def test_only_the_bump_reaches_kernels_a_and_b(family, plain, datasets, route_calls):
+    """The joint potential (``dl_bounds`` given), the per-row weights, the
+    registry's deterministics and the pop likelihood of each family, counted
+    by route; the q-normalised families also with ``plain=True``, whose
+    routes on the CPU are those without it."""
     _, td = datasets["cosmo"]
     _, tpd = datasets["pop"]
     fam = tl.MASS_FAMILIES[family]
     gen = torch.Generator().manual_seed(0)
     sites = {k: d.sample(gen, (2,), "cpu") for k, d in fam.cosmo_priors.items()}
     with torch.no_grad():
-        tl.pop_cosmo_loglike(sites, td, N_GRID, N_Z, tl.dl_bounds_of(td), build=fam.build)
-        tl.pop_cosmo_event_sel_logwts(sites, td, N_GRID, N_Z, build=fam.build)
+        tl.pop_cosmo_loglike(sites, td, N_GRID, N_Z, tl.dl_bounds_of(td), plain=plain, build=fam.build)
+        tl.pop_cosmo_event_sel_logwts(sites, td, N_GRID, N_Z, plain=plain, build=fam.build)
         fam.cosmo_det(sites, td, N_GRID, N_Z)
-        tl.pop_loglike({k: sites[k] for k in fam.pop_priors}, tpd, N_GRID, build=fam.build)
+        tl.pop_loglike({k: sites[k] for k in fam.pop_priors}, tpd, N_GRID, plain=plain, build=fam.build)
     if family == "bump":
         assert route_calls.pop("_evaluate") >= 3  # the twin, as these are CPU tensors
         assert route_calls == {"cosmo_frame_logwts_lse": 1, "cosmo_frame_logwts": 2, "bump_log_dn": 4}

@@ -166,8 +166,8 @@ def test_the_kernel_route_builds_the_tables_without_the_pivot(family):
     data = _data(torch.float32)
     sites = _sites(family, 3, 5, torch.float32)
     bounds = lk.dl_bounds_of(data)
-    full, _, det = lk._family_tables(build, sites, 48, 96, bounds)
-    bare, _, det_bare = lk._family_tables(build, sites, 48, 96, bounds, pivot=False)
+    full, _, det = build.tables(sites, 48, 96, bounds)
+    bare, _, det_bare = build.tables(sites, 48, 96, bounds, pivot=False)
     assert bare.dm == full.dm and torch.equal(bare.log_nq, full.log_nq) and torch.equal(det_bare.cols, det.cols)
     assert torch.equal(bare.log_norm, torch.zeros_like(full.log_norm))
     assert bool(torch.isfinite(full.log_norm).all()) and not torch.equal(full.log_norm, bare.log_norm)

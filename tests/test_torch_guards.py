@@ -1,7 +1,8 @@
 """Guards of the port's boundaries.
 
 * Importing the port pulls in neither JAX nor the JAX package.
-* No file of the port, and not ``chip_smoke.py``, names either package.
+* No file of the port, and not ``chip_smoke.py``, names either package; no
+  module of the port imports ``chip_smoke.py``.
 * Entry points given ``device=None`` (meaning CUDA) raise on a host without
   CUDA instead of carrying on on the CPU: the data loaders, the model specs
   of every family, the samplers, ``fit`` and the fit stages, the mock
@@ -83,6 +84,12 @@ def test_chip_smoke_imports_neither_package():
     smoke = [ROOT / "chip_smoke.py"]
     assert not _hits(smoke, r"^\s*(import|from)\s+(jax|bumpcosmology_tpu)\b")
     assert not _hits(smoke, r"\bjax\b")
+
+
+def test_no_port_module_imports_chip_smoke():
+    """The script at the repository's root imports the port, never the reverse:
+    what the on-card tools share with it lives in ``tools/oncard.py``."""
+    assert not _hits(PORT.rglob("*.py"), r"^\s*(import|from)\s+chip_smoke\b|import_module\(\s*[\"']chip_smoke\b")
 
 
 @pytest.fixture
