@@ -31,8 +31,8 @@ family's joint route takes the family's kernel for CUDA tensors with
   the same query rows against the detector table at ``n_z`` points, each
   row's weight under the family (the q-norm table read at m1, the pivot
   computed in the kernel) and the segment log-sum-exps, one launch forward
-  and one backward; only the q-norm, cosmology and detector tables are
-  built in PyTorch.  On the CPU, and with ``plain=True``, it takes F's twin,
+  and one backward; only the q-norm table is built in PyTorch.  On the
+  CPU, and with ``plain=True``, it takes F's twin,
   the XLA branch of ``_cosmo_frame_logwts_fused`` in plain PyTorch with
   autograd (one bracket per row shared by the chains).  The deterministics
   take the non-fused ``_cosmo_frame_logwts`` (``likelihoods.py:308-323``:
@@ -42,6 +42,14 @@ family's joint route takes the family's kernel for CUDA tensors with
   weighed at a fixed cosmology (:class:`FixedCosmoGrid`) in plain PyTorch
   with autograd (:func:`pop_loglike`), as the JAX package computes them in
   XLA; kernel A builds the bump's table.
+
+**The cosmology and detector tables.**  Every family's joint route reads
+the detector table at ``n_z`` points; on the card (``plain`` false) kernel T
+builds it from the sites ``h``, ``Om``, ``w``, one launch forward and one
+backward (:func:`~bumpcosmology_torch.models.cosmology.kernel_detector_table`),
+and no cosmology table is built.  The CPU, ``plain=True``, the
+deterministics and the non-fused route build both tables in plain PyTorch
+(``build_cosmology``, ``build_detector_table``).
 
 **Fleets.**  The calibration suite fits S catalogs at once, one chain each
 (the JAX package ``vmap``s its likelihood over the catalogs).  Here the data
@@ -82,6 +90,7 @@ from bumpcosmology_torch.models.cosmology import (
     build_detector_table,
     dvc_and_ddl_at_z,
     efunc,
+    kernel_detector_table,
     planck18_log_dvdz_grid,
     z_at_dl,
 )
@@ -437,11 +446,16 @@ class _Family(NamedTuple):
         fills them, else ``None`` (the non-fused route)."""
         return dl_bounds_of(data) if dl_bounds is None and self.fills_bounds else dl_bounds
 
-    def tables(self, sites, n_grid: int, n_z: int, dl_bounds, plain: bool = False, pivot: bool = True):
+    def tables(self, sites, n_grid: int, n_z: int, dl_bounds, plain: bool = False, kernel: bool = False):
         """The intensity, the cosmology table and the detector table (``None``
-        without ``dl_bounds``) of the sites, in the span ``loglike.tables``."""
+        without ``dl_bounds``) of the sites, in the span ``loglike.tables``.
+        On the joint route's kernels (``kernel``, :meth:`takes_kernel`) the
+        intensity leaves the pivot at 0 for kernel F to compute, kernel T
+        builds the detector table, and no cosmology table is built (``None``)."""
         with span("loglike.tables"):
-            pop = self(sites, n_grid, plain, pivot)
+            pop = self(sites, n_grid, plain, pivot=not kernel)
+            if kernel:
+                return pop, None, kernel_detector_table(cosmo_from_sites(sites), dl_bounds[0], dl_bounds[1], n=n_z)
             cosmo = build_cosmology(cosmo_from_sites(sites), n=n_z)
             det = None if dl_bounds is None else build_detector_table(cosmo, dl_bounds[0], dl_bounds[1], n=n_z)
             return pop, cosmo, det
@@ -549,8 +563,7 @@ def pop_cosmo_segment_lse(sites: Dict[str, torch.Tensor], data: PopCosmoData,
         _, _, log_w, log_sel_w = pop_cosmo_event_sel_logwts(sites, data, n_grid, n_z, None, qry, plain, family)
         return torch.logsumexp(log_w, -1), torch.logsumexp(log_sel_w, -1)
     kernel = family.takes_kernel(plain, data)
-    # a kernel computes the pivot itself (F does; the bump has none)
-    pop, _, det = family.tables(sites, n_grid, n_z, dl_bounds, plain, pivot=not kernel)
+    pop, _, det = family.tables(sites, n_grid, n_z, dl_bounds, plain, kernel)
     nobs, nsamp = data.events.a.shape[-2:]
     return family.lse(pop, det, query_table(data) if qry is None else qry, nobs, nsamp, kernel)
 

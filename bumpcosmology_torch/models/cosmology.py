@@ -18,6 +18,7 @@ import torch
 
 from bumpcosmology_torch.device import resolve_device
 from bumpcosmology_torch.models.parameters import PLANCK18, CosmoParams
+from bumpcosmology_torch.ops import cuda_tables
 from bumpcosmology_torch.ops.integrate import cumtrapz
 from bumpcosmology_torch.ops.interp import interp, interp_unit_spaced, interp_unit_spaced_columns
 
@@ -29,6 +30,7 @@ __all__ = [
     "build_cosmology",
     "DetectorFrameTable",
     "build_detector_table",
+    "kernel_detector_table",
     "z_and_logjac_at_dl",
     "z_at_dl",
     "z_at_dc",
@@ -178,6 +180,17 @@ def build_detector_table(table: CosmologyTable, dl_lo: float, dl_hi: float,
     log_jac = torch.clamp_min(torch.log(dvc) - torch.log(ddl), -1e4)
     return DetectorFrameTable(params=table.params, v0=v0, dv=(v1 - v0) / (n - 1),
                               cols=torch.stack([z, log_jac], dim=-1))
+
+
+def kernel_detector_table(params: CosmoParams, dl_lo: float, dl_hi: float, n: int = DEFAULT_NZ,
+                          zmax: float = DEFAULT_ZMAX) -> DetectorFrameTable:
+    """``build_detector_table(build_cosmology(params, zmax, n), dl_lo, dl_hi, n)``
+    from CUDA sites ``(C,)`` by kernel T (:mod:`~bumpcosmology_torch.ops.cuda_tables`),
+    one launch forward and one backward, with no cosmology table.  Sites that
+    are strided views (a batch of sites cut from one tensor) are copied first."""
+    v0, v1 = math.log(float(dl_lo)), math.log(float(dl_hi))
+    cols = cuda_tables.detector_table(*(x.contiguous() for x in params), n, dl_lo, dl_hi, zmax)
+    return DetectorFrameTable(params=params, v0=v0, dv=(v1 - v0) / (n - 1), cols=cols)
 
 
 def z_and_logjac_at_dl(det: DetectorFrameTable, dl: torch.Tensor):

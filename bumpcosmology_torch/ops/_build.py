@@ -8,8 +8,9 @@ Libraries land in ``BUILD_DIR``, by default ``bumpcosmology_torch/_build/``
 that carries a hash of the source, the ``csrc/*.cuh`` headers it includes
 and the flags, so an edited source or header is rebuilt and an unchanged
 one is reused.  :func:`build_kernels` starts one ``nvcc`` per source, all
-at once.  ``csrc/families.cu`` (kernel F) adds ``-fmad=false``: it keeps
-the eager twin's roundings, no multiply and add fused into one.
+at once.  ``csrc/families.cu`` (kernel F) and ``csrc/tables.cu`` (kernel T)
+add ``-fmad=false``: they keep the eager twin's roundings, no multiply and
+add fused into one.
 
 Nothing here runs at import time: the CPU test host has no ``nvcc``.
 """
@@ -34,7 +35,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 DEFAULT_BUILD_DIR = _PKG / "_build"
 BUILD_DIR = DEFAULT_BUILD_DIR
-KERNEL_SOURCES = ("bump", "logwts", "snr", "floor", "priors", "families")
+KERNEL_SOURCES = ("bump", "logwts", "snr", "floor", "priors", "families", "tables")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,7 +58,7 @@ def _nvcc() -> str:
 
 
 # flags a source adds to NVCC_FLAGS
-EXTRA_FLAGS = {"families": ("-fmad=false",)}
+EXTRA_FLAGS = {"families": ("-fmad=false",), "tables": ("-fmad=false",)}
 
 
 def _flags(name: str) -> tuple:

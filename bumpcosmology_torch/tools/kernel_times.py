@@ -1,6 +1,6 @@
-"""Time kernel A, B, C, P or F of another checkout on the same card, beside this one's.
+"""Time kernel A, B, C, P, F or T of another checkout on the same card, beside this one's.
 
-    python3 bumpcosmology_torch/tools/kernel_times.py --kernel a|b|c|p|f [--root DIR]
+    python3 bumpcosmology_torch/tools/kernel_times.py --kernel a|b|c|p|f|t [--root DIR]
 
 (run by path, not with ``-m``: the package it times is the one under ``--root``).
 
@@ -47,6 +47,16 @@ card's name and power limit.  Needs one NVIDIA GPU and nvcc.
   written; ``plain_ms`` one eager call of the twin on the card, its forward
   (the rows' weights, the pivot and ``torch.logsumexp``) or its backward
   (autograd through them into the tables and the sites).
+* ``--kernel t``: ``csrc/tables.cu`` at the same cell's shape: the cosmology
+  and detector tables at n_z = 1,024 between the cell's dL bounds for its 4
+  chains, and, backward, the cotangent of the detector table that kernel F's
+  backward gives the cell's log-likelihood; held to the eager table code on the
+  card (the table within rtol 2e-5 / atol 2e-5, the sites' cotangents within
+  rtol 5e-4 and 5e-4 of the largest); ``bound_ms`` from the bytes read and
+  written and the operations a knot and a node need (``T_OPS_PER_KNOT``);
+  ``plain_ms`` one eager call of ``build_cosmology`` and
+  ``build_detector_table`` on the card, forward, or of autograd through them,
+  backward.
 
 To compare a commit with its parent, from the root of the checkout (``_archive/``
 is git-ignored):
@@ -339,6 +349,75 @@ def kernel_f_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
     return kernels, dict(C=c, N=n, nobs=nobs, nsamp=nsamp, K=n_z, n_m=n_grid)
 
 
+# FP32 operations kernel T needs a knot and its detector node, forward and backward
+# (csrc/tables_math.cuh, counted once, special functions as one): a knot's E(z) 10, its segment 4,
+# the prefix sum 1, its entries 9; a node's bracket and z 9, the lookup's bracket 6, two lerps 6,
+# the log-Jacobian 4.  The backward: the forward's 49, then node_grad 30, knot_grad 20, the two
+# segments' cotangents 4, efunc_grad 12.
+T_OPS_PER_KNOT = (49, 115)
+
+
+def kernel_t_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: int):
+    """({kernel: row}, shape) of ``csrc/tables.cu`` under ``root`` at the cell
+    ``flagship_plpeak.nuts``'s shape (the benchmark's configuration and data of
+    this checkout)."""
+    import torch
+
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.model import constrain
+    from bumpcosmology_torch.models.cosmology import DEFAULT_ZMAX, build_cosmology, build_detector_table
+    from bumpcosmology_torch.models.parameters import CosmoParams
+    from bumpcosmology_torch.ops import cuda_families as kf
+    from bumpcosmology_torch.ops import cuda_tables as kt
+    from bumpcosmology_torch.utils.checkpoint import load_warmup
+    from cardbench import harness
+
+    dev = torch.device("cuda")
+    config = json.loads((harness.BENCH_DIR / "configs" / "flagship_plpeak.json").read_text())
+    raw = harness.cut_catalog(harness.read_catalog(harness.data_path(config, "catalog")), config["events"],
+                              config["pe_samples"], config["injections"])
+    data = harness.program_data(raw, dev)
+    n_grid, n_z, c = config["n_grid"], config["n_z"], config["chains"]
+    spec = lk.MASS_FAMILIES["plpeak"].cosmo_spec(data, n_grid=n_grid, n_z=n_z, device=dev)
+    bounds = lk.dl_bounds_of(data)
+    with torch.no_grad():
+        sites = constrain(spec, load_warmup(harness.data_path(config, "warmup_state"), device=dev).state.theta[:c])
+        pop = lk.MASS_FAMILIES["plpeak"].build(sites, n_grid, pivot=False)
+    cosmo = tuple(sites[k].contiguous() for k in ("h", "Om", "w"))
+    grid = kt._grid(n_z, *bounds, DEFAULT_ZMAX)
+
+    def plain_fwd(leaves=cosmo):
+        return build_detector_table(build_cosmology(CosmoParams(*leaves), n=n_z), *bounds, n=n_z)
+
+    # the cotangent of the detector table that kernel F's backward gives the cell's log-likelihood
+    det = plain_fwd()
+    cols = det.cols.clone().requires_grad_(True)
+    scal = kf.family_scalars("plpeak", pop.params.mass, pop.params.redshift).contiguous()
+    qry = lk.query_table(data)
+    nobs, nsamp = data.events.a.shape
+    lse_ev, lse_sel = kf.family_lse("plpeak", det._replace(cols=cols), pop.log_nq, pop.dm, scal, qry, nobs, nsamp)
+    (g,) = torch.autograd.grad(lse_ev.sum() - nobs * lse_sel.sum(), [cols])
+
+    fwd = lambda: kt._fwd(*cosmo, n_z, grid)  # noqa: E731
+    bwd = lambda: kt._bwd(*cosmo, g, n_z, grid)  # noqa: E731
+    leaves = [x.clone().requires_grad_(True) for x in cosmo]
+    ref_cols = plain_fwd(leaves).cols
+    plain_bwd = lambda: torch.stack(torch.autograd.grad(ref_cols, leaves, g, retain_graph=True))  # noqa: E731
+    ref = plain_bwd()
+    err_fwd = check_close("T cols", fwd(), ref_cols.detach(), 2e-5, 2e-5)
+    err_bwd = check_close("T d_sites", bwd(), ref, 5e-4, 5e-4 * float(ref.abs().max()) + 1e-5)
+
+    word = cosmo[0].element_size()  # the sites read, the table written (forward) or read (backward), the cotangents
+    bounds_ms = (oncard.bound_ms(word * c * (3 + 2 * n_z), c * n_z * T_OPS_PER_KNOT[0]),
+                 oncard.bound_ms(word * c * (3 + 2 * n_z + 3), c * n_z * T_OPS_PER_KNOT[1]))
+    kernels = {}
+    for name, fn, err, plain, (b_ms, b_by) in (("t_fwd", fwd, err_fwd, lambda: plain_fwd(), bounds_ms[0]),
+                                               ("t_bwd", bwd, err_bwd, plain_bwd, bounds_ms[1])):
+        kernels[name] = row(fn, err)
+        kernels[name].update(bound_ms=b_ms, bound_by=b_by, plain_ms=oncard.cuda_ms(plain))
+    return kernels, dict(C=c, n_z=n_z, dl_bounds=list(bounds))
+
+
 def device_ms_by_launch(fn, calls: int = 5):
     """{kernel name: mean device ms a call} of the launches of ``fn()``, from a
     ``torch.profiler`` trace of ``calls`` eager calls."""
@@ -363,7 +442,7 @@ def device_ms_by_launch(fn, calls: int = 5):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("a", "b", "c", "p", "f"), required=True)
+    ap.add_argument("--kernel", choices=("a", "b", "c", "p", "f", "t"), required=True)
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--no-check", action="store_true",
                     help="report max_abs_err without holding it to the limits: for timing a copy with a part of "
@@ -383,7 +462,7 @@ def main(argv=None) -> int:
             return float((got - ref).abs().max())
 
     times = {"a": kernel_a_times, "b": kernel_b_times, "c": kernel_c_times, "p": kernel_p_times,
-             "f": kernel_f_times}[args.kernel]
+             "f": kernel_f_times, "t": kernel_t_times}[args.kernel]
     kernels, shape = times(root, oncard.timed_row, check_close, oncard.N_GRID, oncard.N_Z, oncard.SEED)
     torch.cuda.synchronize()
     print(json.dumps(dict(root=str(root), kernel=args.kernel, card=oncard.card_line(), shape=shape,

@@ -71,6 +71,16 @@ holds every CUDA kernel against its plain PyTorch twin:
    phase below that counts launches holds F's as well: on a family's joint
    route on the card, once forward a potential and once backward a
    value+grad, nothing elsewhere;
+3t. kernel T (the cosmology and detector tables, ``csrc/tables.cu``) at the
+   same cell's shape (its 4 chains' h, Om, w, n_z = 1,024, the cell's dL
+   bounds; backward, the detector table's cotangent that kernel F's backward
+   gives the cell's log-likelihood), against the eager table code on the card
+   (the table rtol 2e-5 / atol 2e-5, the sites' cotangents rtol 5e-4 and 5e-4
+   of the largest), timed beside their eager call and bounded by its bytes
+   and operations (``tools/kernel_times.kernel_t_times``).  Every phase below
+   that counts launches holds T's as well: on every joint potential through
+   the card's kernels (not the plain twins'), once forward a potential and
+   once backward a value+grad, none on the population-only model;
 4. the 16-chain potential value+grad (through the ``lse`` epilogue), kernels
    against twins: |dU|/(1+|U|) < 2e-4 and |dgrad|/(1+|grad|) < 5e-3, timed with
    CUDA events; two value+grads at the same thetas must agree bit for bit;
@@ -436,7 +446,15 @@ def run(mock_dir: Path) -> int:
     )
     from bumpcosmology_torch.inference.model import constrain, make_potential, value_and_grad
     from bumpcosmology_torch.inference.nuts import NutsConfig, run_sampling
-    from bumpcosmology_torch.ops import _build, cuda_bump, cuda_families, cuda_logwts, cuda_priors, launch_floor
+    from bumpcosmology_torch.ops import (
+        _build,
+        cuda_bump,
+        cuda_families,
+        cuda_logwts,
+        cuda_priors,
+        cuda_tables,
+        launch_floor,
+    )
     from bumpcosmology_torch.utils.checkpoint import load_warmup
 
     card = card_line()
@@ -665,6 +683,8 @@ def run(mock_dir: Path) -> int:
     phase_done("3p_kernel_p")
     rows.update(kernel_f_phase(tag))
     phase_done("3f_kernel_f")
+    rows.update(kernel_t_phase(tag))
+    phase_done("3t_kernel_t")
 
     # ---- phase 4: potential value+grad ----------------------------------
     pot, pot_plain = make_potential(spec), make_potential(spec_plain)
@@ -674,6 +694,7 @@ def run(mock_dir: Path) -> int:
     u_k2, g_k2 = value_and_grad(pot, theta)
     torch.cuda.synchronize()
     check_priors("potential", _read_counters(), 3)
+    check_tables("potential", _read_counters(), 2)  # the plain twins' potential builds the eager tables
     if not (torch.isfinite(u_k).all() and torch.isfinite(g_k).all()):
         raise AssertionError("potential: non-finite value or gradient at the warm thetas")
     if not (torch.equal(u_k, u_k2) and torch.equal(g_k, g_k2)):
@@ -694,7 +715,8 @@ def run(mock_dir: Path) -> int:
     phase_done("4b_potential_n_z_8192")
 
     # ---- phase 5: NUTS sampling through the kernels ----------------------
-    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_priors.LAUNCHES, cuda_families.LAUNCHES)
+    counters = (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_priors.LAUNCHES, cuda_families.LAUNCHES,
+                cuda_tables.LAUNCHES)
     for cnt in counters:
         for k in cnt:
             cnt[k] = 0
@@ -714,7 +736,8 @@ def run(mock_dir: Path) -> int:
     launches = {k: v for cnt in counters for k, v in cnt.items()}
     if out.thetas.shape != (c, N_DRAWS, theta.shape[1]) or not bool(torch.isfinite(out.thetas).all()):
         raise AssertionError(f"sampling: draws of shape {tuple(out.thetas.shape)} are not all finite")
-    on_path = ("bump_fwd", "bump_bwd", "logwts_lse_fwd", "logwts_lse_bwd", "logwts_fwd", "priors_fwd", "priors_bwd")
+    on_path = ("bump_fwd", "bump_bwd", "logwts_lse_fwd", "logwts_lse_bwd", "logwts_fwd", "priors_fwd", "priors_bwd",
+               *TABLES)
     missing = [k for k in on_path if launches[k] == 0]
     if missing:
         raise AssertionError(f"sampling: kernels never launched on the main path: {missing}")
@@ -722,6 +745,7 @@ def run(mock_dir: Path) -> int:
     if not (sampled["logwts_lse_bwd"] == sampled["bump_fwd"] == sampled["bump_bwd"] == n_vg) or sampled["logwts_fwd"]:
         raise AssertionError(f"sampling: not one kernel-B forward and backward per value+grad: {sampled}")
     check_priors("sampling", sampled, n_vg)
+    check_tables("sampling", sampled, n_vg)
     if out.max_abs_du >= 0.05:
         raise AssertionError(f"sampling: recomputed u differs from the stored state by "
                              f"{out.max_abs_du:.4f} nats (limit 0.05)")
@@ -814,7 +838,7 @@ def run(mock_dir: Path) -> int:
 
     sources = {"bump": "bumpcosmology_torch/csrc/bump.cu", "logwts": "bumpcosmology_torch/csrc/logwts.cu",
                "snr": "bumpcosmology_torch/csrc/snr.cu", "priors": "bumpcosmology_torch/csrc/priors.cu",
-               "families": "bumpcosmology_torch/csrc/families.cu"}
+               "families": "bumpcosmology_torch/csrc/families.cu", "tables": "bumpcosmology_torch/csrc/tables.cu"}
     replaces = {
         "bump_fwd": "bumpcosmology_tpu/ops/pallas_bump.py:177",
         "bump_bwd": "bumpcosmology_tpu/ops/pallas_bump.py:199",
@@ -833,6 +857,8 @@ def run(mock_dir: Path) -> int:
         "priors_bwd": "none: the priors of bumpcosmology_tpu/inference/model.py, which XLA fuses",
         "families_fwd": "none: the JAX package's q-normalised families go through XLA (likelihoods.py:351-361)",
         "families_bwd": "none: the JAX package's q-normalised families go through XLA (likelihoods.py:351-361)",
+        "tables_fwd": "none: the JAX package builds the cosmology and detector tables in XLA (models/cosmology.py)",
+        "tables_bwd": "none: the JAX package builds the cosmology and detector tables in XLA (models/cosmology.py)",
     }
     kernels = []
     for name, row in rows.items():
@@ -861,6 +887,10 @@ def run(mock_dir: Path) -> int:
         elif name in PRIORS:
             status = ("ok: built, matches the per-site code; launched on every potential on the card (phase 3p: "
                       "C = 4 and C = 128; the kernels line's row C = 4)")
+        elif name in TABLES:
+            status = ("ok: built, matches its eager twin (phase 3t: flagship_plpeak.nuts's shape); launched on every "
+                      "joint potential on the card (phases 4, 4b, 5, 7, 9a, 10b, 11b, 11c, 12a, 12d, 13, 14a, 14b, "
+                      "15a, 15c)")
         elif name in FAMILIES:
             status = ("ok: built, matches its eager twin (phase 3f: POWER-LAW+PEAK at flagship_plpeak.nuts's "
                       "shape); launched on the q-normalised families' joint route on the card (phases 10b, 12a, "
@@ -976,6 +1006,7 @@ def cli_phase(tag: str, inputs_dir: Path) -> dict:
         raise AssertionError(f"cli sample_cosmo: not one launch of A and B each way per value+grad ({n_vg}), "
                              f"{n_chunks} forwards for the deterministics: {launches}")
     check_priors("cli sample_cosmo", launches, n_vg, n_vg + n_prior)
+    check_tables("cli sample_cosmo", launches, n_vg, n_vg + n_prior)
     if "[pipeline] sample_cosmo: running..." not in first or "[pipeline] sample_cosmo: up to date" not in second:
         raise AssertionError(f"cli sample_cosmo: the first run did not run the fit or the second did not report "
                              f"it up to date:\n{first[-2000:]}\n{second[-2000:]}")
@@ -1153,9 +1184,10 @@ def _counting_hmc_steps(steps: list):
 
 def _counters():
     from bumpcosmology_torch.mock import cuda_snr
-    from bumpcosmology_torch.ops import cuda_bump, cuda_families, cuda_logwts, cuda_priors
+    from bumpcosmology_torch.ops import cuda_bump, cuda_families, cuda_logwts, cuda_priors, cuda_tables
 
-    return cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_snr.LAUNCHES, cuda_priors.LAUNCHES, cuda_families.LAUNCHES
+    return (cuda_bump.LAUNCHES, cuda_logwts.LAUNCHES, cuda_snr.LAUNCHES, cuda_priors.LAUNCHES, cuda_families.LAUNCHES,
+            cuda_tables.LAUNCHES)
 
 
 def _zero_counters():
@@ -1173,11 +1205,15 @@ def _zero_counters():
 
 PRIORS = ("priors_fwd", "priors_bwd")
 FAMILIES = ("families_fwd", "families_bwd")
+TABLES = ("tables_fwd", "tables_bwd")
 
 
-def _but_priors(launches: dict, families: bool = False) -> dict:
-    """The launches but kernel P's, and with ``families`` but kernel F's (every key of ``cuda_families``)."""
-    return {k: v for k, v in launches.items() if k not in PRIORS and not (families and k.startswith("families_"))}
+def _but_shared(launches: dict, families: bool = False) -> dict:
+    """The launches but kernel P's and T's (which :func:`check_priors` and
+    :func:`check_tables` hold), and with ``families`` but kernel F's (every
+    key of ``cuda_families``)."""
+    return {k: v for k, v in launches.items()
+            if k not in PRIORS + TABLES and not (families and k.startswith("families_"))}
 
 
 def check_families(label: str, launches: dict, n_vg: int, n_pot=None, layout: str = "") -> None:
@@ -1203,6 +1239,17 @@ def check_priors(label: str, launches: dict, n_vg: int, n_pot=None) -> None:
         raise AssertionError(f"{label}: kernel P launched {launches['priors_fwd']} forward and "
                              f"{launches['priors_bwd']} backward, not {n_pot} (one a potential) and {n_vg} (one a "
                              f"value+grad)")
+
+
+def check_tables(label: str, launches: dict, n_vg: int, n_pot=None) -> None:
+    """Kernel T launched once forward for each of ``n_pot`` joint potentials
+    on the card's kernels (by default the ``n_vg`` value+grads alone) and
+    once backward for each of the ``n_vg`` value+grads."""
+    n_pot = n_vg if n_pot is None else n_pot
+    if (launches["tables_fwd"], launches["tables_bwd"]) != (n_pot, n_vg):
+        raise AssertionError(f"{label}: kernel T launched {launches['tables_fwd']} forward and "
+                             f"{launches['tables_bwd']} backward, not {n_pot} (one a joint potential) and {n_vg} "
+                             "(one a value+grad)")
 
 
 def _read_counters():
@@ -1259,6 +1306,7 @@ def chees_hybrid_phase(dev, tag: str, spec, warm, det_fn, vg_per_s_nuts: float):
         raise AssertionError(f"nuts+chees: launches are not one of each kernel per value+grad ({n_vg}) and one "
                              f"rows forward per chunk ({n_chunks}): {launches}")
     check_priors("nuts+chees", launches, n_vg)
+    check_tables("nuts+chees", launches, n_vg)
     if len(steps) != CHEES_ADAPT + CHEES_SAMPLES:
         raise AssertionError(f"nuts+chees: {len(steps)} trajectories, not {CHEES_ADAPT} + {CHEES_SAMPLES}")
     for group, arrays in (("posterior", res.posterior), ("sample_stats", res.sample_stats)):
@@ -1351,6 +1399,7 @@ def chees_pop_phase(dev, tag: str, spec, theta0):
             and not any(v for k, v in launches.items() if k.startswith("logwts"))):
         raise AssertionError(f"chees: kernel A not once per value+grad ({n_vg}), or kernel B launched: {launches}")
     check_priors("chees", launches, n_vg)
+    check_tables("chees", launches, 0)
     c, dim = theta0.shape
     if (res.thetas.shape != (c, CHEES_SAMPLES, dim) or not bool(torch.isfinite(res.thetas).all())
             or not math.isfinite(res.trajectory_length) or not res.eps > 0):
@@ -1713,7 +1762,7 @@ def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None, tr
     n_chunks = -(-n_draws // 128)
     n_prior = calls["value"]
     if not bump:
-        ok = not any(_but_priors(launches, families=True).values())
+        ok = not any(_but_shared(launches, families=True).values())
     elif joint:
         ok = (launches["bump_bwd"] == launches["logwts_lse_bwd"] == n_vg() and launches["logwts_fwd"] == n_chunks
               and launches["bump_fwd"] == launches["logwts_lse_fwd"] + n_chunks == n_vg() + n_prior + n_chunks
@@ -1726,6 +1775,10 @@ def fit_phase(dev, tag: str, model: str, family: str = "bump", data_dir=None, tr
             "zero on every kernel but P" if not bump else f"one of each kernel per value+grad ({n_vg()}), {n_chunks} "
             "forwards for the deterministics") + f": {launches}")
     check_priors(f"fit ({family}, {model})", launches, n_vg(), n_vg() + n_prior)
+    if joint:
+        check_tables(f"fit ({family}, {model})", launches, n_vg(), n_vg() + n_prior)
+    else:
+        check_tables(f"fit ({family}, {model})", launches, 0)
     if joint and not bump:
         check_families(f"fit ({family}, {model})", launches, n_vg(), n_vg() + n_prior)
     else:
@@ -2009,6 +2062,23 @@ def kernel_f_phase(tag: str) -> dict:
             for name, key in zip(FAMILIES, ("f_fwd_lse", "f_bwd_lse"))}
 
 
+def kernel_t_phase(tag: str) -> dict:
+    """Phase 3t: kernel T at the cell ``flagship_plpeak.nuts``'s shape
+    (``tools/kernel_times.kernel_t_times``: held to the eager table code on the
+    card, each launch timed, bounded and beside the eager table code's call).
+    Returns the kernels-line rows of the forward and the backward."""
+    from bumpcosmology_torch.tools.kernel_times import kernel_t_times
+
+    kernels, shape = kernel_t_times(ROOT, timed_row, check_close, N_GRID, N_Z, SEED)
+    log(f"{tag} phase 3t kernel T ({json.dumps(shape)}; max_abs_err against the eager table code on the card; ms "
+        f"device time in one replayed graph, call_ms one eager call, plain_ms the eager table code's call, bound_ms by "
+        f"bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s or operations at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s): "
+        + json.dumps({k: {f: (float(f"{v:.4g}") if isinstance(v, float) else v) for f, v in r.items()}
+                      for k, r in kernels.items()}))
+    return {name: dict(kernels[key], bound=(kernels[key]["bound_ms"], kernels[key]["bound_by"]))
+            for name, key in zip(TABLES, ("t_fwd", "t_bwd"))}
+
+
 def potential_large_table_phase(tag: str, data, theta, u_1024):
     """Phase 4b: the joint potential of the flagship at ``n_z`` = ``LARGE_N_Z``
     from the committed state (16 chains), a table on kernel B's second
@@ -2032,7 +2102,7 @@ def potential_large_table_phase(tag: str, data, theta, u_1024):
     torch.cuda.synchronize()
     launches = _read_counters()
     expected = {"bump_fwd": 1, "bump_bwd": 1, "logwts_lse_fwd": 1, "logwts_lse_bwd_global": 1, "priors_fwd": 1,
-                "priors_bwd": 1}
+                "priors_bwd": 1, "tables_fwd": 1, "tables_bwd": 1}
     if {k: v for k, v in launches.items() if v} != expected:
         raise AssertionError(f"potential at n_z={LARGE_N_Z}: launches {launches}, expected {expected}")
     u2, g2 = value_and_grad(pot, theta)
@@ -2257,10 +2327,11 @@ def family_repeats_phase(dev, tag: str) -> dict:
             ms = cuda_ms(lambda: card_vg(pot, theta, layout), reps=5, warmup=1)
             results[f"{family} {layout}"] = dict(du=float(f"{du:.3e}"), dg=float(f"{dg:.3e}"), ms=round(ms, 3))
     launches = _read_counters()
-    if any(_but_priors(launches, families=True).values()):
-        raise AssertionError(f"phase 15a: the families' potentials launched kernels other than P and F: {launches}")
+    if any(_but_shared(launches, families=True).values()):
+        raise AssertionError(f"phase 15a: the families' potentials launched kernels other than P, T and F: {launches}")
     n_all = n_card["shared"] + n_card["fleet"]
     check_priors("phase 15a", launches, n_all)
+    check_tables("phase 15a", launches, n_all)
     check_families("phase 15a, shared", {k: v for k, v in launches.items() if not k.endswith("_per_chain")},
                    n_card["shared"])
     check_families("phase 15a, fleet", {k: v for k, v in launches.items() if k.endswith("_per_chain")},
@@ -2315,10 +2386,11 @@ def certificate_tool_phase(dev, tag: str) -> dict:
     if r["rate_p"] is None or not np.isfinite(r["rate_p"]):
         raise AssertionError("phase 15c: the rate check did not run")
     if (launches["snr_integral"] == 0 or launches["bump_fwd"] > 1
-            or any(v for k, v in _but_priors(launches, families=True).items() if k not in ("snr_integral", "bump_fwd"))):
+            or any(v for k, v in _but_shared(launches, families=True).items() if k not in ("snr_integral", "bump_fwd"))):
         raise AssertionError(f"phase 15c: launches {launches} (the campaign's: kernel C, A's forward at most "
-                             "once; the fleet's potentials: P and F)")
+                             "once; the fleet's potentials: P, T and F)")
     check_priors("phase 15c", launches, n_vg, n_vg + 16)  # the 16 start candidates' potentials
+    check_tables("phase 15c", launches, n_vg, n_vg + 16)
     check_families("phase 15c", launches, n_vg, n_vg + 16, layout="_per_chain")
     log(f"{tag} phase 15c sbc_certificate --family plpeak cut to {CERT_SMOKE_SIMS} simulations, "
         f"{CERT_SMOKE_WARMUP} + {CERT_SMOKE_SAMPLES} transitions at max_depth {CERT_SMOKE_DEPTH}: wall "
@@ -2450,16 +2522,18 @@ def sbc_phase(dev, tag: str, model: str):
     b = "logwts_lse_fwd_per_chain", "logwts_lse_bwd_per_chain"
     others = lambda d, keep: [k for k, v in d.items() if v and k not in keep]  # noqa: E731
     ok_init = init["bump_fwd"] == 16 and (init[b[0]] == 16 if joint else True)
-    ok_init &= not others(init, ("bump_fwd",) + ((b[0],) if joint else ()) + PRIORS)
+    ok_init &= not others(init, ("bump_fwd",) + ((b[0],) if joint else ()) + PRIORS + TABLES)
     ok_fleet = fleet["bump_fwd"] == fleet["bump_bwd"] == n_vg > 0
     if joint:
         ok_fleet &= fleet[b[0]] == fleet[b[1]] == n_vg
-    ok_fleet &= not others(fleet, ("bump_fwd", "bump_bwd") + (b if joint else ()) + PRIORS)
+    ok_fleet &= not others(fleet, ("bump_fwd", "bump_bwd") + (b if joint else ()) + PRIORS + TABLES)
     if not (ok_init and ok_fleet):
         raise AssertionError(f"sbc {model}: launches not once per potential: candidates {init}, fleet {fleet} "
                              f"({n_vg} batched value+grads)")
     check_priors(f"sbc {model} candidates", init, 0, 16)
     check_priors(f"sbc {model} fleet", fleet, n_vg)
+    check_tables(f"sbc {model} candidates", init, 0, 16 if joint else 0)
+    check_tables(f"sbc {model} fleet", fleet, n_vg if joint else 0)
 
     # the artifact
     sites = [k[len("ranks/"):] for k in art if k.startswith("ranks/") and k != "ranks/n_bins"]
@@ -2573,7 +2647,7 @@ def score_check_phase(dev, tag: str):
             z, sites = d["z"], [str(x) for x in d["site"]]
     n = SCORE_CATALOGS
     tg, sim = sums["term_grads"], sums["simulate"]
-    one_each = ("bump_fwd", "bump_bwd", "logwts_lse_fwd", "logwts_lse_bwd")
+    one_each = ("bump_fwd", "bump_bwd", "logwts_lse_fwd", "logwts_lse_bwd", *TABLES)
     ok = (len(tg["bump_fwd"]) == n and all(tg[k] == [1] * n for k in one_each)
           and not any(sum(v) for k, v in tg.items() if k not in one_each)
           and len(sim["bump_fwd"]) == n and min(sim["bump_fwd"]) >= 1 and min(sim["snr_integral"]) >= 1
@@ -2605,13 +2679,15 @@ def _site_label(names) -> str:
 # launches of one device batch of phase 12, by model: the joint bump's pointwise and evidence batches run kernel
 # A's forward and kernel B's lse forward (shared table); its PPC batches kernel B's rows forward; the pop bump
 # kernel A's forward alone; PLPeak's pointwise and evidence batches kernel F's forward, its PPC batches (the rows
-# themselves, eager) no kernel; every evidence batch (a potential) kernel P's forward besides
+# themselves, eager) no kernel; every joint pointwise and evidence batch kernel T's forward, every evidence batch
+# (a potential) kernel P's forward besides
 _BATCH_LAUNCHES = {
-    ("pointwise", "pop"): {"bump_fwd": 1}, ("pointwise", "pop_cosmo"): {"bump_fwd": 1, "logwts_lse_fwd": 1},
-    ("pointwise", "pop_cosmo_plpeak"): {"families_fwd": 1},
+    ("pointwise", "pop"): {"bump_fwd": 1},
+    ("pointwise", "pop_cosmo"): {"bump_fwd": 1, "logwts_lse_fwd": 1, "tables_fwd": 1},
+    ("pointwise", "pop_cosmo_plpeak"): {"families_fwd": 1, "tables_fwd": 1},
     ("evidence", "pop"): {"bump_fwd": 1, "priors_fwd": 1},
-    ("evidence", "pop_cosmo"): {"bump_fwd": 1, "logwts_lse_fwd": 1, "priors_fwd": 1},
-    ("evidence", "pop_cosmo_plpeak"): {"families_fwd": 1, "priors_fwd": 1},
+    ("evidence", "pop_cosmo"): {"bump_fwd": 1, "logwts_lse_fwd": 1, "priors_fwd": 1, "tables_fwd": 1},
+    ("evidence", "pop_cosmo_plpeak"): {"families_fwd": 1, "priors_fwd": 1, "tables_fwd": 1},
     ("ppc", "pop"): {"bump_fwd": 1}, ("ppc", "pop_cosmo"): {"bump_fwd": 1, "logwts_fwd": 1},
     ("ppc", "pop_cosmo_plpeak"): {},
 }
@@ -2781,7 +2857,8 @@ def model_comparison_phase(dev, tag: str, data_dir):
         f"{json.dumps(stats)}")
     log("phase 12a table:\n" + table + ("\n" + str(art["attrs/bf_table"]) if str(art["attrs/bf_table"]) else ""))
     for k in ("bump_bwd", "logwts_bwd", "logwts_lse_bwd", "logwts_fwd", "logwts_lse_fwd_per_chain",
-              "logwts_lse_bwd_per_chain", "snr_integral", "priors_bwd", "families_bwd", "families_fwd_per_chain"):
+              "logwts_lse_bwd_per_chain", "snr_integral", "priors_bwd", "families_bwd", "families_fwd_per_chain",
+              "tables_bwd"):
         if launches["12a_compare"][k]:
             raise AssertionError(f"compare: {k} launched {launches['12a_compare'][k]} times")
 
@@ -2890,14 +2967,16 @@ def model_comparison_phase(dev, tag: str, data_dir):
     init, fleet = _delta(seen["at_fleet"], seen["at_datas"]), _delta(seen["after_fleet"], seen["at_fleet"])
     b = "logwts_lse_fwd_per_chain", "logwts_lse_bwd_per_chain"
     others = lambda d, keep: [k for k, v in d.items() if v and k not in keep]  # noqa: E731
-    ok = (init["bump_fwd"] == init[b[0]] == 32 and not others(init, ("bump_fwd", b[0]) + PRIORS)
+    ok = (init["bump_fwd"] == init[b[0]] == 32 and not others(init, ("bump_fwd", b[0]) + PRIORS + TABLES)
           and fleet["bump_fwd"] == fleet["bump_bwd"] == fleet[b[0]] == fleet[b[1]] == n_vg > 0
-          and not others(fleet, ("bump_fwd", "bump_bwd") + b + PRIORS) and s == len(np.unique(pe["evt"])))
+          and not others(fleet, ("bump_fwd", "bump_bwd") + b + PRIORS + TABLES) and s == len(np.unique(pe["evt"])))
     if not ok:
         raise AssertionError(f"loo: launches not once per potential: candidates {init}, fleet {fleet} ({n_vg} "
                              f"batched value+grads, {s} chains)")
     check_priors("loo candidates", init, 0, 32)
     check_priors("loo fleet", fleet, n_vg)
+    check_tables("loo candidates", init, 0, 32)
+    check_tables("loo fleet", fleet, n_vg)
     with np.load(cfg.paths.path("influence.npz")) as d:
         art = {k: d[k] for k in d.files}
     sites = sorted({k.split("/")[0] for k in art} - {"attrs", "event"})
@@ -3100,11 +3179,12 @@ def scale_out_phase(dev, tag: str, spec, theta, data_dir: Path) -> dict:
         draws = {name: [dict(np.load(store / f"rank{r}_{name}.npz")) for r in range(SCALE_RANKS)]
                  for name in ("rows", "split", "split_warm")}
         dense = dict(np.load(store / "dense.npz"))
-    per_vg = {"bump_fwd": 1, "bump_bwd": 1, "logwts_lse_fwd": 1, "logwts_lse_bwd": 1, "priors_fwd": 1, "priors_bwd": 1}
+    per_vg = {"bump_fwd": 1, "bump_bwd": 1, "logwts_lse_fwd": 1, "logwts_lse_bwd": 1, "priors_fwd": 1, "priors_bwd": 1,
+              "tables_fwd": 1, "tables_bwd": 1}
     for r, out in enumerate(outs):
         got = out["vg"]["launches"]
         if any(v != per_vg.get(k, 0) for k, v in got.items()):
-            raise AssertionError(f"phase 14a rank {r}: not one launch of A, B's lse and P each way in a value+grad: "
+            raise AssertionError(f"phase 14a rank {r}: not one launch of A, B's lse, P and T each way in a value+grad: "
                                  f"{got}")
         launches[f"14a_sharded_vg_rank{r}"] = got
     log(f"{tag} phase 14a {SCALE_RANKS} ranks on one card, backend {outs[0]['backend']} (CUDA tensors staged "
@@ -3129,6 +3209,7 @@ def scale_out_phase(dev, tag: str, spec, theta, data_dir: Path) -> dict:
                 raise AssertionError(f"phase 14b fit(mesh=) {name}, rank {r}: not one launch of A and B each way "
                                      f"a value+grad: {got}")
             check_priors(f"phase 14b fit(mesh=) {name}, rank {r}", got, got["logwts_lse_bwd"], got["logwts_lse_fwd"])
+            check_tables(f"phase 14b fit(mesh=) {name}, rank {r}", got, got["logwts_lse_bwd"], got["logwts_lse_fwd"])
             launches[f"14b_fit_{name}_rank{r}"] = got
     n = MESH_FIT_CHAINS // SCALE_RANKS
     if np.array_equal(draws["rows"][0]["a"][:n], draws["rows"][0]["a"][n:]):

@@ -779,14 +779,157 @@ def kernel_b_digests(dev):
     return {"kernel_b": raw.hexdigest(), "bump_value_and_grad": vg.hexdigest()}
 
 
-# kernel_b_digests on an H100 80GB HBM3 (sm_90a, ops/_build.py's flags) before kernel F shared B's skeleton
+# kernel_b_digests on an H100 80GB HBM3 (sm_90a, ops/_build.py's flags): kernel B's from before kernel F shared
+# its skeleton; the bump's value+grad since kernel T builds its detector table (T's prefix sum adds in another
+# order than torch.cumsum, so the table's bits, and the value+grad's, are T's)
 KERNEL_B_DIGESTS = {"kernel_b": "3f28a53468168c7c173f5622140426ba1ade76cafba5e515e16b4fc63ca0cf5a",
-                    "bump_value_and_grad": "fa12d569e2326d7347f99473b607c1af2402664da17d3cce9aa6a9b9742f92d9"}
+                    "bump_value_and_grad": "b120d8ab7dd6fd4026d22c0696705e041449e2ab9adf47f7badbf88779fce1bb"}
 
 
 def test_kernel_b_gives_the_bits_it_gave_before_the_shared_skeleton(dev):
-    """Kernel B, and the bump's joint value+grad through it, give the same
-    bits as before ``csrc/rows.cuh`` took their skeleton out of ``logwts.cu``."""
+    """Kernel B gives the same bits as before ``csrc/rows.cuh`` took its
+    skeleton out of ``logwts.cu``, and the bump's joint value+grad through it
+    and kernel T the bits it gave when T took the tables."""
     if torch.cuda.get_device_capability(dev) != (9, 0):
         pytest.skip("the digests were taken on an sm_90 card")
     assert kernel_b_digests(dev) == KERNEL_B_DIGESTS
+
+
+# ---------------------------------------------------------------------------
+# Kernel T: the cosmology and detector tables
+# ---------------------------------------------------------------------------
+
+
+def _tables_sites(dev, c, dtype, seed=7):
+    """(h, Om, w) at ``c`` draws of the joint model's priors, on ``dev``."""
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.model import ModelSpec, constrain, prior_sample
+
+    spec = ModelSpec(priors={k: lk.POP_COSMO_PRIORS[k] for k in ("h", "Om", "w")}, loglike=None,
+                     device=torch.device("cpu"))
+    theta = prior_sample(spec, torch.Generator().manual_seed(seed), shape=(c,)).double()
+    return tuple(x.to(dtype).to(dev) for x in constrain(spec, theta).values())
+
+
+def _tables_value_and_grad(sites, n, g, kernel, dl_bounds=(0.03, 14.0)):
+    """``(cols, (3, C) cotangents of h, Om, w, launches)`` of the detector
+    table by kernel T (``kernel``) or by the eager table code, for the table's
+    cotangent ``g``; ``launches`` the change of ``cuda_tables.LAUNCHES``."""
+    from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table, kernel_detector_table
+    from bumpcosmology_torch.models.parameters import CosmoParams
+    from bumpcosmology_torch.ops import cuda_tables
+
+    leaves = [x.clone().requires_grad_(True) for x in sites]
+    before = dict(cuda_tables.LAUNCHES)
+    if kernel:
+        cols = kernel_detector_table(CosmoParams(*leaves), *dl_bounds, n=n).cols
+    else:
+        cols = build_detector_table(build_cosmology(CosmoParams(*leaves), n=n), *dl_bounds, n=n).cols
+    grads = torch.autograd.grad((cols * g).sum(), leaves)
+    if cols.is_cuda:
+        torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in cuda_tables.LAUNCHES.items() if v != before[k]}
+    return cols.detach(), torch.stack(grads), launches
+
+
+def _rel_gap(a, b):
+    a, b = a.double(), b.double()
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    fin = ~torch.isnan(b)
+    return float(((a[fin] - b[fin]).abs() / (1 + b[fin].abs())).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("c", [1, 4, 128])
+@pytest.mark.parametrize("n", [1024, 8192])
+def test_tables_kernel_matches_the_eager_twin(dev, n, c, dtype):
+    """Kernel T's detector table and the cotangents of h, Om and w for a
+    random cotangent of the table, against the eager table code (the twin) in
+    float64 on the CPU, whose gathers add their cotangents in order (the
+    card's deterministic gather rounds each to a fixed point of n 2^-52 of
+    its row's largest, which cancellation in the chain rule lifts to 1e-9 to
+    1e-7 of the sites' cotangents): float64 within 1e-10 of 1 + |twin's|;
+    float32 as close to it as the twin's own float32 on the card comes,
+    within four times its gap.  T launches once each way, the twin none;
+    n = 8,192 puts a chain's arrays in device memory."""
+    sites = _tables_sites(dev, c, dtype)
+    g = torch.randn((c, n, 2), generator=torch.Generator().manual_seed(3), dtype=torch.float64).to(dtype).to(dev)
+    got = _tables_value_and_grad(sites, n, g, kernel=True)
+    ref = _tables_value_and_grad(sites, n, g, kernel=False)
+    assert got[2] == {"tables_fwd": 1, "tables_bwd": 1} and ref[2] == {}
+    cpu = torch.device("cpu")
+    truth = _tables_value_and_grad(tuple(x.to(cpu, torch.float64) for x in sites), n, g.to(cpu, torch.float64),
+                                   kernel=False)
+    for a, b, t in zip(got[:2], ref[:2], truth[:2]):
+        a, b = a.cpu(), b.cpu()
+        if dtype == torch.float64:
+            assert _rel_gap(a, t) < 1e-10
+        else:
+            assert _rel_gap(a, t) <= 4 * _rel_gap(b, t)
+
+
+def test_tables_kernel_repeats_bit_for_bit_and_a_chain_does_not_depend_on_the_others(dev):
+    """Two value+grads through kernel T give the same bits, and a chain's
+    table and cotangents are the same bits alone or among 4 or 128."""
+    sites = _tables_sites(dev, 128, torch.float32)
+    g = torch.randn((128, 1024, 2), generator=torch.Generator().manual_seed(5)).to(dev)
+    first = _tables_value_and_grad(sites, 1024, g, kernel=True)
+    second = _tables_value_and_grad(sites, 1024, g, kernel=True)
+    for a, b in zip(first[:2], second[:2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for idx in ([5], [0, 3, 64, 127]):
+        part = _tables_value_and_grad(tuple(x[idx] for x in sites), 1024, g[idx], kernel=True)
+        assert torch.equal(part[0], first[0][idx]) and torch.equal(part[1], first[1][:, idx])
+
+
+def test_tables_kernel_calls_no_synchronising_function(dev):
+    """Kernel T's forward and backward under CUDA's sync debug mode: no
+    synchronising call (the wrapper reads nothing back)."""
+    import warnings
+
+    sites = _tables_sites(dev, 4, torch.float32)
+    g = torch.randn((4, 1024, 2), generator=torch.Generator().manual_seed(5)).to(dev)
+    _tables_value_and_grad(sites, 1024, g, kernel=True)  # the library's load and the route's first read
+    from bumpcosmology_torch.models.cosmology import kernel_detector_table
+    from bumpcosmology_torch.models.parameters import CosmoParams
+
+    leaves = [x.clone().requires_grad_(True) for x in sites]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            cols = kernel_detector_table(CosmoParams(*leaves), 0.03, 14.0, n=1024).cols
+            torch.autograd.grad((cols * g).sum(), leaves)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+
+
+@pytest.mark.parametrize("family", ["bump", "plpeak", "brokenpl"])
+def test_tables_kernel_runs_once_each_way_a_value_and_grad_of_a_transition(dev, family):
+    """Over a NUTS transition of each family's joint potential on the card
+    (4 chains from prior draws on a synthetic catalog, depth 4), kernel T
+    launches once forward and once backward a value+grad."""
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference import nuts
+    from bumpcosmology_torch.inference.model import ModelSpec, make_potential, prior_sample, value_and_grad
+    from bumpcosmology_torch.testing import synthetic_pop_cosmo_data
+    from bumpcosmology_torch.utils import profiling
+
+    fam = lk.MASS_FAMILIES[family]
+    data = synthetic_pop_cosmo_data(8, 64, 1024, seed=3, device=dev)
+    spec = fam.cosmo_spec(data, n_grid=128, n_z=1024, device=dev)
+    potential, c = make_potential(spec), 4
+    theta = prior_sample(ModelSpec(priors=dict(spec.priors), loglike=None, device=torch.device("cpu")),
+                         torch.Generator().manual_seed(9), shape=(c,)).to(dev)
+    state = nuts.ChainState(theta, *value_and_grad(potential, theta))
+    dim = theta.shape[1]
+    eye = torch.eye(dim, device=dev).expand(c, dim, dim).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    before = profiling.counters()
+    _, stats = nuts.nuts_transition(potential, state, torch.full((c,), 1e-3, device=dev), eye, eye, gen, 4)
+    torch.cuda.synchronize()
+    after = profiling.counters()
+    delta = {k: after[k] - before[k] for k in after}
+    assert int(stats.n_leapfrog.max()) > 1 and delta["model.value_and_grads"] > 1
+    assert delta["cuda_tables.tables_fwd"] == delta["cuda_tables.tables_bwd"] == delta["model.value_and_grads"]

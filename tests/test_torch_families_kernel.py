@@ -157,17 +157,20 @@ def test_the_cpu_route_is_the_eager_code_bit_for_bit(family, layout, monkeypatch
 
 
 @pytest.mark.parametrize("family", FAMILIES)
-def test_the_kernel_route_builds_the_tables_without_the_pivot(family):
-    """F's route builds the family's q-norm, cosmology and detector tables as
-    the eager route does, and leaves the pivot (``log_norm``) at 0 for F to
-    compute; the family's ``build`` names its code in the kernel."""
+def test_the_kernel_route_builds_the_tables_without_the_pivot(family, monkeypatch):
+    """F's route builds the family's q-norm table as the eager route does,
+    and leaves the pivot (``log_norm``) at 0 for F to compute; its detector
+    table is kernel T's (here the eager table code in its place); the family's
+    ``build`` names its code in the kernel."""
     build = lk.MASS_FAMILIES[family].build
     assert build.name == family and family in cuda_families.FAMILIES
     data = _data(torch.float32)
     sites = _sites(family, 3, 5, torch.float32)
     bounds = lk.dl_bounds_of(data)
     full, _, det = build.tables(sites, 48, 96, bounds)
-    bare, _, det_bare = build.tables(sites, 48, 96, bounds, pivot=False)
+    monkeypatch.setattr(lk, "kernel_detector_table", lambda params, lo, hi, n: build_detector_table(
+        build_cosmology(params, n=n), lo, hi, n=n))
+    bare, _, det_bare = build.tables(sites, 48, 96, bounds, kernel=True)
     assert bare.dm == full.dm and torch.equal(bare.log_nq, full.log_nq) and torch.equal(det_bare.cols, det.cols)
     assert torch.equal(bare.log_norm, torch.zeros_like(full.log_norm))
     assert bool(torch.isfinite(full.log_norm).all()) and not torch.equal(full.log_norm, bare.log_norm)

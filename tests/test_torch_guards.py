@@ -559,7 +559,8 @@ def _extern_c_declarations(source: str):
 
 @pytest.mark.parametrize("source,module", [("bump", "ops.cuda_bump"), ("logwts", "ops.cuda_logwts"),
                                            ("floor", "ops.launch_floor"), ("snr", "mock.cuda_snr"),
-                                           ("priors", "ops.cuda_priors"), ("families", "ops.cuda_families")])
+                                           ("priors", "ops.cuda_priors"), ("families", "ops.cuda_families"),
+                                           ("tables", "ops.cuda_tables")])
 def test_ctypes_signatures_match_the_extern_c_declarations(source, module):
     """A mismatch cuts a pointer to 32 bits or shifts every argument after
     it, without any error; only the source can show it on a host without nvcc."""
