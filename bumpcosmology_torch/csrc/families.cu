@@ -1,6 +1,6 @@
 // Kernel F: the joint log-likelihood's per-event and selection log-sum-exps for a mass family that
-// normalises in q (POWER-LAW+PEAK, BROKEN POWER LAW), one launch forward and one hand-derived backward,
-// batched over chains.  Replaces no TPU kernel: the JAX package sends these families through XLA
+// normalises in q (POWER-LAW+PEAK, BROKEN POWER LAW, POWER LAW + SPLINE), one launch forward and one
+// hand-derived backward, batched over chains.  Replaces no TPU kernel: the JAX package sends these families through XLA
 // (likelihoods.py:351-361); in eager PyTorch their fused route costs about 870 launches a value+grad
 // (the rows' weights, the segment log-sum-exps and the pivot, forward and backward).
 //
@@ -14,8 +14,10 @@
 // Inputs per chain c: the detector table det (C, K, 2) = [z, log_jac] on v0 + k dv in log dL; the
 // q-norm table nq (C, n_m) = log N_q on 2 + k dmq (built by models/plpeak.py::_log_nq_grid, outside);
 // the sites scal (C, NS) in the order of fam::Slot (ops/cuda_families.py::SLOTS); the query rows qry,
-// (N, 4) shared or (C, N, 4) one table a chain, [m1_det, q, log dL, log pdraw].  The family is a
-// compile-time code.  Float32 and float64.
+// (N, 4) shared or (C, N, 4) one table a chain, [m1_det, q, log dL, log pdraw]; for POWER LAW + SPLINE a
+// second per-chain table spl (C, 19, 4), the spline's cubic coefficients on each interval between its
+// knots (models/pspline.py::spline_coefficients, outside), null for the other families.  The family is
+// a compile-time code.  Float32 and float64.
 //
 // Forward: each block copies its chain's two tables to shared memory, one thread computes the chain's
 // constants and its pivot (the density at MREF, QREF, ZREF: one more row a chain) into shared memory,
@@ -23,13 +25,14 @@
 // Backward: each row with a non-zero segment cotangent is recomputed, its cotangent is
 // g_seg exp(out - lse_seg) (exactly 0 for a -inf row, so an all -inf segment contributes nothing), and
 // its chain rule adds g times its partials into NACC register accumulators and its table cotangents
-// into the fixed-point bins: the detector's 2K and the q-norm table's n_m in shared memory (ROUTE_SHARED),
-// or the detector's in a zeroed (C, 2, 2K) int64 scratch in device memory beyond that (ROUTE_GLOBAL,
-// chosen from the shape and the type before the launch).  The accumulators are reduced in a fixed order
-// within each block and, after cluster.sync(), over the blocks in rank order by one thread of the
-// cluster's first block, which also runs the pivot's backward (its cotangent is minus the rows' sum)
-// into those sums and its two q-norm bins, and writes the sites' cotangents.  After a second
-// cluster.sync() each block converts an eighth of the bins to T.  Every output element is written
+// into the fixed-point bins: the detector's 2K, the q-norm table's n_m and (POWER LAW + SPLINE) the
+// spline table's 76 in shared memory (ROUTE_SHARED), or the detector's in a zeroed (C, 2, 2K) int64
+// scratch in device memory beyond that (ROUTE_GLOBAL, chosen from the family, the shape and the type
+// before the launch).  The accumulators are reduced in a fixed order within each block and, after
+// cluster.sync(), over the blocks in rank order by one thread of the cluster's first block, which also
+// runs the pivot's backward (its cotangent is minus the rows' sum) into those sums, its two q-norm bins
+// and its four spline bins, and writes the sites' cotangents.  After a second cluster.sync() each block
+// converts an eighth of the bins to T.  Every output element is written
 // exactly once.
 //
 // The arithmetic is the eager twin's, in its order and with its constants rounded once to T, and this
@@ -39,9 +42,10 @@
 // C interface (bound with ctypes), of the type dsize gives (4: float, 8: double), contiguous but for
 // the cotangents g_ev (C, nobs) and g_sel (C,), which take element strides:
 //   families_fwd    -> lse_ev (C, nobs), lse_sel (C,)
-//   families_bwd    -> d_det (C, K, 2), d_nq (C, n_m), d_scal (C, NS), written in full; det_bins the
-//                      (C, 2, 2K) int64 scratch on ROUTE_GLOBAL, unused (may be null) on ROUTE_SHARED
-//   families_bwd_route -> the route a backward of this shape and type takes
+//   families_bwd    -> d_det (C, K, 2), d_nq (C, n_m), d_spl (C, 19, 4) for POWER LAW + SPLINE (null for the
+//                      others), d_scal (C, NS), written in full; det_bins the (C, 2, 2K) int64 scratch on
+//                      ROUTE_GLOBAL, unused (may be null) on ROUTE_SHARED
+//   families_bwd_route -> the route a backward of this family, shape and type takes
 // Each returns the CUDA error of its launch (0 on success), cudaErrorInvalidValue for a shape, family
 // or type outside its range, or ERR_SMEM (-1) for a shape whose blocks do not fit in shared memory.
 
@@ -55,6 +59,9 @@ constexpr int R_BWD = 1;   // and backward
 constexpr int WARPS = 16;  // most warps of a block, both directions
 constexpr int NS = fam::NS;
 constexpr int NACC = fam::NACC;
+
+// the spline table's entries of a family: its bins in the backward's shared memory
+__host__ __device__ constexpr int spl_coefs(int family) { return family == fam::PSPLINE ? fam::SPL_COEFS : 0; }
 
 template <typename T> struct Ieee {  // a segment's exp and log in the lse epilogue
   static __device__ __forceinline__ T exp(T x) { return fam::Fn<T>::exp(x); }
@@ -72,15 +79,18 @@ __device__ __forceinline__ void load_row(const double* qc, int n, double& a, dou
 }
 
 // A chain's tables to shared memory (the detector's first k_sh rows: all or none); one thread derives
-// the chain's constants and pivot from the sites and the q-norm table in device memory.  The caller
-// synchronises the block afterwards.
+// the chain's constants and pivot from the sites, the q-norm table and (POWER LAW + SPLINE) the spline
+// table in device memory, the spline table kept in the chain's constants.  The caller synchronises the
+// block afterwards.
 template <typename T, int FAM>
-__device__ __forceinline__ void load_chain(const T* det, const T* nq, const T* scal, int K, int k_sh, int n_m,
-                                           T dmq, int c, T* s_det, T* s_nq, fam::Chain<T>* s_k) {
+__device__ __forceinline__ void load_chain(const T* det, const T* nq, const T* spl, const T* scal, int K, int k_sh,
+                                           int n_m, T dmq, int c, T* s_det, T* s_nq, fam::Chain<T>* s_k) {
   const T* det_c = det + (size_t)c * 2 * K;
   for (int k = threadIdx.x; k < 2 * k_sh; k += blockDim.x) s_det[k] = det_c[k];
   for (int k = threadIdx.x; k < n_m; k += blockDim.x) s_nq[k] = nq[(size_t)c * n_m + k];
-  if (threadIdx.x == 0) fam::chain_init<T, FAM>(*s_k, scal + (size_t)c * NS, nq + (size_t)c * n_m, n_m, dmq);
+  if (threadIdx.x == 0)
+    fam::chain_init<T, FAM>(*s_k, scal + (size_t)c * NS, nq + (size_t)c * n_m, n_m, dmq,
+                            FAM == fam::PSPLINE ? spl + (size_t)c * fam::SPL_COEFS : nullptr);
 }
 
 __host__ __device__ __forceinline__ size_t align16(size_t bytes) { return (bytes + 15) / 16 * 16; }
@@ -91,19 +101,20 @@ template <typename T> size_t fwd_smem(int K, int n_m, const Work& w) {
          + (2 * (size_t)w.per_block + 2) * sizeof(T);
 }
 
-// Shared memory of the backward: the bins (the detector's on ROUTE_SHARED, and the q-norm table's), the
-// detector rows held there, nq, the chain, the accumulators' reduction and the block's sums.
-template <typename T> size_t bwd_smem(int K, int n_m, int threads, bool global_bins) {
+// Shared memory of the backward: the bins (the detector's on ROUTE_SHARED, the q-norm table's and n_spl
+// of the spline table's), the detector rows held there, nq, the chain, the accumulators' reduction and
+// the block's sums.
+template <typename T> size_t bwd_smem(int K, int n_m, int n_spl, int threads, bool global_bins) {
   const size_t k_sh = global_bins ? 0 : (size_t)K;
-  return (2 * k_sh + n_m) * 2 * sizeof(unsigned long long) + align16((2 * k_sh + n_m) * sizeof(T))
+  return (2 * k_sh + n_m + n_spl) * 2 * sizeof(unsigned long long) + align16((2 * k_sh + n_m) * sizeof(T))
          + align16(sizeof(fam::Chain<T>)) + ((size_t)NACC * threads + NACC) * sizeof(T);
 }
 
 template <typename T, int FAM, bool PER_CHAIN>
 __global__ void __launch_bounds__(32 * WARPS)
-families_fwd_kernel(const T* __restrict__ det, const T* __restrict__ nq, const T* __restrict__ scal,
-                    const T* __restrict__ qry, T* __restrict__ lse_ev, T* __restrict__ lse_sel, int K, int n_m,
-                    T v0, T dv, T dmq, Work w) {
+families_fwd_kernel(const T* __restrict__ det, const T* __restrict__ nq, const T* __restrict__ spl,
+                    const T* __restrict__ scal, const T* __restrict__ qry, T* __restrict__ lse_ev,
+                    T* __restrict__ lse_sel, int K, int n_m, T v0, T dv, T dmq, Work w) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_det = reinterpret_cast<T*>(smem);
   T* s_nq = s_det + 2 * K;
@@ -115,7 +126,7 @@ families_fwd_kernel(const T* __restrict__ det, const T* __restrict__ nq, const T
   const int c = blockIdx.y;
   const T* __restrict__ qc = PER_CHAIN ? qry + (size_t)c * w.N * 4 : qry;  // this chain's rows
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  load_chain<T, FAM>(det, nq, scal, K, K, n_m, dmq, c, s_det, s_nq, s_k);
+  load_chain<T, FAM>(det, nq, spl, scal, K, K, n_m, dmq, c, s_det, s_nq, s_k);
   __syncthreads();
   const fam::Chain<T>& k = *s_k;
 
@@ -144,21 +155,24 @@ families_fwd_kernel(const T* __restrict__ det, const T* __restrict__ nq, const T
 
 template <typename T, int FAM, bool PER_CHAIN, bool GLOBAL_BINS>
 __global__ void __launch_bounds__(32 * WARPS)
-families_bwd_kernel(const T* __restrict__ det, const T* __restrict__ nq, const T* __restrict__ scal,
-                    const T* __restrict__ qry, const T* __restrict__ lse_ev, const T* __restrict__ lse_sel,
-                    const T* __restrict__ g_ev, int g_ev_s0, int g_ev_s1, const T* __restrict__ g_sel, int g_sel_s0,
-                    T* __restrict__ d_det, T* __restrict__ d_nq, T* __restrict__ d_scal,
-                    unsigned long long* __restrict__ det_bins, int K, int n_m, T v0, T dv, T dmq, Work w) {
+families_bwd_kernel(const T* __restrict__ det, const T* __restrict__ nq, const T* __restrict__ spl,
+                    const T* __restrict__ scal, const T* __restrict__ qry, const T* __restrict__ lse_ev,
+                    const T* __restrict__ lse_sel, const T* __restrict__ g_ev, int g_ev_s0, int g_ev_s1,
+                    const T* __restrict__ g_sel, int g_sel_s0, T* __restrict__ d_det, T* __restrict__ d_nq,
+                    T* __restrict__ d_spl, T* __restrict__ d_scal, unsigned long long* __restrict__ det_bins, int K,
+                    int n_m, T v0, T dv, T dmq, Work w) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int n_spl = spl_coefs(FAM);
   const int k_sh = GLOBAL_BINS ? 0 : K;  // detector rows (table and bins) in shared memory
-  const int nb_sh = 2 * k_sh + n_m;      // bins in shared memory: the detector's, then the q-norm table's
+  const int nt_sh = 2 * k_sh + n_m;      // table entries in shared memory: the detector's, the q-norm table's
+  const int nb_sh = nt_sh + n_spl;       // bins in shared memory: those tables', then the spline table's
   BinsT<T> bins;
   bins.hi = reinterpret_cast<unsigned long long*>(smem);
   bins.lo = bins.hi + nb_sh;
   T* s_det = reinterpret_cast<T*>(bins.lo + nb_sh);
   T* s_nq = s_det + 2 * k_sh;
   fam::Chain<T>* s_k = reinterpret_cast<fam::Chain<T>*>(reinterpret_cast<unsigned char*>(s_det)
-                                                        + align16((size_t)nb_sh * sizeof(T)));
+                                                        + align16((size_t)nt_sh * sizeof(T)));
   T* s_red = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(s_k) + align16(sizeof(fam::Chain<T>)));
   T* s_acc = s_red + NACC * blockDim.x;  // (NACC,) the block's sums
   bins.lim = T(FX_RANGE) / T(max(w.N, 1));
@@ -175,8 +189,11 @@ families_bwd_kernel(const T* __restrict__ det, const T* __restrict__ nq, const T
   BinsT<T> nbins = bins;  // the q-norm table's bins, after the detector's in shared memory
   nbins.hi += 2 * k_sh;
   nbins.lo += 2 * k_sh;
+  BinsT<T> sbins = nbins;  // the spline table's, after the q-norm table's
+  sbins.hi += n_m;
+  sbins.lo += n_m;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  load_chain<T, FAM>(det, nq, scal, K, k_sh, n_m, dmq, c, s_det, s_nq, s_k);
+  load_chain<T, FAM>(det, nq, spl, scal, K, k_sh, n_m, dmq, c, s_det, s_nq, s_k);
   for (int i = threadIdx.x; i < nb_sh; i += blockDim.x) {
     bins.hi[i] = 0ull;
     bins.lo[i] = 0ull;
@@ -220,6 +237,8 @@ families_bwd_kernel(const T* __restrict__ det, const T* __restrict__ nq, const T
           fx_add(dbins, 2 * add.det_lo + 3, add.dj1);
           fx_add(nbins, add.nq_lo, add.n0);
           fx_add(nbins, add.nq_lo + 1, add.n1);
+          if (FAM == fam::PSPLINE && add.spl.lo >= 0)
+            for (int j = 0; j < 4; ++j) fx_add(sbins, 4 * add.spl.lo + j, add.spl.c[j]);
         }
       }
     }
@@ -249,9 +268,12 @@ families_bwd_kernel(const T* __restrict__ det, const T* __restrict__ nq, const T
     }
     int lo;
     T na, nb;
-    fam::pivot_grad<T, FAM>(k, s_nq, n_m, dmq, tot, lo, na, nb);
+    fam::SplAdd<T> sa;
+    fam::pivot_grad<T, FAM>(k, s_nq, n_m, dmq, tot, lo, na, nb, sa);
     fx_add(nbins, lo, na);
     fx_add(nbins, lo + 1, nb);
+    if (FAM == fam::PSPLINE && sa.lo >= 0)
+      for (int j = 0; j < 4; ++j) fx_add(sbins, 4 * sa.lo + j, sa.c[j]);
     T d[NS];
     fam::finalize<T, FAM>(k, tot, d);
     for (int i = 0; i < NS; ++i) d_scal[(size_t)c * NS + i] = d[i];
@@ -259,7 +281,7 @@ families_bwd_kernel(const T* __restrict__ det, const T* __restrict__ nq, const T
   cluster.sync();
 
   // each block converts an eighth of the chain's bins, summed over the cluster in rank order
-  const int nb = 2 * K + n_m;
+  const int nb = 2 * K + n_m + n_spl;
   for (int i = rank * blockDim.x + threadIdx.x; i < nb; i += CLUSTER * blockDim.x) {
     unsigned long long hi = 0ull, lo = 0ull, bad = 0ull;
     if (GLOBAL_BINS && i < 2 * K) {
@@ -279,23 +301,25 @@ families_bwd_kernel(const T* __restrict__ det, const T* __restrict__ nq, const T
     }
     const T v = fx_value<T>(hi, lo, bad);
     if (i < 2 * K) d_det[(size_t)c * 2 * K + i] = v;
-    else d_nq[(size_t)c * n_m + (i - 2 * K)] = v;
+    else if (i < 2 * K + n_m) d_nq[(size_t)c * n_m + (i - 2 * K)] = v;
+    else d_spl[(size_t)c * n_spl + (i - 2 * K - n_m)] = v;
   }
   cluster.sync();  // no block leaves while its shared memory may still be read
 }
 
 bool bad_shape(int family, int dsize, int C, int K, int n_m, int N, int qry_cs, int nobs, int nsamp) {
-  return (family != fam::PLPEAK && family != fam::BROKENPL) || (dsize != 4 && dsize != 8) || C < 0 || C > 65535
-         || K < 2 || n_m < 2 || N < 0 || (qry_cs != 0 && qry_cs != N) || nobs < 0 || (nobs > 0 && nsamp < 1)
+  return (family != fam::PLPEAK && family != fam::BROKENPL && family != fam::PSPLINE) || (dsize != 4 && dsize != 8)
+         || C < 0 || C > 65535 || K < 2 || n_m < 2 || N < 0 || (qry_cs != 0 && qry_cs != N) || nobs < 0 || (nobs > 0 && nsamp < 1)
          || (long long)nobs * nsamp > N;
 }
 
-// The backward's route at this shape and type: ROUTE_SHARED while its bins and tables fit in a block's
-// shared memory, else ROUTE_GLOBAL while the forward at the same shape fits; else ERR_SMEM.
-template <typename T> int bwd_route(int K, int n_m, int N, int nobs, int nsamp, int& route) {
+// The backward's route at this family, shape and type: ROUTE_SHARED while its bins and tables fit in a
+// block's shared memory, else ROUTE_GLOBAL while the forward at the same shape fits; else ERR_SMEM.
+template <typename T> int bwd_route(int family, int K, int n_m, int N, int nobs, int nsamp, int& route) {
   const Work wb = make_work(N, nobs, nsamp, R_BWD);
   const int threads = pick_threads(wb, WARPS);
-  const size_t shared = bwd_smem<T>(K, n_m, threads, false);
+  const int n_spl = spl_coefs(family);
+  const size_t shared = bwd_smem<T>(K, n_m, n_spl, threads, false);
   route = ROUTE_SHARED;
   if (shared <= 48 * 1024) return 0;
   size_t most = 0;
@@ -304,27 +328,27 @@ template <typename T> int bwd_route(int K, int n_m, int N, int nobs, int nsamp, 
   if (shared <= most) return 0;
   route = ROUTE_GLOBAL;
   const Work wf = make_work(N, nobs, nsamp, R_FWD);
-  return fwd_smem<T>(K, n_m, wf) <= most && bwd_smem<T>(K, n_m, threads, true) <= most ? 0 : ERR_SMEM;
+  return fwd_smem<T>(K, n_m, wf) <= most && bwd_smem<T>(K, n_m, n_spl, threads, true) <= most ? 0 : ERR_SMEM;
 }
 
 template <typename T, int FAM>
-int fwd(const T* det, const T* nq, const T* scal, const T* qry, T* lse_ev, T* lse_sel, int C, int K, int n_m,
-        int N, int qry_cs, int nobs, int nsamp, double v0, double dv, double dmq, void* stream) {
+int fwd(const T* det, const T* nq, const T* spl, const T* scal, const T* qry, T* lse_ev, T* lse_sel, int C, int K,
+        int n_m, int N, int qry_cs, int nobs, int nsamp, double v0, double dv, double dmq, void* stream) {
   static SmemAllowed allowed[2];
   const Work w = make_work(N, nobs, nsamp, R_FWD);
   const auto kernel = qry_cs ? &families_fwd_kernel<T, FAM, true> : &families_fwd_kernel<T, FAM, false>;
   return launch(kernel, allowed[qry_cs != 0], C, pick_threads(w, WARPS), fwd_smem<T>(K, n_m, w), stream, det, nq,
-                scal, qry, lse_ev, lse_sel, K, n_m, (T)v0, (T)dv, (T)dmq, w);
+                spl, scal, qry, lse_ev, lse_sel, K, n_m, (T)v0, (T)dv, (T)dmq, w);
 }
 
 template <typename T, int FAM>
-int bwd(const T* det, const T* nq, const T* scal, const T* qry, const T* lse_ev, const T* lse_sel, const T* g_ev,
-        int g_ev_s0, int g_ev_s1, const T* g_sel, int g_sel_s0, T* d_det, T* d_nq, T* d_scal,
-        unsigned long long* det_bins, int C, int K, int n_m, int N, int qry_cs, int nobs, int nsamp, double v0,
-        double dv, double dmq, void* stream) {
+int bwd(const T* det, const T* nq, const T* spl, const T* scal, const T* qry, const T* lse_ev, const T* lse_sel,
+        const T* g_ev, int g_ev_s0, int g_ev_s1, const T* g_sel, int g_sel_s0, T* d_det, T* d_nq, T* d_spl,
+        T* d_scal, unsigned long long* det_bins, int C, int K, int n_m, int N, int qry_cs, int nobs, int nsamp,
+        double v0, double dv, double dmq, void* stream) {
   static SmemAllowed allowed[2][2];  // [route][query layout]
   int route = ROUTE_SHARED;
-  const int rc = bwd_route<T>(K, n_m, N, nobs, nsamp, route);
+  const int rc = bwd_route<T>(FAM, K, n_m, N, nobs, nsamp, route);
   if (rc != 0) return rc;
   const bool global = route == ROUTE_GLOBAL;
   if (global) {
@@ -337,58 +361,67 @@ int bwd(const T* det, const T* nq, const T* scal, const T* qry, const T* lse_ev,
                              : (qry_cs ? &families_bwd_kernel<T, FAM, true, false> : &families_bwd_kernel<T, FAM, false, false>);
   const Work w = make_work(N, nobs, nsamp, R_BWD);
   const int threads = pick_threads(w, WARPS);
-  return launch(kernel, allowed[global][qry_cs != 0], C, threads, bwd_smem<T>(K, n_m, threads, global), stream, det,
-                nq, scal, qry, lse_ev, lse_sel, g_ev, g_ev_s0, g_ev_s1, g_sel, g_sel_s0, d_det, d_nq, d_scal, det_bins,
-                K, n_m, (T)v0, (T)dv, (T)dmq, w);
+  return launch(kernel, allowed[global][qry_cs != 0], C, threads, bwd_smem<T>(K, n_m, spl_coefs(FAM), threads, global),
+                stream, det, nq, spl, scal, qry, lse_ev, lse_sel, g_ev, g_ev_s0, g_ev_s1, g_sel, g_sel_s0, d_det, d_nq,
+                d_spl, d_scal, det_bins, K, n_m, (T)v0, (T)dv, (T)dmq, w);
 }
 
 template <typename T>
-int fwd_of(int family, const void* det, const void* nq, const void* scal, const void* qry, void* lse_ev,
-           void* lse_sel, int C, int K, int n_m, int N, int qry_cs, int nobs, int nsamp, double v0, double dv,
-           double dmq, void* stream) {
-  const auto f = family == fam::PLPEAK ? &fwd<T, fam::PLPEAK> : &fwd<T, fam::BROKENPL>;
-  return f((const T*)det, (const T*)nq, (const T*)scal, (const T*)qry, (T*)lse_ev, (T*)lse_sel, C, K, n_m, N, qry_cs,
-           nobs, nsamp, v0, dv, dmq, stream);
-}
-
-template <typename T>
-int bwd_of(int family, const void* det, const void* nq, const void* scal, const void* qry, const void* lse_ev,
-           const void* lse_sel, const void* g_ev, int g_ev_s0, int g_ev_s1, const void* g_sel, int g_sel_s0,
-           void* d_det, void* d_nq, void* d_scal, unsigned long long* det_bins, int C, int K, int n_m, int N,
-           int qry_cs, int nobs, int nsamp, double v0, double dv, double dmq, void* stream) {
-  const auto f = family == fam::PLPEAK ? &bwd<T, fam::PLPEAK> : &bwd<T, fam::BROKENPL>;
-  return f((const T*)det, (const T*)nq, (const T*)scal, (const T*)qry, (const T*)lse_ev, (const T*)lse_sel,
-           (const T*)g_ev, g_ev_s0, g_ev_s1, (const T*)g_sel, g_sel_s0, (T*)d_det, (T*)d_nq, (T*)d_scal, det_bins, C, K,
+int fwd_of(int family, const void* det, const void* nq, const void* spl, const void* scal, const void* qry,
+           void* lse_ev, void* lse_sel, int C, int K, int n_m, int N, int qry_cs, int nobs, int nsamp, double v0,
+           double dv, double dmq, void* stream) {
+  const auto f = family == fam::PLPEAK ? &fwd<T, fam::PLPEAK>
+                 : family == fam::BROKENPL ? &fwd<T, fam::BROKENPL> : &fwd<T, fam::PSPLINE>;
+  return f((const T*)det, (const T*)nq, (const T*)spl, (const T*)scal, (const T*)qry, (T*)lse_ev, (T*)lse_sel, C, K,
            n_m, N, qry_cs, nobs, nsamp, v0, dv, dmq, stream);
 }
 
+template <typename T>
+int bwd_of(int family, const void* det, const void* nq, const void* spl, const void* scal, const void* qry,
+           const void* lse_ev, const void* lse_sel, const void* g_ev, int g_ev_s0, int g_ev_s1, const void* g_sel,
+           int g_sel_s0, void* d_det, void* d_nq, void* d_spl, void* d_scal, unsigned long long* det_bins, int C, int K,
+           int n_m, int N, int qry_cs, int nobs, int nsamp, double v0, double dv, double dmq, void* stream) {
+  const auto f = family == fam::PLPEAK ? &bwd<T, fam::PLPEAK>
+                 : family == fam::BROKENPL ? &bwd<T, fam::BROKENPL> : &bwd<T, fam::PSPLINE>;
+  return f((const T*)det, (const T*)nq, (const T*)spl, (const T*)scal, (const T*)qry, (const T*)lse_ev,
+           (const T*)lse_sel, (const T*)g_ev, g_ev_s0, g_ev_s1, (const T*)g_sel, g_sel_s0, (T*)d_det, (T*)d_nq,
+           (T*)d_spl, (T*)d_scal, det_bins, C, K, n_m, N, qry_cs, nobs, nsamp, v0, dv, dmq, stream);
+}
+
+// POWER LAW + SPLINE reads its spline table and writes its cotangent: neither pointer may be null
+bool missing_spline(int family, const void* p) { return family == fam::PSPLINE && p == nullptr; }
+
 }  // namespace
 
-extern "C" int families_fwd(int family, int dsize, const void* det, const void* nq, const void* scal, const void* qry,
-                            void* lse_ev, void* lse_sel, int C, int K, int n_m, int N, int qry_cs, int nobs, int nsamp,
-                            double v0, double dv, double dmq, void* stream) {
-  if (bad_shape(family, dsize, C, K, n_m, N, qry_cs, nobs, nsamp)) return (int)cudaErrorInvalidValue;
+extern "C" int families_fwd(int family, int dsize, const void* det, const void* nq, const void* spl, const void* scal,
+                            const void* qry, void* lse_ev, void* lse_sel, int C, int K, int n_m, int N, int qry_cs,
+                            int nobs, int nsamp, double v0, double dv, double dmq, void* stream) {
+  if (bad_shape(family, dsize, C, K, n_m, N, qry_cs, nobs, nsamp) || missing_spline(family, spl))
+    return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   const auto f = dsize == 4 ? &fwd_of<float> : &fwd_of<double>;
-  return f(family, det, nq, scal, qry, lse_ev, lse_sel, C, K, n_m, N, qry_cs, nobs, nsamp, v0, dv, dmq, stream);
+  return f(family, det, nq, spl, scal, qry, lse_ev, lse_sel, C, K, n_m, N, qry_cs, nobs, nsamp, v0, dv, dmq, stream);
 }
 
-extern "C" int families_bwd(int family, int dsize, const void* det, const void* nq, const void* scal, const void* qry,
-                            const void* lse_ev, const void* lse_sel, const void* g_ev, int g_ev_s0, int g_ev_s1,
-                            const void* g_sel, int g_sel_s0, void* d_det, void* d_nq, void* d_scal,
-                            unsigned long long* det_bins, int C, int K, int n_m, int N, int qry_cs, int nobs, int nsamp,
-                            double v0, double dv, double dmq, void* stream) {
-  if (bad_shape(family, dsize, C, K, n_m, N, qry_cs, nobs, nsamp) || N >= FX_MAX_N) return (int)cudaErrorInvalidValue;
+extern "C" int families_bwd(int family, int dsize, const void* det, const void* nq, const void* spl, const void* scal,
+                            const void* qry, const void* lse_ev, const void* lse_sel, const void* g_ev, int g_ev_s0,
+                            int g_ev_s1, const void* g_sel, int g_sel_s0, void* d_det, void* d_nq, void* d_spl,
+                            void* d_scal, unsigned long long* det_bins, int C, int K, int n_m, int N, int qry_cs,
+                            int nobs, int nsamp, double v0, double dv, double dmq, void* stream) {
+  if (bad_shape(family, dsize, C, K, n_m, N, qry_cs, nobs, nsamp) || N >= FX_MAX_N || missing_spline(family, spl)
+      || missing_spline(family, d_spl))
+    return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   const auto f = dsize == 4 ? &bwd_of<float> : &bwd_of<double>;
-  return f(family, det, nq, scal, qry, lse_ev, lse_sel, g_ev, g_ev_s0, g_ev_s1, g_sel, g_sel_s0, d_det, d_nq, d_scal,
-           det_bins, C, K, n_m, N, qry_cs, nobs, nsamp, v0, dv, dmq, stream);
+  return f(family, det, nq, spl, scal, qry, lse_ev, lse_sel, g_ev, g_ev_s0, g_ev_s1, g_sel, g_sel_s0, d_det, d_nq,
+           d_spl, d_scal, det_bins, C, K, n_m, N, qry_cs, nobs, nsamp, v0, dv, dmq, stream);
 }
 
-// The route the backward of this shape and type takes on the current device, into *route (ROUTE_SHARED 0,
-// ROUTE_GLOBAL 1, which needs a (C, 2, 2K) int64 det_bins).  Returns 0, a CUDA error, or ERR_SMEM.
-extern "C" int families_bwd_route(int dsize, int K, int n_m, int N, int nobs, int nsamp, int* route) {
-  if (bad_shape(fam::PLPEAK, dsize, 1, K, n_m, N, 0, nobs, nsamp) || N >= FX_MAX_N) return (int)cudaErrorInvalidValue;
-  return dsize == 4 ? bwd_route<float>(K, n_m, N, nobs, nsamp, *route)
-                    : bwd_route<double>(K, n_m, N, nobs, nsamp, *route);
+// The route the backward of this family, shape and type takes on the current device, into *route
+// (ROUTE_SHARED 0, ROUTE_GLOBAL 1, which needs a (C, 2, 2K) int64 det_bins).  Returns 0, a CUDA error, or
+// ERR_SMEM.
+extern "C" int families_bwd_route(int family, int dsize, int K, int n_m, int N, int nobs, int nsamp, int* route) {
+  if (bad_shape(family, dsize, 1, K, n_m, N, 0, nobs, nsamp) || N >= FX_MAX_N) return (int)cudaErrorInvalidValue;
+  return dsize == 4 ? bwd_route<float>(family, K, n_m, N, nobs, nsamp, *route)
+                    : bwd_route<double>(family, K, n_m, N, nobs, nsamp, *route);
 }

@@ -2,7 +2,8 @@
 // the hand-derived chain rule of both, for one chain.  Included by csrc/families.cu; written as
 // __host__ __device__ functions of the scalar type T (float or double) and the family, so that
 // the same code can be compiled for the host and held against PyTorch's autograd of the eager
-// twin (models/plpeak.py, models/brokenpl.py, inference/likelihoods.py::_cosmo_frame_logwts_fused).
+// twin (models/plpeak.py, models/brokenpl.py, models/pspline.py,
+// inference/likelihoods.py::_cosmo_frame_logwts_fused).
 //
 // Per query row (a = m1_det, q, log dL, log pdraw) of chain c:
 //   z, log_jac = lerp of the detector table at (log dL - v0) / dv;  m1 = a / (1 + z)
@@ -21,6 +22,9 @@
 //                                             (alpha2 - alpha1) log mbreak + lpn(alpha2, mbreak, mmax)))
 //                                + log S(m)) - 25 relu(m - mmax)) - 25 relu(m - 200),
 //                    mbreak = mmin + bfrac (mmax - mmin)
+//   POWER LAW + SPLINE log p(m) = ((((-alpha log m) - 25 relu(m - mmax)) + log S(m)) + f(log m)) - 25 relu(m - 190),
+//                    f on interval i of the knots log 2 + i h (h = log(50) / 19), t = pos - i, pos = (log m - log 2) / h:
+//                    c0 + t (c1 + t (c2 + t c3)) from the chain's (19, 4) coefficient table; 0 outside [2, 100] Msun
 //   log S(x + mmin): the Planck taper of models/plpeak.py::log_planck_taper with its clamps, foot and
 //   top; shape(z) = lam log1p z - softplus(kappa log((1 + z) / (1 + zp))).
 // Every operation is the eager twin's, in its order and with its constants rounded once to T;
@@ -29,7 +33,8 @@
 // The backward takes a row's cotangent g and adds g times the row's partial derivatives with
 // respect to a chain's per-chain quantities into NACC accumulators (the family's intermediates,
 // below), and returns the cotangents of the four detector-table entries and the two q-norm-table
-// entries it read.  finalize() turns the accumulated sums, the pivot's included, into the
+// entries it read, and for POWER LAW + SPLINE the cotangents g (1, t, t^2, t^3) of the four
+// coefficients of the interval it read (SplAdd).  finalize() turns the accumulated sums, the pivot's included, into the
 // cotangents of the sites.  Where the eager code picks a subgradient, the same one is picked here:
 // torch.maximum / minimum split a tie in halves, clamp passes its bounds, clamp_min(v, 0) passes 0,
 // abs has slope 0 at 0, torch.where sends nothing to the branch it did not take.
@@ -45,11 +50,12 @@
 
 namespace fam {
 
-enum Family { PLPEAK = 0, BROKENPL = 1 };
+enum Family { PLPEAK = 0, BROKENPL = 1, PSPLINE = 2 };
 
 // the sites a chain gives, in the order of ops/cuda_families.py::SLOTS
 enum Slot { BQ = 0, MMIN, MMAX, DELTA, LAMZ, KAPPA, ZP, P0, P1, P2, P3, NS };
-// P0..P3: POWER-LAW+PEAK alpha, lam_peak, mu_m, sigma_m; BROKEN POWER LAW alpha1, alpha2, bfrac, (unused)
+// P0..P3: POWER-LAW+PEAK alpha, lam_peak, mu_m, sigma_m; BROKEN POWER LAW alpha1, alpha2, bfrac, (unused);
+// POWER LAW + SPLINE alpha, (unused) x 3
 
 // accumulated cotangents: g times a row's partial derivative with respect to ...
 enum Acc {
@@ -63,6 +69,7 @@ enum Acc {
   A_SUMG,     // log_norm: the data rows' cotangents summed (the pivot's own cotangent is minus this)
   A_F0,       // PLPEAK: log1p(-lam_peak) (and minus lpn)   BROKENPL: alpha1 (lower branch, times -log m)
   A_F1,       // PLPEAK: alpha (times -log m)               BROKENPL: alpha2 (upper branch, times -log m)
+              // PSPLINE: alpha (times -log m)
   A_F2,       // PLPEAK: log lam_peak                        BROKENPL: (alpha2 - alpha1) log mbreak
   A_F3,       // PLPEAK: mu_m                                BROKENPL: the rows' cotangents (the norm's)
   A_F4,       // PLPEAK: sigma_m (times sigma_m)
@@ -79,6 +86,12 @@ constexpr double X_C = 0.10961179679779243;  // (10 - sqrt 68) / 16
 constexpr double TOP_PLPEAK = 190.0;  // M_TAB_HI - 10
 constexpr double TOP_BROKENPL = 200.0;  // M_TAB_HI
 constexpr double LOG_SQRT_2PI = 0.9189385332046727;
+// the spline of POWER LAW + SPLINE (models/pspline.py): knots log 2 + i h, i < SPL_KNOTS, on [2, 100] Msun
+constexpr int SPL_KNOTS = 20;
+constexpr int SPL_COEFS = (SPL_KNOTS - 1) * 4;  // a chain's (19, 4) coefficient table
+constexpr double SPL_M_LO = 2.0, SPL_M_HI = 100.0;
+constexpr double SPL_X0 = 0.6931471805599453;   // log 2
+constexpr double SPL_H = 0.20589594765411295;   // log(100 / 2) / 19
 
 template <typename T> struct Fn;
 template <> struct Fn<float> {
@@ -201,6 +214,7 @@ template <typename T> FAM_HD Lpn<T> log_pl_norm_inv(T alpha, T lo, T hi) {
 // What a chain's rows share: its sites and what is computed once from them.
 template <typename T> struct Chain {
   T s[NS];
+  T spl[SPL_COEFS];     // PSPLINE: the coefficient table (unset for the other families)
   T dm;                 // the taper's width, max(delta_m, 1e-6)
   T l1m, llam, lpn, lsig;  // PLPEAK: log1p(-lam_peak), log lam_peak, lpn(alpha, mmin, mmax), log sigma_m
   T mbreak, kterm, ln;     // BROKENPL: the break, (alpha2 - alpha1) log mbreak, the norm's logaddexp
@@ -208,9 +222,41 @@ template <typename T> struct Chain {
   T log_norm;           // the pivot
 };
 
-// log p(m) of the family, and with GRAD its derivative in m, g times its partials into acc
+// What a row's backward sends to the spline's coefficient table: the cotangents of the four
+// coefficients of interval lo (lo < 0: none, a mass outside the knots or another family).
+template <typename T> struct SplAdd {
+  int lo;
+  T c[4];
+};
+
+// f(log m) of the chain's spline (models/pspline.py::log_spline): the interval's cubic in t by
+// Horner's rule, 0 outside [SPL_M_LO, SPL_M_HI]; with GRAD df/dm into d_m and g (1, t, t^2, t^3) into sa.
+template <typename T, bool GRAD> FAM_HD T spline(const T* coef, T m, T logm, T g, T& d_m, SplAdd<T>& sa) {
+  const Bracket<T> b = bracket((logm - T(SPL_X0)) / T(SPL_H), SPL_KNOTS);
+  const T* c = coef + 4 * b.lo;
+  const T t = b.t;
+  const T c3 = c[3];
+  const T bb = c[2] + t * c3;
+  const T aa = c[1] + t * bb;
+  const T f = c[0] + t * aa;
+  d_m = T(0);
+  if (!(m >= T(SPL_M_LO) && m <= T(SPL_M_HI))) return T(0);
+  if (GRAD) {
+    if (b.slope) d_m = ((aa + t * (bb + t * c3)) / T(SPL_H)) / m;
+    const T gt = g * t, gtt = gt * t;
+    sa.lo = b.lo;
+    sa.c[0] = g;
+    sa.c[1] = gt;
+    sa.c[2] = gtt;
+    sa.c[3] = gtt * t;
+  }
+  return f;
+}
+
+// log p(m) of the family, and with GRAD its derivative in m, g times its partials into acc (and
+// for PSPLINE the spline's table cotangents into sa, whose lo the caller sets to -1)
 template <typename T, int FAM, bool GRAD>
-FAM_HD T log_pm(const Chain<T>& k, T m, T g, T* acc, T& d_m) {
+FAM_HD T log_pm(const Chain<T>& k, T m, T g, T* acc, T& d_m, SplAdd<T>& sa) {
   const T logm = Fn<T>::log(m);
   const T mmax = k.s[MMAX];
   const T rmax = Fn<T>::max(m - mmax, T(0));
@@ -233,6 +279,18 @@ FAM_HD T log_pm(const Chain<T>& k, T m, T g, T* acc, T& d_m) {
       acc[A_F3] += g * (wb * (u / sigma));
       acc[A_F4] += g * (wb * (u * u));
       d_m = (wa * (-(alpha / m) - dr) + wb * -(u / sigma)) + tp.dx - T(WALL) * dmax(m - T(TOP_PLPEAK), T(0));
+    }
+  } else if (FAM == PSPLINE) {
+    const T alpha = k.s[P0];
+    T d_f;
+    const T f = spline<T, GRAD>(k.spl, m, logm, g, d_f, sa);
+    const T top = Fn<T>::max(m - T(TOP_PLPEAK), T(0));
+    out = ((((-alpha * logm) - T(WALL) * rmax) + tp.val) + f) - T(WALL) * top;
+    if (GRAD) {
+      const T dr = T(WALL) * dmax(m - mmax, T(0));
+      acc[A_F1] += g * logm;
+      acc[A_MMAX] += g * dr;
+      d_m = (((-(alpha / m) - dr) + tp.dx) + d_f) - T(WALL) * dmax(m - T(TOP_PLPEAK), T(0));
     }
   } else {
     const bool hi = !(m < k.mbreak);
@@ -274,10 +332,12 @@ template <typename T> FAM_HD Nq<T> read_nq(const T* nq, int n_m, T dmq, T m) {
 
 // The pivot's density: everything of a row's but the frame, at (MREF, QREF, ZREF), with log_norm 0.
 template <typename T, int FAM, bool GRAD>
-FAM_HD T pivot_density(const Chain<T>& k, const T* nq, int n_m, T dmq, T g, T* acc, int& nq_lo, T& nq_a, T& nq_b) {
+FAM_HD T pivot_density(const Chain<T>& k, const T* nq, int n_m, T dmq, T g, T* acc, int& nq_lo, T& nq_a, T& nq_b,
+                       SplAdd<T>& sa) {
   const T m = T(MREF), q = T(QREF);
   T d_m = T(0);
-  const T lp = log_pm<T, FAM, GRAD>(k, m, g, acc, d_m);
+  sa.lo = -1;
+  const T lp = log_pm<T, FAM, GRAD>(k, m, g, acc, d_m, sa);
   const Taper<T> t2 = taper<T, GRAD>(q * m - k.s[MMIN], k.dm);
   const Nq<T> n = read_nq(nq, n_m, dmq, m);
   if (GRAD) {
@@ -291,15 +351,22 @@ FAM_HD T pivot_density(const Chain<T>& k, const T* nq, int n_m, T dmq, T g, T* a
   return ((((lp + k.s[BQ] * Fn<T>::log(q)) + t2.val) - n.val) + (k.shape0 - k.shape0)) + T(0);
 }
 
-// Fills in a chain's constants from its sites s (NS of them) and its q-norm table, the pivot last.
-template <typename T, int FAM> FAM_HD void chain_init(Chain<T>& k, const T* s, const T* nq, int n_m, T dmq) {
+// Fills in a chain's constants from its sites s (NS of them), its q-norm table and (PSPLINE) its
+// spline's coefficient table spl, the pivot last.
+template <typename T, int FAM>
+FAM_HD void chain_init(Chain<T>& k, const T* s, const T* nq, int n_m, T dmq, const T* spl) {
   for (int i = 0; i < NS; ++i) k.s[i] = s[i];
+  if (FAM == PSPLINE)
+    for (int i = 0; i < SPL_COEFS; ++i) k.spl[i] = spl[i];
   k.dm = Fn<T>::max(s[DELTA], T(1e-6));
   if (FAM == PLPEAK) {
     k.l1m = Fn<T>::log1p(-s[P1]);
     k.llam = Fn<T>::log(s[P1]);
     k.lpn = log_pl_norm_inv(s[P0], s[MMIN], s[MMAX]).val;
     k.lsig = Fn<T>::log(s[P3]);
+    k.mbreak = k.kterm = k.ln = T(0);
+  } else if (FAM == PSPLINE) {
+    k.l1m = k.llam = k.lpn = k.lsig = T(0);
     k.mbreak = k.kterm = k.ln = T(0);
   } else {
     const T a1 = s[P0], a2 = s[P1];
@@ -320,16 +387,18 @@ template <typename T, int FAM> FAM_HD void chain_init(Chain<T>& k, const T* s, c
   T unused[NACC];
   int lo;
   T a, b;
-  k.log_norm = -(pivot_density<T, FAM, false>(k, nq, n_m, dmq, T(0), unused, lo, a, b) + T(LOG_MREF));
+  SplAdd<T> sa;
+  k.log_norm = -(pivot_density<T, FAM, false>(k, nq, n_m, dmq, T(0), unused, lo, a, b, sa) + T(LOG_MREF));
 }
 
 // What a row's backward adds to the tables' cotangents: the detector's entries lo and lo + 1 (z and
-// log_jac) and the q-norm table's; nothing where lo < 0.
+// log_jac), the q-norm table's, and (PSPLINE) the spline's four coefficients; nothing where lo < 0.
 template <typename T> struct RowAdd {
   int det_lo;
   T dz0, dz1, dj0, dj1;
   int nq_lo;
   T n0, n1;
+  SplAdd<T> spl;
 };
 
 // One row: its detector read, mass, rate and frame.  eval() is the forward; grad() the chain rule
@@ -351,7 +420,8 @@ template <typename T, int FAM> struct Row {
     m1 = a / (T(1) + z);
     l1pz = Fn<T>::log1p(z);
     T unused[NACC], d_m;
-    const T lp = log_pm<T, FAM, false>(k, m1, T(0), unused, d_m);
+    SplAdd<T> sa;
+    const T lp = log_pm<T, FAM, false>(k, m1, T(0), unused, d_m, sa);
     const T t2 = taper<T, false>(q * m1 - k.s[MMIN], k.dm).val;
     const T lnq = read_nq(nq, n_m, dmq, m1).val;
     const T y = k.s[KAPPA] * Fn<T>::log((T(1) + z) / k.opzp);
@@ -362,7 +432,8 @@ template <typename T, int FAM> struct Row {
 
   FAM_HD void grad(const Chain<T>& k, T g, const T* nq, int n_m, T dmq, T* acc, RowAdd<T>& add) const {
     T d_m1 = T(0);
-    log_pm<T, FAM, true>(k, m1, g, acc, d_m1);
+    add.spl.lo = -1;
+    log_pm<T, FAM, true>(k, m1, g, acc, d_m1, add.spl);
     const Taper<T> t2 = taper<T, true>(q * m1 - k.s[MMIN], k.dm);
     const Nq<T> n = read_nq(nq, n_m, dmq, m1);
     acc[A_BQ] += g * Fn<T>::log(q);
@@ -395,10 +466,12 @@ template <typename T, int FAM> struct Row {
 };
 
 // The pivot's backward: its cotangent is minus the data rows' sum (log_norm enters each row once);
-// adds into acc and returns the q-norm table's two entries in (nq_lo, nq_a, nq_b).
+// adds into acc and returns the q-norm table's two entries in (nq_lo, nq_a, nq_b) and (PSPLINE) the
+// spline's in sa.
 template <typename T, int FAM>
-FAM_HD void pivot_grad(const Chain<T>& k, const T* nq, int n_m, T dmq, T* acc, int& nq_lo, T& nq_a, T& nq_b) {
-  pivot_density<T, FAM, true>(k, nq, n_m, dmq, -acc[A_SUMG], acc, nq_lo, nq_a, nq_b);
+FAM_HD void pivot_grad(const Chain<T>& k, const T* nq, int n_m, T dmq, T* acc, int& nq_lo, T& nq_a, T& nq_b,
+                       SplAdd<T>& sa) {
+  pivot_density<T, FAM, true>(k, nq, n_m, dmq, -acc[A_SUMG], acc, nq_lo, nq_a, nq_b, sa);
 }
 
 // The sites' cotangents d (NS) from the chain's accumulated sums, the pivot's included.
@@ -419,6 +492,10 @@ template <typename T, int FAM> FAM_HD void finalize(const Chain<T>& k, const T* 
     d[P1] = -(pl / (T(1) - s[P1])) + acc[A_F2] / s[P1];
     d[P2] = acc[A_F3];
     d[P3] = (acc[A_F4] - acc[A_F2]) / sigma;
+  } else if (FAM == PSPLINE) {
+    d[P0] = -acc[A_F1];
+    d[MMIN] = acc[A_MMIN];
+    d[MMAX] = acc[A_MMAX];
   } else {
     const T a1 = s[P0], a2 = s[P1], bfrac = s[P2], mb = k.mbreak;
     const T lmb = Fn<T>::log(mb);

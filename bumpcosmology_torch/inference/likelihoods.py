@@ -1,4 +1,4 @@
-"""The population likelihoods of the three mass families (L2); counterpart
+"""The population likelihoods of the four mass families (L2); counterpart
 of the JAX package's ``inference/likelihoods.py``: the joint population +
 flat-wCDM model and the population-only model at fixed Planck18, both
 batched over chains, and the registry :data:`MASS_FAMILIES`.
@@ -24,15 +24,17 @@ family's joint route takes the family's kernel for CUDA tensors with
   epilogue).  Its deterministics take kernel B's ``rows`` epilogue
   (:func:`pop_cosmo_event_sel_logwts`), a choice of the port: the JAX
   package's take its non-fused route.
-* POWER-LAW+PEAK and BROKEN POWER LAW, joint model: kernel B hard-codes the
+* POWER-LAW+PEAK, BROKEN POWER LAW and POWER LAW + SPLINE (a family the JAX
+  package lacks, ``models/pspline.py``), joint model: kernel B hard-codes the
   bump's table layout, and the JAX package sends only the bump's intensity
   to its Pallas kernel (``likelihoods.py:351-356``).  On the card the
   potential takes kernel F (:func:`~bumpcosmology_torch.ops.cuda_families.family_lse`):
   the same query rows against the detector table at ``n_z`` points, each
   row's weight under the family (the q-norm table read at m1, the pivot
   computed in the kernel) and the segment log-sum-exps, one launch forward
-  and one backward; only the q-norm table is built in PyTorch.  On the
-  CPU, and with ``plain=True``, it takes F's twin,
+  and one backward; only the q-norm table (and POWER LAW + SPLINE's table of
+  cubic coefficients, F's second per-chain table) is built in PyTorch.  On
+  the CPU, and with ``plain=True``, it takes F's twin,
   the XLA branch of ``_cosmo_frame_logwts_fused`` in plain PyTorch with
   autograd (one bracket per row shared by the chains).  The deterministics
   take the non-fused ``_cosmo_frame_logwts`` (``likelihoods.py:308-323``:
@@ -107,6 +109,13 @@ from bumpcosmology_torch.models.parameters import (
     RedshiftParams,
 )
 from bumpcosmology_torch.models.plpeak import PLPeakMassParams, PLPeakPopulationParams, build_plpeak_population
+from bumpcosmology_torch.models.pspline import (
+    N_HEIGHTS,
+    PSplineMassParams,
+    PSplinePopulationParams,
+    build_pspline_population,
+    spline_coefficients,
+)
 from bumpcosmology_torch.models.population import COORDS, QREF, build_population, log_dndmdqdv
 from bumpcosmology_torch.models.redshift import ZREF
 from bumpcosmology_torch.ops.collectives import all_gather_cat, copy_to_group
@@ -160,6 +169,16 @@ __all__ = [
     "BROKENPL_COSMO_PRIORS",
     "brokenpl_model_spec",
     "brokenpl_cosmo_model_spec",
+    "SPLINE_SITES",
+    "pspline_from_sites",
+    "pspline_loglike",
+    "pspline_cosmo_loglike",
+    "pspline_deterministics",
+    "pspline_cosmo_deterministics",
+    "PSPLINE_PRIORS",
+    "PSPLINE_COSMO_PRIORS",
+    "pspline_model_spec",
+    "pspline_cosmo_model_spec",
     "MassFamily",
     "MASS_FAMILIES",
     "stack_fleet",
@@ -308,6 +327,17 @@ def brokenpl_from_sites(sites: Dict[str, torch.Tensor]) -> BrokenPLPopulationPar
     """Site dict → BrokenPL parameters: every mass site direct, ``kappa = lam + dkappa``."""
     return BrokenPLPopulationParams(mass=BrokenPLMassParams(*(sites[k] for k in BrokenPLMassParams._fields)),
                                     redshift=_redshift_from_sites(sites))
+
+
+SPLINE_SITES = tuple(f"f_{i}" for i in range(1, N_HEIGHTS + 1))  # the spline's interior heights
+
+
+def pspline_from_sites(sites: Dict[str, torch.Tensor]) -> PSplinePopulationParams:
+    """Site dict → PS parameters: the mass sites direct, the heights ``f_1`` …
+    ``f_18`` stacked to ``(C, 18)``, ``kappa = lam + dkappa``."""
+    mass = PSplineMassParams(*(sites[k] for k in PSplineMassParams._fields[:-1]),
+                             heights=torch.stack([sites[k] for k in SPLINE_SITES], dim=1))
+    return PSplinePopulationParams(mass=mass, redshift=_redshift_from_sites(sites))
 
 
 def cosmo_from_sites(sites: Dict[str, torch.Tensor]) -> CosmoParams:
@@ -492,7 +522,8 @@ def _qnorm_lse(name: str, pop, det, qry, nobs: int, nsamp: int, kernel: bool):
     route in plain PyTorch with autograd, then ``torch.logsumexp``."""
     if kernel:
         scal = family_scalars(name, pop.params.mass, pop.params.redshift)
-        return family_lse(name, det, pop.log_nq, pop.dm, scal, qry, nobs, nsamp)
+        # POWER LAW + SPLINE's coefficient table is F's second per-chain table
+        return family_lse(name, det, pop.log_nq, pop.dm, scal, qry, nobs, nsamp, spline=getattr(pop, "coef", None))
     log_w, log_sel_w = _segments(_cosmo_frame_logwts_fused(pop, det, qry), nobs, nsamp)
     return torch.logsumexp(log_w, -1), torch.logsumexp(log_sel_w, -1)
 
@@ -502,9 +533,21 @@ def _qnorm_family(name: str, from_sites, build) -> _Family:
                    ())
 
 
+def _pspline_intensity(sites, n_grid: int, plain: bool, pivot: bool):
+    """POWER LAW + SPLINE's intensity: the coefficient table in the span
+    ``loglike.spline``, then the q-norm table and the pivot as the other
+    q-normalised families build them."""
+    params = pspline_from_sites(sites)
+    with span("loglike.spline"):
+        coef = spline_coefficients(params.mass.heights)
+    with span("loglike.qnorm"):
+        return build_pspline_population(params, n_m=n_grid, pivot=pivot, coef=coef)
+
+
 _BUMP = _Family("bump", _bump_intensity, True, _bump_rows, _bump_lse, ("mbhmax", "fpl"))
 _PLPEAK = _qnorm_family("plpeak", plpeak_from_sites, build_plpeak_population)
 _BROKENPL = _qnorm_family("brokenpl", brokenpl_from_sites, build_brokenpl_population)
+_PSPLINE = _Family("pspline", _pspline_intensity, False, _qnorm_rows, partial(_qnorm_lse, "pspline"), ())
 
 
 def _family(build) -> _Family:
@@ -550,8 +593,8 @@ def pop_cosmo_segment_lse(sites: Dict[str, torch.Tensor], data: PopCosmoData,
 
     ``qry`` is :func:`query_table` of ``data`` (computed if not given).  With
     detector bounds, the family's ``lse``: the bump's kernel B ``lse``
-    epilogue (``dl_bounds`` defaulting to the data's), POWER-LAW+PEAK's and
-    BROKEN POWER LAW's kernel F (:func:`~bumpcosmology_torch.ops.cuda_families.family_lse`),
+    epilogue (``dl_bounds`` defaulting to the data's), the q-normalised
+    families' kernel F (:func:`~bumpcosmology_torch.ops.cuda_families.family_lse`),
     or, on the CPU and with ``plain=True``, their plain twins.  Another
     family without ``dl_bounds``: :func:`pop_cosmo_event_sel_logwts`'s
     non-fused route.  A fleet's data (leading axis S = C) give chain ``s``
@@ -866,6 +909,16 @@ _BROKENPL_MASS_PRIORS = {
 BROKENPL_PRIORS = {**_BROKENPL_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
 BROKENPL_COSMO_PRIORS = {**_COSMO_PRIORS, **_BROKENPL_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
 
+# POWER LAW + SPLINE hyperpriors: POWER-LAW+PEAK's for the power law and the taper,
+# a unit normal for each of the spline's 18 interior heights
+_PSPLINE_MASS_PRIORS = {
+    **{k: _PLPEAK_MASS_PRIORS[k] for k in ("alpha", "beta_q", "mmin", "mmax", "delta_m")},
+    **{k: Normal(0.0, 1.0) for k in SPLINE_SITES},
+}
+
+PSPLINE_PRIORS = {**_PSPLINE_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
+PSPLINE_COSMO_PRIORS = {**_COSMO_PRIORS, **_PSPLINE_MASS_PRIORS, **_REDSHIFT_PRIORS, **_RATE_PRIORS}
+
 
 def plpeak_model_spec(data: PopData, n_grid: int = DEFAULT_N_GRID, device=None) -> ModelSpec:
     """The POWER-LAW+PEAK population-only model (12 sites) on ``device`` (``None`` means CUDA)."""
@@ -889,6 +942,40 @@ def brokenpl_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, 
     """The joint BROKEN POWER LAW + flat-wCDM model (14 sites) on ``device`` (``None`` means CUDA).
     ``n_det``: as in :func:`pop_cosmo_model_spec`, accepted and unused."""
     return _cosmo_spec(BROKENPL_COSMO_PRIORS, data, n_grid, n_z, device, build=_BROKENPL)
+
+
+def pspline_loglike(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None) -> torch.Tensor:
+    """Population-only log-likelihood under POWER LAW + SPLINE."""
+    return pop_loglike(sites, data, n_grid, rows, build=_PSPLINE)
+
+
+def pspline_cosmo_loglike(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
+                          dl_bounds=None, qry=None, n_det=None) -> torch.Tensor:
+    """Joint log-likelihood under POWER LAW + SPLINE (fused route with ``dl_bounds``);
+    ``n_det`` as in :func:`pop_cosmo_loglike`, accepted and unused."""
+    return pop_cosmo_loglike(sites, data, n_grid, n_z, dl_bounds, qry, build=_PSPLINE)
+
+
+def pspline_deterministics(sites, data: PopData, n_grid: int = DEFAULT_N_GRID, rows=None):
+    """Deterministic sites of the PS population-only fit (the shared set)."""
+    return pop_deterministics(sites, data, n_grid, rows, build=_PSPLINE)
+
+
+def pspline_cosmo_deterministics(sites, data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024):
+    """Deterministic sites of the PS joint fit (the shared set + ``hz``), on the non-fused route."""
+    return pop_cosmo_deterministics(sites, data, n_grid, n_z, build=_PSPLINE)
+
+
+def pspline_model_spec(data: PopData, n_grid: int = DEFAULT_N_GRID, device=None) -> ModelSpec:
+    """The POWER LAW + SPLINE population-only model (27 sites) on ``device`` (``None`` means CUDA)."""
+    return _pop_spec(PSPLINE_PRIORS, data, n_grid, device, build=_PSPLINE)
+
+
+def pspline_cosmo_model_spec(data: PopCosmoData, n_grid: int = DEFAULT_N_GRID, n_z: int = 1024,
+                             device=None, n_det=None) -> ModelSpec:
+    """The joint POWER LAW + SPLINE + flat-wCDM model (30 sites) on ``device`` (``None`` means CUDA).
+    ``n_det``: as in :func:`pop_cosmo_model_spec`, accepted and unused."""
+    return _cosmo_spec(PSPLINE_COSMO_PRIORS, data, n_grid, n_z, device, build=_PSPLINE)
 
 
 # ---------------------------------------------------------------------------
@@ -946,6 +1033,17 @@ MASS_FAMILIES: Dict[str, MassFamily] = {
         cosmo_det=brokenpl_cosmo_deterministics,
         trace_name="trace_brokenpl.npz",
         cosmo_trace_name="trace_cosmo_brokenpl.npz",
+    ),
+    "pspline": MassFamily(
+        build=_PSPLINE,
+        pop_priors=PSPLINE_PRIORS,
+        cosmo_priors=PSPLINE_COSMO_PRIORS,
+        pop_spec=pspline_model_spec,
+        cosmo_spec=pspline_cosmo_model_spec,
+        pop_det=pspline_deterministics,
+        cosmo_det=pspline_cosmo_deterministics,
+        trace_name="trace_pspline.npz",
+        cosmo_trace_name="trace_cosmo_pspline.npz",
     ),
 }
 

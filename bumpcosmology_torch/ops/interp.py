@@ -19,7 +19,8 @@ import math
 
 import torch
 
-__all__ = ["interp", "inverse_interp", "interp_unit_spaced", "interp_unit_spaced_columns", "unit_bracket"]
+__all__ = ["interp", "inverse_interp", "interp_unit_spaced", "interp_unit_spaced_columns", "unit_bracket", "take_rows",
+           "rows_in_fixed_order"]
 
 _LEAST_SUBNORMAL = 2.0 ** -1074  # float64's
 
@@ -86,6 +87,25 @@ def _bracket_rows(table: torch.Tensor, lo: torch.Tensor, row_dim: int):
               else torch.zeros((1,) * lo.dim(), dtype=torch.long, device=table.device))
     idx = lo + torch.stack((starts, starts + 1))
     return _Rows.apply(table.reshape(-1, *table.shape[table.dim() + row_dim + 1:]), idx).unbind(0)
+
+
+def rows_in_fixed_order(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` ``(*batch, M)`` of a ``(*batch, R, ncol)`` table, as
+    ``(*batch, M, ncol)``, through one index of the flattened table whose
+    backward sums in a fixed order (:class:`_Rows`), on any device."""
+    batch, r = table.shape[:-2], table.shape[-2]
+    starts = torch.arange(batch.numel(), device=table.device).reshape(*batch, 1) * r
+    return _Rows.apply(table.reshape(-1, table.shape[-1]), idx + starts)
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` ``(*batch, M)`` of a ``(*batch, R, ncol)`` table (a row a
+    query, such as a spline's interval), as ``(*batch, M, ncol)``.  On the
+    card :func:`rows_in_fixed_order`, so that the table's cotangent repeats
+    bit for bit; the CPU's ``gather`` backward adds in order already."""
+    if table.device.type == "cpu":
+        return torch.gather(table, -2, idx.unsqueeze(-1).expand(*idx.shape, table.shape[-1]))
+    return rows_in_fixed_order(table, idx)
 
 
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:

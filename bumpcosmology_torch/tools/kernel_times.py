@@ -40,6 +40,10 @@ card's name and power limit.  Needs one NVIDIA GPU and nvcc.
   samples and 1,024 injections, one query table shared by the chains), the
   detector table at n_z = 1,024, the q-norm table at n_grid = 256 and the 4
   chains of its committed adapted state, the log-likelihood's cotangents;
+  and, where the checkout has POWER LAW + SPLINE, the same for that family
+  at ``gwtc3_pspline.nuts``'s shape (the whole catalog, 38,912 rows a
+  chain, and the spline's coefficient table; its rows' operations from
+  ``cardbench/counts_pspline.py``);
   held to the eager twin on the card (the log-sum-exps within rtol 2e-5, the
   table and site cotangents within phase 3's rtol 5e-4 and 5e-4 of the largest);
   ``bound_ms`` from ``cardbench/counts.py``'s operations of the family (a
@@ -275,8 +279,24 @@ def kernel_p_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
 
 def kernel_f_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: int):
     """({kernel: row}, shape) of ``csrc/families.cu`` under ``root`` for
-    POWER-LAW+PEAK at the cell ``flagship_plpeak.nuts``'s shape (the
-    benchmark's configuration and data of this checkout)."""
+    POWER-LAW+PEAK at the cell ``flagship_plpeak.nuts``'s shape (``f_fwd_lse``,
+    ``f_bwd_lse``) and, where the checkout has the family, for POWER LAW +
+    SPLINE at ``gwtc3_pspline.nuts``'s (``f_fwd_lse_pspline``,
+    ``f_bwd_lse_pspline``): the benchmark's configurations and data of this
+    checkout."""
+    from bumpcosmology_torch.ops import cuda_families as kf
+
+    kernels, shape = _kernel_f_family("plpeak", "flagship_plpeak", row, check_close)
+    if "pspline" in kf.FAMILIES:
+        more, shape["pspline"] = _kernel_f_family("pspline", "gwtc3_pspline", row, check_close)
+        kernels.update((f"{k}_pspline", v) for k, v in more.items())
+    return kernels, shape
+
+
+def _kernel_f_family(family: str, config_name: str, row, check_close):
+    """({kernel: row}, shape) of kernel F for ``family`` at the shape of the
+    benchmark's configuration ``config_name``, its committed adapted state's
+    chains, the log-likelihood's cotangents."""
     import torch
 
     from bumpcosmology_torch.inference import likelihoods as lk
@@ -286,59 +306,74 @@ def kernel_f_times(root: Path, row, check_close, n_grid: int, n_z: int, seed: in
     from bumpcosmology_torch.models.parameters import RedshiftParams
     from bumpcosmology_torch.ops import cuda_families as kf
     from bumpcosmology_torch.utils.checkpoint import load_warmup
-    from cardbench import counts, harness
-
+    from cardbench import counts, counts_pspline, harness
 
     dev = torch.device("cuda")
-    config = json.loads((harness.BENCH_DIR / "configs" / "flagship_plpeak.json").read_text())
+    config = json.loads((harness.BENCH_DIR / "configs" / f"{config_name}.json").read_text())
     raw = harness.cut_catalog(harness.read_catalog(harness.data_path(config, "catalog")), config["events"],
                               config["pe_samples"], config["injections"])
     data = harness.program_data(raw, dev)
     n_grid, n_z, c = config["n_grid"], config["n_z"], config["chains"]
-    spec = lk.MASS_FAMILIES["plpeak"].cosmo_spec(data, n_grid=n_grid, n_z=n_z, device=dev)
+    spec = lk.MASS_FAMILIES[family].cosmo_spec(data, n_grid=n_grid, n_z=n_z, device=dev)
     with torch.no_grad():
         sites = constrain(spec, load_warmup(harness.data_path(config, "warmup_state"), device=dev).state.theta[:c])
-        pop = lk.MASS_FAMILIES["plpeak"].build(sites, n_grid, pivot=False)  # the q-norm table alone, as F's route
+        pop = lk.MASS_FAMILIES[family].build(sites, n_grid, pivot=False)  # the tables alone, as F's route
         params, dm, log_nq = pop.params, pop.dm, pop.log_nq
         det = build_detector_table(build_cosmology(lk.cosmo_from_sites(sites), n=n_z), *lk.dl_bounds_of(data), n=n_z)
-        scal = kf.family_scalars("plpeak", params.mass, params.redshift).contiguous()
+        scal = kf.family_scalars(family, params.mass, params.redshift).contiguous()
+    spline = getattr(pop, "coef", None)
     qry = lk.query_table(data)
     nobs, nsamp = data.events.a.shape
     n = qry.shape[0]
-    args = ("plpeak", det.cols, log_nq, scal, qry)
-    fwd = lambda: kf._fwd(*args, det.v0, det.dv, dm, nobs, nsamp)  # noqa: E731
+    args = (family, det.cols, log_nq, scal, qry)
+    extra = {} if spline is None else {"spl": spline.detach().contiguous()}
+    fwd = lambda: kf._fwd(*args, det.v0, det.dv, dm, nobs, nsamp, **extra)  # noqa: E731
     lse_ev, lse_sel = fwd()
     g_ev, g_sel = torch.ones_like(lse_ev), torch.full_like(lse_sel, -float(nobs))  # the log-likelihood's
-    bwd = lambda: kf._bwd(*args, lse_ev, lse_sel, g_ev, g_sel, det.v0, det.dv, dm, nobs, nsamp)  # noqa: E731
+    bwd = lambda: kf._bwd(*args, lse_ev, lse_sel, g_ev, g_sel, det.v0, det.dv, dm, nobs, nsamp, **extra)  # noqa: E731
     got = bwd()
 
-    # the eager twin on the card, differentiable in the three inputs that F differentiates
+    # the eager twin on the card, differentiable in the inputs that F differentiates
     leaves = scal.clone().requires_grad_(True)
-    col = {k: leaves[:, i] for i, k in enumerate(kf.SLOTS["plpeak"])}
-    pop_params = plpeak.PLPeakPopulationParams(plpeak.PLPeakMassParams(*(col[k] for k in plpeak.PLPeakMassParams._fields)),
-                                               RedshiftParams(col["lam"], col["kappa"], col["zp"]))
+    col = {k: leaves[:, i] for i, k in enumerate(kf.SLOTS[family])}
     nq_l, cols_l = log_nq.clone().requires_grad_(True), det.cols.clone().requires_grad_(True)
+    red = RedshiftParams(col["lam"], col["kappa"], col["zp"])
+    if family == "plpeak":
+        mass = plpeak.PLPeakMassParams(*(col[k] for k in plpeak.PLPeakMassParams._fields))
+        inputs, make = [cols_l, nq_l, leaves], lambda: plpeak.PLPeakIntensity(  # noqa: E731
+            params=plpeak.PLPeakPopulationParams(mass, red), dm=dm, log_nq=nq_l, log_norm=torch.zeros_like(col["mmin"]))
+    else:
+        from bumpcosmology_torch.models import pspline
+
+        spl_l = spline.detach().clone().requires_grad_(True)
+        mass = pspline.PSplineMassParams(*(col[k] for k in pspline.PSplineMassParams._fields[:-1]), heights=None)
+        inputs, make = [cols_l, nq_l, leaves, spl_l], lambda: pspline.PSplineIntensity(  # noqa: E731
+            params=pspline.PSplinePopulationParams(mass, red), dm=dm, log_nq=nq_l,
+            log_norm=torch.zeros_like(col["mmin"]), coef=spl_l)
 
     def plain_fwd():
-        pop = plpeak.PLPeakIntensity(params=pop_params, dm=dm, log_nq=nq_l, log_norm=torch.zeros_like(col["mmin"]))
+        pop = make()
         pop = pop._replace(log_norm=plpeak._pivot_log_norm(pop))
         w = lk._cosmo_frame_logwts_fused(pop, DetectorFrameTable(det.params, det.v0, det.dv, cols_l), qry)
         return (torch.logsumexp(w[:, :nobs * nsamp].reshape(c, nobs, nsamp), -1),
                 torch.logsumexp(w[:, nobs * nsamp:], -1))
 
     ref_ev, ref_sel = plain_fwd()
-    plain_bwd = lambda: torch.autograd.grad((ref_ev, ref_sel), [cols_l, nq_l, leaves], (g_ev, g_sel),  # noqa: E731
-                                            retain_graph=True)
+    plain_bwd = lambda: torch.autograd.grad((ref_ev, ref_sel), inputs, (g_ev, g_sel), retain_graph=True)  # noqa: E731
     ref = plain_bwd()
     err_fwd = max(check_close("F lse_ev", lse_ev, ref_ev.detach(), 2e-5, 2e-5),
                   check_close("F lse_sel", lse_sel, ref_sel.detach(), 2e-5, 2e-5))
     err_bwd = max(check_close(f"F d_{name}", a, b, 5e-4, 5e-4 * float(b.abs().max()) + 1e-5)
-                  for name, a, b in zip(("det", "nq", "scal"), got, ref))
+                  for name, a, b in zip(("det", "nq", "scal", "spline"), got, ref))
 
-    terms = counts.FAMILY_QUERY_OPS["plpeak"]
-    ops = [c * (n * sum(t[i] for t in terms) + sum(t[i] for t in terms if t[0] in counts.PIVOT_TERMS))
-           for i in (1, 2)]
-    read = 4 * (n * 4 + c * (2 * n_z + n_grid + kf._NS))  # the query rows, the two tables and the sites
+    if family == "plpeak":
+        terms = counts.FAMILY_QUERY_OPS["plpeak"]
+        ops = [c * (n * sum(t[i] for t in terms) + sum(t[i] for t in terms if t[0] in counts.PIVOT_TERMS))
+               for i in (1, 2)]
+    else:  # counts_pspline's rows: the forward's Row::eval, the backward's recomputation and chain rule
+        ops = [c * n * sum(k for _, _, k in counts_pspline.ROW_FWD), c * n * counts_pspline.row_bwd_ops()]
+    words = 2 * n_z + n_grid + kf._NS + (0 if spline is None else spline[0].numel())
+    read = 4 * (n * 4 + c * words)  # the query rows, the tables and the sites
     kernels = {}
     bounds = (oncard.bound_ms(read + 4 * c * (nobs + 1), ops[0]),
               oncard.bound_ms(2 * read + 8 * c * (nobs + 1), ops[1]))

@@ -46,8 +46,10 @@ The counters (:func:`counters`) are plain integers: ``model.value_and_grads``
 (batched value+grads), ``nuts.host_syncs`` (reads of the device by NUTS's
 transitions and its step-size search: a leapfrog's active-chain check and
 its ``nonzero``, one check a subtree) and the hand-written kernels'
-launches, ``cuda_bump.*``, ``cuda_logwts.*``, ``cuda_families.*``, ``cuda_priors.*``,
-``cuda_snr.*`` and ``cuda_tables.*``.
+launches, ``cuda_bump.*``, ``cuda_logwts.*``, ``cuda_families.*`` (by layout and route),
+``cuda_priors.*``, ``cuda_snr.*`` and ``cuda_tables.*``, and kernel F's launches once more by mass
+family, ``cuda_families_by_family.<family>_fwd`` / ``_bwd`` (outside ``cuda_families.*``, so that
+a sum over that prefix counts each launch once).
 
 The JAX package's ``xla_cost`` (XLA's static flops and bytes of a jitted
 function) has no counterpart: the port compiles nothing with XLA.  The
@@ -220,6 +222,7 @@ def counters() -> Dict[str, int]:
     out = {}
     for prefix, counts in (("model", model.COUNTS), ("nuts", nuts.COUNTS), ("cuda_bump", cuda_bump.LAUNCHES),
                            ("cuda_logwts", cuda_logwts.LAUNCHES), ("cuda_families", cuda_families.LAUNCHES),
+                           ("cuda_families_by_family", cuda_families.BY_FAMILY),
                            ("cuda_priors", cuda_priors.LAUNCHES), ("cuda_snr", cuda_snr.LAUNCHES),
                            ("cuda_tables", cuda_tables.LAUNCHES)):
         out.update((f"{prefix}.{k}", v) for k, v in counts.items())

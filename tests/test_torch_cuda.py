@@ -361,7 +361,7 @@ def test_snr_kernel_cases_match_plain(dev, case):
     torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("family", ["plpeak", "brokenpl"])
+@pytest.mark.parametrize("family", ["plpeak", "brokenpl", "pspline"])
 @pytest.mark.parametrize("layout", ["shared", "fleet"])
 def test_family_joint_value_and_grad_repeats_on_the_card(dev, family, layout):
     """The families' joint potential (the fused detector-table route in plain
@@ -597,7 +597,10 @@ FAMILY_EDGES = {
     "mu_m": (45.0, 21.0, 35.0, 20.2), "sigma_m": (8.0, 9.9, 3.0, 1.01), "delta_m": (0.05, 9.95, 4.0, 0.001),
     "lam": (2.7, -1.2, 6.6, 0.0), "dkappa": (3.0, 1.1, 6.8, 2.0), "zp": (1.9, 0.05, 3.8, 1.0),
     "R_unit": (0.0, 1.0, -1.0, 0.5),
+    # POWER LAW + SPLINE's heights at +-3 and in between, alternating from knot to knot in the last chain
+    **{f"f_{i}": (3.0, -3.0, 0.5 * (i % 5) - 1.0, 3.0 * (-1) ** i) for i in range(1, 19)},
 }
+FAMILIES = ("plpeak", "brokenpl", "pspline")
 
 
 def _family_case(dev, family, c, layout, dtype, seed=5, edges=False, nobs=8, nsamp=64, nsel=1024):
@@ -663,7 +666,7 @@ def _assert_family_close(got, ref):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("layout", ["shared", "per_chain"])
 @pytest.mark.parametrize("c", [1, 4, 128])
-@pytest.mark.parametrize("family", ["plpeak", "brokenpl"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_family_kernel_matches_the_eager_twin(dev, family, c, layout, dtype):
     """Kernel F's per-event and selection log-sum-exps and the gradient of
     the log-likelihood by every site against the eager twin on the card
@@ -677,19 +680,104 @@ def test_family_kernel_matches_the_eager_twin(dev, family, c, layout, dtype):
     _assert_family_close(got, ref)
 
 
+def _on_cpu(data, sites):
+    """(data, sites) moved to the CPU."""
+    from bumpcosmology_torch.inference import likelihoods as lk
+
+    return (lk.PopCosmoData(*(type(x)(*(t.cpu() for t in x)) for x in (data.events, data.selection))),
+            {k: v.cpu() for k, v in sites.items()})
+
+
+@pytest.mark.parametrize("edges", [False, True])
+@pytest.mark.parametrize("layout", ["shared", "per_chain"])
+def test_pspline_kernel_in_float64_against_the_eager_twin_on_the_cpu(dev, layout, edges):
+    """POWER LAW + SPLINE through kernel F in float64 against its eager twin
+    in float64 on the CPU (whose gathers add in order): the log-sum-exps
+    within 1e-10 of 1 + |twin's| (float64's rounding over a few hundred
+    operations a row, summed in another order), and the gradient by every
+    site within 1e-10 as well (the kernel's table cotangents are sums of
+    contributions each rounded to at most 2^-41; the gaps read 1.9e-11 to
+    4.0e-11 on an H100); the gaps are printed."""
+    from bumpcosmology_torch.inference import likelihoods as lk
+
+    data, sites = _family_case(dev, "pspline", 4, layout, torch.float64, edges=edges)
+    bounds = lk.dl_bounds_of(data, margin=0.1)
+    got = _family_value_and_grad("pspline", data, sites, plain=False, bounds=bounds)
+    ref = _family_value_and_grad("pspline", *_on_cpu(data, sites), plain=True, bounds=bounds)
+    gaps = {}
+    for name, a, b in (("lse_ev", got[0], ref[0]), ("lse_sel", got[1], ref[1])):
+        gaps[name] = float(((a.cpu() - b).abs() / (1 + b.abs())).max())
+        assert gaps[name] < 1e-10, (name, gaps)
+    for k, b in ref[2].items():
+        gaps[k] = float(((got[2][k].cpu() - b).abs() / (1 + b.abs())).max())
+    print("pspline float64 gaps", layout, edges, max(gaps.items(), key=lambda kv: kv[1]))
+    assert max(v for k, v in gaps.items() if not k.startswith("lse")) < 1e-10, gaps
+
+
+@pytest.mark.parametrize("n_z", [1024, 8192])
+@pytest.mark.parametrize("family", ["plpeak", "pspline"])
+def test_family_kernel_at_the_whole_catalog(dev, family, n_z):
+    """The committed catalog whole, as ``gwtc3_pspline.nuts`` runs it: 56
+    events x 256 PE samples and 24,576 injections, 38,912 rows a chain, 4
+    chains at prior draws, float32, the q-norm table at 256 masses.  F
+    against its eager twin on the card within the families' parity limits,
+    on the backward's shared-memory route at n_z = 1,024 and its
+    device-memory route at 8,192, and twice bit for bit."""
+    import json
+
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.inference.model import ModelSpec, constrain, prior_sample
+    from cardbench import harness
+
+    config = json.loads((harness.BENCH_DIR / "configs" / "flagship_plpeak.json").read_text())
+    raw = harness.read_catalog(harness.data_path(config, "catalog"))
+    assert raw["ev_a"].shape == (56, 256) and raw["sel_a"].shape == (24576,)
+    data = harness.program_data(raw, dev)
+    spec = ModelSpec(priors=dict(lk.MASS_FAMILIES[family].cosmo_priors), loglike=None, device=torch.device("cpu"))
+    sites = constrain(spec, prior_sample(spec, torch.Generator().manual_seed(23), shape=(4,)))
+    sites = {k: v.detach().to(dev) for k, v in sites.items()}
+    bounds = lk.dl_bounds_of(data)
+    got = _family_value_and_grad(family, data, sites, plain=False, n_grid=256, n_z=n_z, bounds=bounds)
+    route = "families_bwd" if n_z == 1024 else "families_bwd_global"
+    assert got[3] == {"families_fwd": 1, route: 1}
+    _assert_family_close(got, _family_value_and_grad(family, data, sites, plain=True, n_grid=256, n_z=n_z,
+                                                     bounds=bounds))
+    again = _family_value_and_grad(family, data, sites, plain=False, n_grid=256, n_z=n_z, bounds=bounds)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    for k, v in got[2].items():
+        assert torch.equal(v.view(torch.int32), again[2][k].view(torch.int32)), k
+
+
+def test_family_kernel_counts_its_launches_by_family(dev):
+    """``cuda_families.BY_FAMILY`` tells a POWER LAW + SPLINE launch from a
+    POWER-LAW+PEAK one, and ``profiling.counters()`` reads it."""
+    from bumpcosmology_torch.ops import cuda_families
+    from bumpcosmology_torch.utils import profiling
+
+    for family in ("plpeak", "pspline"):
+        data, sites = _family_case(dev, family, 4, "shared", torch.float32)
+        before = dict(cuda_families.BY_FAMILY)
+        _family_value_and_grad(family, data, sites, plain=False)
+        delta = {k: v - before[k] for k, v in cuda_families.BY_FAMILY.items() if v != before[k]}
+        assert delta == {f"{family}_fwd": 1, f"{family}_bwd": 1}
+        assert profiling.counters()[f"cuda_families_by_family.{family}_bwd"] == cuda_families.BY_FAMILY[
+            f"{family}_bwd"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("family", ["plpeak", "brokenpl"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_family_kernel_at_the_model_edges(dev, family, dtype):
     """The same at sites on the model's edges: alpha within 1e-13 of 1 (the
     power law's series branch), delta_m at 0.001 and 9.95, lam_peak at
-    0.001 and 0.99, redshift parameters at their bounds."""
+    0.001 and 0.99, redshift parameters at their bounds, the spline's
+    heights at +-3."""
     data, sites = _family_case(dev, family, 4, "shared", dtype, edges=True)
     _assert_family_close(_family_value_and_grad(family, data, sites, plain=False),
                          _family_value_and_grad(family, data, sites, plain=True))
 
 
 @pytest.mark.parametrize("layout", ["shared", "per_chain"])
-@pytest.mark.parametrize("family", ["plpeak", "brokenpl"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_family_kernel_backward_is_bit_identical_between_launches(dev, family, layout):
     """Two value+grads through kernel F give the same bits, with the shared
     query table and with one a chain: the table cotangents are summed in
@@ -702,7 +790,7 @@ def test_family_kernel_backward_is_bit_identical_between_launches(dev, family, l
         assert torch.equal(v.view(torch.int32), second[2][k].view(torch.int32)), k
 
 
-@pytest.mark.parametrize("family", ["plpeak", "brokenpl"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_family_kernel_gives_an_all_dead_segment_minus_infinity_and_no_gradient(dev, family):
     """An event whose rows all weigh -inf (log pdraw = +inf): F returns -inf
     for it and finite gradients under a non-zero cotangent of every
@@ -738,6 +826,59 @@ def test_family_kernel_backward_in_device_memory(dev, layout):
     again = _family_value_and_grad("plpeak", data, sites, plain=False, n_z=8192)
     for k, v in got[2].items():
         assert torch.equal(v, again[2][k]), k
+
+
+def kernel_f_digests(dev):
+    """sha256 of kernel F's outputs for POWER-LAW+PEAK and BROKEN POWER LAW on
+    fixed inputs: both types, both query layouts and both backward routes
+    (n_z = 256 and 8,192), the per-event and selection log-sum-exps and the
+    cotangents of the detector table, the q-norm table and the sites for
+    fixed segment cotangents.  What a third family in the kernel must leave
+    as it was."""
+    import hashlib
+
+    from bumpcosmology_torch.inference import likelihoods as lk
+    from bumpcosmology_torch.models.cosmology import build_cosmology, build_detector_table
+    from bumpcosmology_torch.ops import cuda_families
+
+    out = {}
+    for family in ("plpeak", "brokenpl"):
+        raw = hashlib.sha256()
+        for dtype in (torch.float32, torch.float64):
+            for layout in ("shared", "per_chain"):
+                data, sites = _family_case(dev, family, 4, layout, dtype)
+                bounds = lk.dl_bounds_of(data, margin=0.1)
+                nobs, nsamp = data.events.a.shape[-2:]
+                for n_z in (256, 8192):
+                    with torch.no_grad():
+                        det = build_detector_table(build_cosmology(lk.cosmo_from_sites(sites), n=n_z), *bounds, n=n_z)
+                        pop = lk.MASS_FAMILIES[family].build(sites, 128, pivot=False)
+                        scal = cuda_families.family_scalars(family, pop.params.mass, pop.params.redshift)
+                    cols, nq, scal = (t.detach().contiguous().clone().requires_grad_(True)
+                                      for t in (det.cols, pop.log_nq, scal))
+                    lse_ev, lse_sel = cuda_families.family_lse(family, det._replace(cols=cols), nq, pop.dm, scal,
+                                                               lk.query_table(data), nobs, nsamp)
+                    gen = torch.Generator().manual_seed(17)
+                    g = [torch.rand(x.shape, generator=gen, dtype=torch.float64).to(device=dev, dtype=dtype)
+                         for x in (lse_ev, lse_sel)]
+                    for x in (lse_ev, lse_sel, *torch.autograd.grad((lse_ev, lse_sel), (cols, nq, scal), g)):
+                        raw.update(x.detach().cpu().numpy().tobytes())
+        out[family] = raw.hexdigest()
+    return out
+
+
+# kernel_f_digests on an H100 80GB HBM3 (sm_90a, ops/_build.py's flags), taken from the kernel before POWER LAW +
+# SPLINE joined it
+KERNEL_F_DIGESTS = {"plpeak": "6ffae2de9b6796f7c8b019d6f4ce40dd1bbc08b0be329878578feebc3804c467",
+                    "brokenpl": "e8149cf6c843192ff6e69ce456bf678a1cc93b30aee66c7358ff1e84ff548614"}
+
+
+def test_family_kernel_gives_the_bits_it_gave_before_the_spline(dev):
+    """Kernel F gives POWER-LAW+PEAK and BROKEN POWER LAW the bits it gave
+    before POWER LAW + SPLINE's spline table joined it."""
+    if torch.cuda.get_device_capability(dev) != (9, 0):
+        pytest.skip("the digests were taken on an sm_90 card")
+    assert kernel_f_digests(dev) == KERNEL_F_DIGESTS
 
 
 def kernel_b_digests(dev):

@@ -1,6 +1,7 @@
 """Kernel F (``csrc/families.cu``, ``ops/cuda_families.py``) on a host without a card.
 
-* The joint log-likelihood of POWER-LAW+PEAK and BROKEN POWER LAW on the CPU
+* The joint log-likelihood of POWER-LAW+PEAK, BROKEN POWER LAW and POWER LAW +
+  SPLINE on the CPU
   is the eager code, bit for bit, value and gradient: the kernel's wrapper is
   never reached there.
 * The wrapper raises ``ValueError`` on a tensor that is not on CUDA, not
@@ -23,14 +24,14 @@ import torch
 
 from bumpcosmology_torch.inference import likelihoods as lk
 from bumpcosmology_torch.inference.model import ModelSpec, constrain, prior_sample
-from bumpcosmology_torch.models import brokenpl, plpeak
+from bumpcosmology_torch.models import brokenpl, plpeak, pspline
 from bumpcosmology_torch.models.cosmology import DetectorFrameTable, build_cosmology, build_detector_table
 from bumpcosmology_torch.models.parameters import RedshiftParams
 from bumpcosmology_torch.ops import cuda_families
 from bumpcosmology_torch.testing import synthetic_pop_cosmo_data
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "bumpcosmology_torch" / "csrc"
-FAMILIES = ("plpeak", "brokenpl")
+FAMILIES = ("plpeak", "brokenpl", "pspline")
 
 
 class _OnCuda:
@@ -113,8 +114,12 @@ def test_slots_and_codes_match_the_kernel_header():
     assert all(len(s) == cuda_families._NS for s in cuda_families.SLOTS.values())
     codes = dict(re.findall(r"(\w+) = (\d+)", re.search(r"enum Family \{([^}]*)\}", text).group(1)))
     assert {k.lower(): int(v) for k, v in codes.items()} == cuda_families.FAMILIES
-    # the shared slots are the same sites in both families
-    assert cuda_families.SLOTS["plpeak"][:7] == cuda_families.SLOTS["brokenpl"][:7]
+    # the shared slots are the same sites in every family
+    assert cuda_families.SLOTS["plpeak"][:7] == cuda_families.SLOTS["brokenpl"][:7] == cuda_families.SLOTS["pspline"][:7]
+    # the spline's knots, spacing and table are models/pspline.py's
+    const = dict(re.findall(r"constexpr (?:int|double) (SPL_\w+) = ([^;]+);", text))
+    assert int(const["SPL_KNOTS"]) == pspline.N_KNOTS and cuda_families.SPLINE_SHAPE == (pspline.N_KNOTS - 1, 4)
+    assert float(const["SPL_X0"]) == pspline.X0 and float(const["SPL_H"]) == pspline.H
 
 
 def _data(dtype, seed=3, nobs=6, nsamp=32, nsel=200):
@@ -190,15 +195,17 @@ using namespace fam;
 // compared is each row's arithmetic, not the order of a long float sum.
 template <typename T, int FAM>
 static void run(const T* s, const T* det, int K, double v0, double dv, const T* nq, int n_m, double dmq,
-                const T* qry, int N, int C, const T* g, T* out, double* d_det, double* d_nq, T* d_s, T* log_norm) {
+                const T* spl, const T* qry, int N, int C, const T* g, T* out, double* d_det, double* d_nq,
+                double* d_spl, T* d_s, T* log_norm) {
   for (int c = 0; c < C; ++c) {
     Chain<T> k;
     const T* nqc = nq + (size_t)c * n_m;
-    chain_init<T, FAM>(k, s + (size_t)c * NS, nqc, n_m, (T)dmq);
+    chain_init<T, FAM>(k, s + (size_t)c * NS, nqc, n_m, (T)dmq, spl + (size_t)c * SPL_COEFS);
     log_norm[c] = k.log_norm;
     double tot[NACC] = {};
     double* dd = d_det + (size_t)c * K * 2;
     double* dn = d_nq + (size_t)c * n_m;
+    double* dsp = d_spl + (size_t)c * SPL_COEFS;
     for (int n = 0; n < N; ++n) {
       const T* q = qry + (size_t)n * 4;
       Row<T, FAM> r;
@@ -211,22 +218,25 @@ static void run(const T* s, const T* det, int K, double v0, double dv, const T* 
       dd[2 * a.det_lo] += a.dz0; dd[2 * a.det_lo + 2] += a.dz1;
       dd[2 * a.det_lo + 1] += a.dj0; dd[2 * a.det_lo + 3] += a.dj1;
       dn[a.nq_lo] += a.n0; dn[a.nq_lo + 1] += a.n1;
+      if (a.spl.lo >= 0) for (int j = 0; j < 4; ++j) dsp[4 * a.spl.lo + j] += a.spl.c[j];
     }
     T acc[NACC];
     for (int i = 0; i < NACC; ++i) acc[i] = (T)tot[i];
     int lo; T na, nb;
-    pivot_grad<T, FAM>(k, nqc, n_m, (T)dmq, acc, lo, na, nb);
+    SplAdd<T> sa;
+    pivot_grad<T, FAM>(k, nqc, n_m, (T)dmq, acc, lo, na, nb, sa);
     dn[lo] += na; dn[lo + 1] += nb;
+    if (sa.lo >= 0) for (int j = 0; j < 4; ++j) dsp[4 * sa.lo + j] += sa.c[j];
     finalize<T, FAM>(k, acc, d_s + (size_t)c * NS);
   }
 }
 
 #define EXPORT(T, name)                                                                                     \
   extern "C" void name(int fam, const T* s, const T* det, int K, double v0, double dv, const T* nq, int n_m, \
-                       double dmq, const T* qry, int N, int C, const T* g, T* out, double* d_det, double* d_nq, \
-                       T* d_s, T* log_norm) {                                                                       \
-    (fam == 0 ? run<T, PLPEAK> : run<T, BROKENPL>)(s, det, K, v0, dv, nq, n_m, dmq, qry, N, C, g, out, d_det, \
-                                                   d_nq, d_s, log_norm);                                    \
+                       double dmq, const T* spl, const T* qry, int N, int C, const T* g, T* out, double* d_det, \
+                       double* d_nq, double* d_spl, T* d_s, T* log_norm) {                                  \
+    (fam == 0 ? run<T, PLPEAK> : fam == 1 ? run<T, BROKENPL> : run<T, PSPLINE>)(                             \
+        s, det, K, v0, dv, nq, n_m, dmq, spl, qry, N, C, g, out, d_det, d_nq, d_spl, d_s, log_norm);          \
   }
 EXPORT(float, rows_f32)
 EXPORT(double, rows_f64)
@@ -246,7 +256,7 @@ def host_rows(tmp_path_factory):
     lib = ctypes.CDLL(str(d / "librows.so"))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("rows_f32", "rows_f64"):
-        getattr(lib, name).argtypes = [i, p, p, i, f, f, p, i, f, p, i, i, p, p, p, p, p, p]
+        getattr(lib, name).argtypes = [i, p, p, i, f, f, p, i, f, p, p, i, i, p, p, p, p, p, p, p]
     return lib
 
 
@@ -256,16 +266,27 @@ EDGES = {  # cardbench/tests/test_cardbench_plpeak.py's sites on the model's edg
     "sigma_m": (8.0, 9.9, 3.0, 1.01), "delta_m": (0.05, 9.95, 4.0, 0.001), "lam": (2.7, -1.2, 6.6, 0.0),
     "zp": (1.9, 0.05, 3.8, 1.0), "h": (0.7, 0.36, 1.39, 0.68), "Om": (0.3, 0.02, 0.95, 0.31),
     "w": (-1.0, -1.45, -0.55, -0.9), "dkappa": (3.0, 1.1, 6.8, 2.0),
+    # POWER LAW + SPLINE's heights at +-3 and in between, alternating from knot to knot in the last chain
+    **{f"f_{i}": (3.0, -3.0, 0.5 * (i % 5) - 1.0, 3.0 * (-1) ** i) for i in range(1, 19)},
 }
 
+_INTENSITY = {"plpeak": plpeak.PLPeakIntensity, "brokenpl": brokenpl.BrokenPLIntensity,
+              "pspline": pspline.PSplineIntensity}
+_MASS = {"plpeak": plpeak.PLPeakMassParams, "brokenpl": brokenpl.BrokenPLMassParams,
+         "pspline": pspline.PSplineMassParams}
+_POP = {"plpeak": plpeak.PLPeakPopulationParams, "brokenpl": brokenpl.BrokenPLPopulationParams,
+        "pspline": pspline.PSplinePopulationParams}
 
-def _host_and_autograd(lib, family, dtype, sites, n_grid=64, n_z=128):
+
+def _host_and_autograd(lib, family, dtype, sites, n_grid=64, n_z=128, data=None):
     """({output: host build's}, {output: autograd's}) in ``dtype``: every row's
     weight, the pivot, and the cotangents of the detector table, the q-norm
-    table and each site for one random positive row cotangent."""
+    table, POWER LAW + SPLINE's coefficient table and each site for one
+    random positive row cotangent."""
     c = sites["mmin"].shape[0]
     sites = {k: v.to(dtype) for k, v in sites.items()}
-    data = _data(dtype)
+    data = _data(dtype) if data is None else lk.PopCosmoData(*(type(x)(*(t.to(dtype) for t in x))
+                                                               for x in (data.events, data.selection)))
     bounds, qry = lk.dl_bounds_of(data), lk.query_table(data)
     with torch.no_grad():
         det = build_detector_table(build_cosmology(lk.cosmo_from_sites(sites), n=n_z), *bounds, n=n_z)
@@ -273,34 +294,42 @@ def _host_and_autograd(lib, family, dtype, sites, n_grid=64, n_z=128):
     leaves = {k: (sites["lam"] + sites["dkappa"] if k == "kappa" else sites[k]).detach().clone().requires_grad_(True)
               for k in slots if k}
     red = RedshiftParams(leaves["lam"], leaves["kappa"], leaves["zp"])
-    inten = plpeak.PLPeakIntensity if family == "plpeak" else brokenpl.BrokenPLIntensity
-    mass_t = plpeak.PLPeakMassParams if family == "plpeak" else brokenpl.BrokenPLMassParams
-    pop_t = plpeak.PLPeakPopulationParams if family == "plpeak" else brokenpl.BrokenPLPopulationParams
-    params = pop_t(mass_t(*(leaves[k] for k in mass_t._fields)), red)
+    mass_t, extra = _MASS[family], {}
+    if family == "pspline":  # the coefficient table is the kernel's input: a leaf here, made from the heights
+        with torch.no_grad():
+            coef = pspline.spline_coefficients(lk.pspline_from_sites(sites).mass.heights)
+        extra = dict(coef=coef.clone().requires_grad_(True))
+    fields = [k for k in mass_t._fields if k != "heights"]
+    params = _POP[family](mass_t(*(leaves[k] for k in fields), **({"heights": None} if extra else {})), red)
     with torch.no_grad():
         dm, log_nq = plpeak._log_nq_grid(leaves["beta_q"], leaves["mmin"], leaves["delta_m"], n_grid, 128)
     nq = log_nq.clone().requires_grad_(True)
     cols = det.cols.clone().requires_grad_(True)
-    pop = inten(params=params, dm=dm, log_nq=nq, log_norm=torch.zeros_like(leaves["mmin"]))
+    pop = _INTENSITY[family](params=params, dm=dm, log_nq=nq, log_norm=torch.zeros_like(leaves["mmin"]), **extra)
     pop = pop._replace(log_norm=plpeak._pivot_log_norm(pop))
     out = lk._cosmo_frame_logwts_fused(pop, DetectorFrameTable(det.params, det.v0, det.dv, cols), qry)
     # a row cotangent of one sign, as the lse route's g_seg exp(w - lse_seg) within a segment
     g = torch.rand(out.shape, generator=torch.Generator().manual_seed(11), dtype=torch.float64).to(dtype)
     names = [k for k in slots if k]
-    grads = torch.autograd.grad((out * g).sum(), [leaves[k] for k in names] + [cols, nq])
-    auto = dict(out=out.detach(), log_norm=pop.log_norm.detach(), det=grads[-2], nq=grads[-1],
+    tables = [cols, nq] + list(extra.values())
+    grads = torch.autograd.grad((out * g).sum(), [leaves[k] for k in names] + tables)
+    auto = dict(out=out.detach(), log_norm=pop.log_norm.detach(), det=grads[len(names)], nq=grads[len(names) + 1],
                 **{k: grads[i] for i, k in enumerate(names)})
+    if extra:
+        auto["spline"] = grads[-1]
 
     s = cuda_families.family_scalars(family, params.mass, red).detach().contiguous()
     n = qry.shape[0]
+    spl = (extra["coef"].detach() if extra else torch.zeros((c, *cuda_families.SPLINE_SHAPE))).to(dtype).contiguous()
     h = dict(out=torch.zeros((c, n), dtype=dtype), det=torch.zeros_like(det.cols, dtype=torch.float64),
-             nq=torch.zeros_like(log_nq, dtype=torch.float64), s=torch.zeros_like(s), log_norm=torch.zeros(c, dtype=dtype))
+             nq=torch.zeros_like(log_nq, dtype=torch.float64), spline=torch.zeros_like(spl, dtype=torch.float64),
+             s=torch.zeros_like(s), log_norm=torch.zeros(c, dtype=dtype))
     fn = lib.rows_f32 if dtype == torch.float32 else lib.rows_f64
     det_c, nq_c, qry_c = det.cols.contiguous(), log_nq.contiguous(), qry.contiguous()
     fn(cuda_families.FAMILIES[family], s.data_ptr(), det_c.data_ptr(), n_z, det.v0, det.dv, nq_c.data_ptr(), n_grid,
-       dm, qry_c.data_ptr(), n, c, g.contiguous().data_ptr(), h["out"].data_ptr(), h["det"].data_ptr(),
-       h["nq"].data_ptr(), h["s"].data_ptr(), h["log_norm"].data_ptr())
-    host = {k: h[k] for k in ("out", "log_norm", "det", "nq")}
+       dm, spl.data_ptr(), qry_c.data_ptr(), n, c, g.contiguous().data_ptr(), h["out"].data_ptr(), h["det"].data_ptr(),
+       h["nq"].data_ptr(), h["spline"].data_ptr(), h["s"].data_ptr(), h["log_norm"].data_ptr())
+    host = {k: h[k] for k in ("out", "log_norm", "det", "nq") + (("spline",) if extra else ())}
     host.update((k, h["s"][:, slots.index(k)]) for k in names)
     return host, auto
 
@@ -313,10 +342,11 @@ def _gap(a, b):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_the_kernel_arithmetic_on_the_host_matches_autograd(host_rows, family, sites):
     """Every row's weight, the pivot, and the cotangents of the detector
-    table, the q-norm table and each site that the hand-derived chain rule
-    gives for a random row cotangent, against autograd of the eager twin:
-    at prior draws and at the edges of the POWER-LAW+PEAK model (for the
-    broken power law, the edges of the sites it shares).  In float64 to
+    table, the q-norm table, POWER LAW + SPLINE's coefficient table and each
+    site that the hand-derived chain rule gives for a random row cotangent,
+    against autograd of the eager twin: at prior draws and at the edges of
+    the POWER-LAW+PEAK model (for the other families, the edges of the sites
+    they share, and the spline's heights at +-3).  In float64 to
     1e-10 of 1 + |autograd's|; in float32 as close to float64's autograd as
     the twin's own float32 autograd comes, within four times its gap and
     1e-5 (the taper's width near its edge loses a few digits to

@@ -153,7 +153,8 @@ def test_fit_rejects_what_is_not_ported():
     """An unknown mass family raises ValueError with the JAX package's message
     in both stages, before any table is read; so does an unknown sampler."""
     cfg = config.PipelineConfig(fit=config.FitConfig(mass_family="gaussian"))
-    msg = "unknown mass_family 'gaussian' \\(expected one of \\['brokenpl', 'bump', 'plpeak'\\]\\)"
+    # the JAX package's message, naming the port's families: its three and POWER LAW + SPLINE
+    msg = "unknown mass_family 'gaussian' \\(expected one of \\['brokenpl', 'bump', 'plpeak', 'pspline'\\]\\)"
     for stage in (stages.run_pop_fit, stages.run_pop_cosmo_fit):
         with pytest.raises(ValueError, match=msg):
             stage(cfg, {}, {}, device="cpu")
